@@ -1,0 +1,86 @@
+"""Batch pipeline: per-node datasets → stacked batches (numpy-only copy of
+``NodeBatcher`` and ``make_test_batch`` from ``repro/data/pipeline.py``).
+
+Per round the trainer wants leaves ``(n_nodes, E·steps, batch, ...)``;
+every node runs the same number of steps, nodes with fewer samples wrap
+around with a fresh permutation per cycle, and each of the E local epochs
+is its own shuffle (epoch mixed into the seed).
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from repro_torch.data.synthetic import Dataset
+
+__all__ = ["NodeBatcher", "make_test_batch"]
+
+
+class NodeBatcher:
+    """Yields per-round stacked image batches for the decentralized
+    trainer (``steps_per_epoch <= 0``: enough steps to cover the median
+    node's data once)."""
+
+    def __init__(self, node_data: List[Dataset], batch_size: int,
+                 steps_per_epoch: int = 0, seed: int = 0,
+                 local_epochs: int = 1):
+        if node_data[0].kind != "image":
+            raise NotImplementedError(
+                "the port batches image datasets only (language batches "
+                "wait for the GPT-2 slice, ROADMAP Queue 1)")
+        self.node_data = node_data
+        self.batch_size = batch_size
+        self.kind = node_data[0].kind
+        self.n_nodes = len(node_data)
+        if steps_per_epoch <= 0:
+            med = int(np.median([len(d) for d in node_data]))
+            steps_per_epoch = max(1, med // batch_size)
+        self.steps = steps_per_epoch
+        self.seed = seed
+        self.local_epochs = max(1, local_epochs)
+
+    def data_counts(self) -> np.ndarray:
+        return np.array([len(d) for d in self.node_data], dtype=np.float64)
+
+    @staticmethod
+    def _epoch_indices(rng: np.random.Generator, n_samples: int,
+                       need: int) -> np.ndarray:
+        idx = rng.permutation(n_samples)
+        while len(idx) < need:
+            idx = np.concatenate([idx, rng.permutation(n_samples)])
+        return idx[:need]
+
+    def round_indices(self, round_idx: int) -> np.ndarray:
+        """(n_nodes, local_epochs·steps·batch) per-node sample indices."""
+        need = self.steps * self.batch_size
+        out = np.empty((self.n_nodes, self.local_epochs * need),
+                       dtype=np.int64)
+        for node, ds in enumerate(self.node_data):
+            base = (self.seed * 1_000_003 + round_idx) * 131 + node
+            for epoch in range(self.local_epochs):
+                rng = np.random.default_rng(base + epoch * 16_777_619)
+                out[node, epoch * need:(epoch + 1) * need] = \
+                    self._epoch_indices(rng, len(ds), need)
+        return out
+
+    def round_batches(self, round_idx: int) -> Dict[str, np.ndarray]:
+        """→ leaves (n_nodes, local_epochs·steps, batch, ...)."""
+        indices = self.round_indices(round_idx)
+        total = self.local_epochs * self.steps
+        xs, ys = [], []
+        for node, ds in enumerate(self.node_data):
+            idx = indices[node]
+            xs.append(ds.x[idx].reshape((total, self.batch_size) + ds.x.shape[1:]))
+            ys.append(ds.y[idx].reshape(total, self.batch_size))
+        return {"x": np.stack(xs), "y": np.stack(ys)}
+
+
+def make_test_batch(ds: Dataset, n: int = 512,
+                    seed: int = 0) -> Dict[str, np.ndarray]:
+    """A single fixed evaluation batch from an image test dataset."""
+    if ds.kind != "image":
+        raise NotImplementedError("the port has image test batches only")
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(len(ds), size=min(n, len(ds)), replace=False)
+    return {"x": ds.x[idx], "y": ds.y[idx]}

@@ -1,0 +1,122 @@
+"""Optimizers over the stacked node axis (port of
+``repro/training/optimizer.py``: ``sgd``, ``adam``, ``apply_updates`` and
+``clip_by_global_norm``).
+
+The reference's ``Optimizer`` updates ONE node and the trainer vmaps it
+over the node axis.  The port writes that axis out: every tree here has
+leaves ``(n, ...)``, and every per-node quantity stays per node.  In
+particular :func:`global_norm` is one norm per node — the reference
+computes it under ``vmap``, so a norm taken over the stacked tensors would
+be wrong.  The step counter is shared (every node takes the same number of
+steps in a synchronous round).  States are dicts of trees so they flatten
+in ``jax.tree`` order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import tree as tree_util
+
+__all__ = [
+    "Optimizer",
+    "sgd",
+    "adam",
+    "apply_updates",
+    "global_norm",
+    "clip_by_global_norm",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable     # stacked params -> state
+    update: Callable   # (grads, state, params) -> (updates, state)
+
+
+def apply_updates(params, updates):
+    return tree_util.tree_map(lambda p, u: (p + u).to(p.dtype), params,
+                              updates)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """(n,) per-node L2 norm over every leaf of a stacked tree (f32)."""
+    sq = [torch.square(x.to(torch.float32)).reshape(x.shape[0], -1).sum(1)
+          for x in tree_util.leaves(tree)]
+    return torch.sqrt(torch.stack(sq).sum(0))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """Scale each node's leaves so that node's global norm is at most
+    ``max_norm``; returns ``(clipped tree, (n,) norms)``."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+
+    def clip(x):
+        return x * scale.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+
+    return tree_util.tree_map(clip, tree), norm
+
+
+def _f32_zeros(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def sgd(lr: float, momentum: float = 0.0,
+        clip_norm: Optional[float] = None) -> Optimizer:
+    """Plain SGD (+ momentum); updates in f32."""
+    lr = float(lr)
+
+    def init(params):
+        mom = tree_util.tree_map(_f32_zeros, params) if momentum > 0.0 \
+            else None
+        return {"momentum": mom, "step": 0}
+
+    def update(grads, state, params=None):
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        if momentum > 0.0:
+            new_m = tree_util.tree_map(
+                lambda m, g: momentum * m + g.to(torch.float32),
+                state["momentum"], grads)
+            updates = tree_util.tree_map(lambda m: -lr * m, new_m)
+            return updates, {"momentum": new_m, "step": state["step"] + 1}
+        updates = tree_util.tree_map(lambda g: -lr * g.to(torch.float32),
+                                     grads)
+        return updates, {"momentum": None, "step": state["step"] + 1}
+
+    return Optimizer(init, update)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         clip_norm: Optional[float] = None) -> Optimizer:
+    """Adam with bias correction computed in f32, as the reference does
+    (``b ** step`` on an f32 step)."""
+    lr = float(lr)
+
+    def init(params):
+        return {"mu": tree_util.tree_map(_f32_zeros, params),
+                "nu": tree_util.tree_map(_f32_zeros, params), "step": 0}
+
+    def update(grads, state, params=None):
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step = state["step"] + 1
+        mu = tree_util.tree_map(
+            lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
+            state["mu"], grads)
+        nu = tree_util.tree_map(
+            lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)),
+            state["nu"], grads)
+        s = torch.tensor(float(step), dtype=torch.float32)
+        mu_hat = 1.0 / (1.0 - torch.tensor(b1, dtype=torch.float32) ** s)
+        nu_hat = 1.0 / (1.0 - torch.tensor(b2, dtype=torch.float32) ** s)
+        mu_hat, nu_hat = float(mu_hat), float(nu_hat)
+        updates = tree_util.tree_map(
+            lambda m, v: -lr * (m * mu_hat) / (torch.sqrt(v * nu_hat) + eps),
+            mu, nu)
+        return updates, {"mu": mu, "nu": nu, "step": step}
+
+    return Optimizer(init, update)

@@ -1,0 +1,72 @@
+"""Parameter trees in ``jax.tree`` leaf order.
+
+The port keeps parameters as nested dicts and lists of tensors, like the
+JAX package's pytrees.  Leaf order matters: the packed ``(n, P)`` plane
+(``core/plane.py``) lays leaves out in flatten order, and its columns must
+match the reference's.  ``jax.tree`` visits dict keys SORTED and lists and
+tuples in order; ``torch.utils._pytree`` visits dicts in insertion order,
+so the port carries its own flatten.  ``None`` is an empty subtree, as in
+JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+__all__ = ["flatten", "unflatten", "tree_map", "leaves"]
+
+
+def flatten(tree) -> Tuple[List[Any], Any]:
+    """``(leaves, treedef)``; ``treedef`` is a hashable structure spec."""
+    out: List[Any] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            kind = "list" if isinstance(node, list) else "tuple"
+            return (kind, len(node), tuple(walk(c) for c in node))
+        if node is None:
+            return ("none",)
+        out.append(node)
+        return ("leaf",)
+
+    spec = walk(tree)
+    return out, spec
+
+
+def unflatten(treedef, leaves_in):
+    """Inverse of :func:`flatten`."""
+    it = iter(leaves_in)
+
+    def build(spec):
+        kind = spec[0]
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(s) for k, s in zip(spec[1], spec[2])}
+        children = [build(s) for s in spec[2]]
+        return children if kind == "list" else tuple(children)
+
+    tree = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the tree has slots")
+    return tree
+
+
+def leaves(tree) -> List[Any]:
+    return flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``jax.tree.map`` over trees of the same structure."""
+    flat, spec = flatten(tree)
+    others = []
+    for r in rest:
+        f, s = flatten(r)
+        if s != spec:
+            raise ValueError("tree_map: tree structures differ")
+        others.append(f)
+    return unflatten(spec, [fn(*xs) for xs in zip(flat, *others)])
