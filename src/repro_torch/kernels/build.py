@@ -20,17 +20,15 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "nvcc_path", "build", "build_all", "load"]
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("gossip_mix",)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -61,15 +59,13 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / h.hexdigest()[:16] / f"lib{name}.so"
 
 
-def build(name: str) -> Tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists.
-
-    Returns ``(library path, nvcc's output)`` — the output is empty when
-    the library was already built.  Concurrent builders each compile into
-    a temporary file and rename it into place."""
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists, and
+    return the library's path.  Concurrent builders each compile into a
+    temporary file and rename it into place."""
     out = _library_path(name)
     if out.exists():
-        return out, ""
+        return out
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
@@ -85,17 +81,7 @@ def build(name: str) -> Tuple[Path, str]:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out, proc.stdout + proc.stderr
-
-
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Build every source at once, one ``nvcc`` each, all started
-    together; returns nvcc's output per source and re-raises the first
-    failure."""
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        futures = {n: pool.submit(build, n) for n in names}
-        return {n: f.result()[1] for n, f in futures.items()}
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -103,6 +89,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)[0]))
+            lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib

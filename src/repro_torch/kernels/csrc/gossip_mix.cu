@@ -14,10 +14,10 @@
 // line, so it is bound by bytes; it becomes bound by operations from
 // n ~ 80.  What the design does about that:
 //   * every plane element is read from device memory once per block of 64
-//     output rows, with 16-byte vector loads (the port's PlaneLayout gives
-//     every row a 16-byte aligned stride; unaligned planes take the scalar
-//     instantiation), staged through shared memory in chunks of source rows
-//     so any n works (n = 1024 included);
+//     output rows, with 16-byte vector loads (the wrappers require a
+//     16-byte aligned base and row stride, which PlaneLayout.pack and
+//     aligned_plane give), staged through shared memory in chunks of source
+//     rows so any n works (n = 1024 included);
 //   * C is staged through shared memory in the same chunks and read as a
 //     warp-wide broadcast;
 //   * the ragged P edge is masked in the kernel, so the wrapper makes no
@@ -39,7 +39,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
@@ -55,12 +54,14 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // VEC consecutive elements starting at column col of a row, as floats;
-// columns at or beyond p read as 0.  VEC > 1 assumes a 16-byte aligned
-// address (the host picks VEC = 1 otherwise).
+// columns at or beyond p read as 0.  VEC * sizeof(T) is 16 bytes and the
+// address is 16-byte aligned (row and stride aligned, col a multiple of
+// VEC); only the ragged P edge falls back to scalar accesses.
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(const T* row, long long col,
                                          long long p, float* v) {
-  if (VEC > 1 && col + VEC <= p) {
+  static_assert(VEC * sizeof(T) == 16, "one 16-byte vector per access");
+  if (col + VEC <= p) {
     if constexpr (sizeof(T) == 4) {
       float4 q = *reinterpret_cast<const float4*>(row + col);
       v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
@@ -89,7 +90,7 @@ __device__ __forceinline__ void load_vec(const T* row, long long col,
 template <typename T, int VEC>
 __device__ __forceinline__ void store_vec(T* row, long long col, long long p,
                                           const float* v) {
-  if (VEC > 1 && col + VEC <= p) {
+  if (col + VEC <= p) {
     if constexpr (sizeof(T) == 4) {
       *reinterpret_cast<float4*>(row + col) =
           make_float4(v[0], v[1], v[2], v[3]);
@@ -165,31 +166,21 @@ plane_kernel(const float* __restrict__ c, const T* __restrict__ plane,
 #pragma unroll
         for (int k = 0; k < VEC; ++k) v[k] = 0.0f;
       }
-      if constexpr (VEC % 4 == 0) {
 #pragma unroll
-        for (int q = 0; q < VEC; q += 4) {
-          *reinterpret_cast<float4*>(&ps[jj][vx * VEC + q]) =
-              make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) ps[jj][vx * VEC + k] = v[k];
+      for (int q = 0; q < VEC; q += 4) {
+        *reinterpret_cast<float4*>(&ps[jj][vx * VEC + q]) =
+            make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
       }
     }
     __syncthreads();
     if (active) {
       for (int jj = 0; jj < jn; ++jj) {
         float pv[VEC];
-        if constexpr (VEC % 4 == 0) {
 #pragma unroll
-          for (int q = 0; q < VEC; q += 4) {
-            const float4 f =
-                *reinterpret_cast<const float4*>(&ps[jj][tx * VEC + q]);
-            pv[q] = f.x; pv[q + 1] = f.y; pv[q + 2] = f.z; pv[q + 3] = f.w;
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) pv[k] = ps[jj][tx * VEC + k];
+        for (int q = 0; q < VEC; q += 4) {
+          const float4 f =
+              *reinterpret_cast<const float4*>(&ps[jj][tx * VEC + q]);
+          pv[q] = f.x; pv[q + 1] = f.y; pv[q + 2] = f.z; pv[q + 3] = f.w;
         }
 #pragma unroll
         for (int r = 0; r < kRPT; ++r) {
@@ -285,15 +276,11 @@ void launch_edges(const void* w, const void* idx, const void* plane,
       static_cast<const T*>(plane), static_cast<T*>(out), n, dmax, p, ld);
 }
 
-bool aligned16(const void* a, const void* b, long long ld, int vec) {
-  return ld % vec == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  lowp: accumulate in the plane dtype.
-// ld: row stride of both plane and out, in elements.
+// ld: row stride of both plane and out, in elements.  plane, out and
+// ld * element size must be 16-byte aligned (the wrappers check).
 extern "C" int gossip_plane_launch(const void* c, const void* plane,
                                    void* out, int n, long long p,
                                    long long ld, int dtype, int lowp,
@@ -301,21 +288,11 @@ extern "C" int gossip_plane_launch(const void* c, const void* plane,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0 && p > 0) {
     if (dtype == 0) {
-      if (aligned16(plane, out, ld, 4)) {
-        launch_plane<float, 4, false>(c, plane, out, n, p, ld, s);
-      } else {
-        launch_plane<float, 1, false>(c, plane, out, n, p, ld, s);
-      }
-    } else if (aligned16(plane, out, ld, 8)) {
-      if (lowp) {
-        launch_plane<__nv_bfloat16, 8, true>(c, plane, out, n, p, ld, s);
-      } else {
-        launch_plane<__nv_bfloat16, 8, false>(c, plane, out, n, p, ld, s);
-      }
+      launch_plane<float, 4, false>(c, plane, out, n, p, ld, s);
     } else if (lowp) {
-      launch_plane<__nv_bfloat16, 1, true>(c, plane, out, n, p, ld, s);
+      launch_plane<__nv_bfloat16, 8, true>(c, plane, out, n, p, ld, s);
     } else {
-      launch_plane<__nv_bfloat16, 1, false>(c, plane, out, n, p, ld, s);
+      launch_plane<__nv_bfloat16, 8, false>(c, plane, out, n, p, ld, s);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -328,24 +305,12 @@ extern "C" int gossip_edges_launch(const void* w, const void* idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0 && p > 0 && dmax > 0) {
     if (dtype == 0) {
-      if (aligned16(plane, out, ld, 4)) {
-        launch_edges<float, 4, false>(w, idx, plane, out, n, dmax, p, ld, s);
-      } else {
-        launch_edges<float, 1, false>(w, idx, plane, out, n, dmax, p, ld, s);
-      }
-    } else if (aligned16(plane, out, ld, 8)) {
-      if (lowp) {
-        launch_edges<__nv_bfloat16, 8, true>(w, idx, plane, out, n, dmax, p,
-                                             ld, s);
-      } else {
-        launch_edges<__nv_bfloat16, 8, false>(w, idx, plane, out, n, dmax, p,
-                                              ld, s);
-      }
+      launch_edges<float, 4, false>(w, idx, plane, out, n, dmax, p, ld, s);
     } else if (lowp) {
-      launch_edges<__nv_bfloat16, 1, true>(w, idx, plane, out, n, dmax, p, ld,
-                                           s);
+      launch_edges<__nv_bfloat16, 8, true>(w, idx, plane, out, n, dmax, p,
+                                           ld, s);
     } else {
-      launch_edges<__nv_bfloat16, 1, false>(w, idx, plane, out, n, dmax, p,
+      launch_edges<__nv_bfloat16, 8, false>(w, idx, plane, out, n, dmax, p,
                                             ld, s);
     }
   }

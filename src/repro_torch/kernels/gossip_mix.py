@@ -68,13 +68,21 @@ def _check_plane(plane: torch.Tensor) -> None:
 
 def _check_cuda_plane(plane: torch.Tensor, name: str) -> int:
     """Row stride ``ld`` of a CUDA plane the kernels can take: rows
-    contiguous, row stride ≥ P."""
+    contiguous, row stride ≥ P, base address and row stride 16-byte
+    aligned (the kernels read and write 16-byte vectors; ``aligned_plane``
+    and ``PlaneLayout.pack`` make such planes)."""
     n, p = plane.shape
     if plane.stride(1) != 1 and p > 1:
         raise ValueError(f"{name}: plane rows must be contiguous")
-    ld = plane.stride(0) if n > 1 else max(p, 1)
+    b = plane.element_size()
+    ld = plane.stride(0) if n > 1 else -(-max(p, 1) * b // 16) * 16 // b
     if ld < p:
         raise ValueError(f"{name}: plane row stride {ld} < P={p}")
+    if (ld * b) % 16 or plane.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: plane rows must start on 16-byte boundaries (row "
+            f"stride {ld * b} B, base address {plane.data_ptr():#x}); "
+            f"build it with core.plane.aligned_plane or PlaneLayout.pack")
     return ld
 
 

@@ -40,20 +40,27 @@ def test_kernels_match_plain_versions_on_the_card(dtype, aligned, f32):
     """Each CUDA kernel against its plain version on the same inputs on
     the card: f32 within 1e-5·max|ref| (another summation order), bf16
     within one bf16 ulp, the bf16-accumulation ablation and every edges
-    case bit for bit (same arithmetic, op for op)."""
+    case bit for bit (same arithmetic, op for op).  A plane whose rows are
+    not 16-byte aligned is refused before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     for n, p in ((5, 37), (33, 1001), (70, 515)):
         plane, c, idx, msk = _inputs(n, p, n)
-        if aligned:
-            pt = aligned_plane(n, p, dtype, "cuda")
-            pt.copy_(torch.as_tensor(plane))
-        else:
-            pt = torch.as_tensor(plane).to(dtype).cuda()
         ct = torch.as_tensor(c).cuda()
         it, mt = torch.as_tensor(idx).cuda(), torch.as_tensor(msk).cuda()
         w = edge_weights(ct, it, mt)
         launches = tk.gossip_plane.launches, tk.gossip_edges.launches
+        if not aligned:   # odd P: a contiguous plane's rows are unaligned
+            pt = torch.as_tensor(plane).to(dtype).cuda()
+            with pytest.raises(ValueError, match="16-byte"):
+                tk.gossip_plane(pt, ct, f32)
+            with pytest.raises(ValueError, match="16-byte"):
+                tk.gossip_edges(pt, w, it, f32)
+            assert (tk.gossip_plane.launches,
+                    tk.gossip_edges.launches) == launches
+            continue
+        pt = aligned_plane(n, p, dtype, "cuda")
+        pt.copy_(torch.as_tensor(plane))
         got_p = tk.gossip_plane(pt, ct, f32).float()
         got_e = tk.gossip_edges(pt, w, it, f32).float()
         torch.cuda.synchronize()
