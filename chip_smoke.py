@@ -6,23 +6,37 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   kernels from ``src/repro_torch/kernels/csrc`` (build seconds printed);
+   kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
+   started together; build seconds printed);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes — the FFN plane (33, 118282) and the VGG-16 plane (33, 14982479),
    f32 and bf16 — with CUDA-event medians beside the byte/FLOP bound, the
-   plain version and one library call computing the same function;
+   plain version and one library call computing the same function (none
+   exists for the robust kernel); the robust kernel for the trimmed mean
+   (k = 1) and the median, plus an FFN plane with NaN/±Inf rows, to max
+   abs err 0;
 3. Algorithm 1 at the paper's scale with the FFN (the quickstart scenario
    at ``FULL`` scale: BA(33, p=2), OOD on the hub, R = 40): ``unweighted``
    and ``degree`` through the fused-plane kernel, one launch per mix, and
    degree's OOD AUC above unweighted's; then 3 rounds through every mix
    backend, whose per-node accuracies must agree;
 4. VGG-16 at full width (P = 14,982,479 per node, n = 33): 2 rounds
-   through the fused-plane kernel and 1 through the edge-list kernel;
+   through the fused-plane kernel, 1 through the edge-list kernel and 1
+   through the robust kernel (trimmed mean);
+6. the robust trainer at the phase-3 scale: ``degree`` with
+   ``robust="trimmed"`` through the robust kernel (exactly R launches,
+   finite params, IID AUC >= 0.9, OOD AUC beside phase 3's mean run), then
+   ``robust="norm_clip"`` through the fused-plane kernel;
+7. the fault layer at the same scale through ``make_fault_round_fn``:
+   rate 0 bit-identical to ``make_round_fn``; NaN faults contained by the
+   quarantine screen (and poisoning the plane without it); sign-flip
+   faults under the mean, the median and the trimmed mean;
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
 
-Phases 3–4 are the main path: every launch counter is set to 0 just
-before them and read just after.  The script imports nothing of JAX.
+Phases 3, 4, 6 and 7 are the main path: every launch counter is set to 0
+just before each of them and read just after.  The script imports nothing
+of JAX.
 """
 import json
 import statistics
@@ -35,6 +49,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 N_NODES = 33
 FFN_P, VGG_P = 118_282, 14_982_479
+KERNELS = ("gossip_plane", "gossip_edges", "gossip_robust")
+SOURCES = {"gossip_plane": "gossip_mix.cu", "gossip_edges": "gossip_mix.cu",
+           "gossip_robust": "gossip_robust.cu"}
+REPLACES = {"gossip_plane": "src/repro/kernels/gossip_mix.py:164",
+            "gossip_edges": "src/repro/kernels/gossip_mix.py:268",
+            "gossip_robust": "src/repro/kernels/gossip_mix.py:387"}
+ROBUST_CHUNK = 1 << 19          # plain-version columns per chunk
 
 
 def log(*args):
@@ -155,8 +176,94 @@ def check_kernels(dev):
                 }
                 log("kernel_case " + json.dumps(case))
                 cases.append(case)
+            cases += check_robust_kernel(gm, plane, w, idx, shape_name)
             del plane
             torch.cuda.empty_cache()
+    # the poisoned case: 3 rows of NaN / +Inf / -Inf on the FFN plane
+    plane = aligned_plane(N_NODES, FFN_P, torch.float32, dev)
+    plane.copy_(torch.randn((N_NODES, FFN_P), generator=gen, device=dev))
+    plane[1] = float("nan")
+    plane[4, ::3] = float("inf")
+    plane[7] = float("-inf")
+    cases += check_robust_kernel(gm, plane, w, idx, "ffn_poisoned")
+    return cases
+
+
+def exact_err(a, b) -> float:
+    """Max abs difference, NaN against NaN counting as equal (and inf when
+    NaN stands in one output only)."""
+    import torch
+
+    if not bool((a.isnan() == b.isnan()).all()):
+        return float("inf")
+    same = (a == b) | a.isnan()
+    return float(torch.where(same, torch.zeros_like(a), (a - b).abs()).max())
+
+
+def robust_operations(w, p, op, trim_k):
+    """Operations the robust rule needs on these inputs: for each column,
+    the compare-exchanges that sort each row's k_i occupied values
+    (k_i (k_i - 1) / 2, one operation each) plus the arithmetic on what
+    survives (trimmed: a multiply and two adds per kept value and one
+    division per row; median: an add and a multiply per row)."""
+    k = (w > 0).sum(1)
+    per_col = int((k * (k - 1) // 2).sum())
+    if op == "trimmed":
+        per_col += 3 * int((k - 2 * trim_k).clamp_min(0).sum()) + w.shape[0]
+    else:
+        per_col += 2 * w.shape[0]
+    return per_col * p
+
+
+def check_robust_kernel(gm, plane, w, idx, shape_name):
+    """``gossip_robust`` against ``gossip_robust_ref`` on one plane, for
+    the trimmed mean (k = 1) and the median, to max abs err 0.  The plain
+    version gathers a (dmax, n, columns) tensor (29.7 GB at the VGG-16
+    plane), so it runs over column chunks — columns are independent, so
+    chunking is exact — and plain_ms is the sum of the chunk times."""
+    import torch
+
+    n, p = plane.shape
+    b = plane.element_size()
+    cases = []
+    for op, trim_k in (("trimmed", 1), ("median", 0)):
+        run = lambda: gm.gossip_robust(plane, w, idx, op, trim_k)
+        out = run()
+        torch.cuda.synchronize()
+        assert out.shape == (n, p), out.shape
+        max_err, plain_ms = 0.0, 0.0
+        gm.gossip_robust_ref(plane[:, :1024], w, idx, op, trim_k)  # warm up
+        for c0 in range(0, p, ROBUST_CHUNK):
+            c1 = min(p, c0 + ROBUST_CHUNK)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            ref = gm.gossip_robust_ref(plane[:, c0:c1], w, idx, op, trim_k)
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms += t0.elapsed_time(t1)
+            max_err = max(max_err, exact_err(out[:, c0:c1].float(),
+                                             ref.float()))
+            del ref
+        if "poisoned" not in shape_name:
+            assert bool(torch.isfinite(out).all()), (shape_name, op)
+        del out
+        assert max_err == 0.0, ("gossip_robust", shape_name, op, max_err)
+        nbytes = 2 * n * p * b + n * idx.shape[1] * 8
+        ops = robust_operations(w, p, op, trim_k)
+        bnd, by = bound_ms(nbytes, ops)
+        case = {
+            "name": "gossip_robust", "shape": [n, p],
+            "dtype": str(plane.dtype).replace("torch.", ""),
+            "plane": shape_name, "op": op, "trim_k": trim_k,
+            "max_abs_err": max_err,
+            "tolerance": "== 0 (NaN where the plain version has NaN)",
+            "ms": cuda_ms(run), "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
+            "operations": ops,
+        }
+        log("kernel_case " + json.dumps(case))
+        cases.append(case)
     return cases
 
 
@@ -182,7 +289,8 @@ def ffn_setup():
                 test_ood=make_test_batch(backdoored_testset(test), 512))
 
 
-def ffn_trainer(sc, strategy, mix_impl, rounds, eval_every, device="cuda"):
+def ffn_trainer(sc, strategy, mix_impl, rounds, eval_every, device="cuda",
+                **cfg):
     from repro_torch.core.decentralized import (
         DecentralizedConfig,
         DecentralizedTrainer,
@@ -199,7 +307,7 @@ def ffn_trainer(sc, strategy, mix_impl, rounds, eval_every, device="cuda"):
         sc["topo"], AggregationStrategy(strategy, tau=0.1), sgd(1e-2),
         classifier_loss(ffn_apply), classifier_accuracy(ffn_apply),
         DecentralizedConfig(rounds=rounds, local_epochs=5,
-                            eval_every=eval_every, mix_impl=mix_impl),
+                            eval_every=eval_every, mix_impl=mix_impl, **cfg),
         data_counts=sc["batcher"].data_counts(), device=device)
 
 
@@ -241,12 +349,14 @@ def small_device_check():
         test_iid=make_test_batch(test, 200),
         test_ood=make_test_batch(backdoored_testset(test), 200))
     worst = 0.0
-    for impl in ("einsum", "pallas", "edges"):
+    for impl, robust in (("einsum", "mean"), ("pallas", "mean"),
+                         ("edges", "mean"), ("edges", "trimmed")):
         hists = []
         for device in ("cuda", "cpu"):
             params = stack_params([ffn_init(torch.Generator().manual_seed(0),
                                             device=device)] * 8)
-            tr = ffn_trainer(sc, "degree", impl, 2, 1, device=device)
+            tr = ffn_trainer(sc, "degree", impl, 2, 1, device=device,
+                             robust=robust)
             hists.append(tr.run(params, sc["batcher"].round_batches,
                                 sc["test_iid"], sc["test_ood"])[1])
         for h in hists[0]:
@@ -254,7 +364,8 @@ def small_device_check():
         worst = max(worst, max_drift_samples(*hists, 200))
     # card vs CPU differ only in summation order: at most one eval sample
     assert worst <= 1 + 1e-3, worst
-    log(f"small input, card vs CPU, every backend: max per-node drift "
+    log(f"small input, card vs CPU, every backend and the robust kernel: "
+        f"max per-node drift "
         f"{worst:.0f} of 200 eval samples (limit 1)")
 
 
@@ -324,7 +435,7 @@ def vgg_setup():
                 test_ood=make_test_batch(backdoored_testset(test), 128))
 
 
-def vgg_trainer(sc, mix_impl, rounds):
+def vgg_trainer(sc, mix_impl, rounds, robust="mean"):
     from repro_torch.core.decentralized import (
         DecentralizedConfig,
         DecentralizedTrainer,
@@ -341,7 +452,7 @@ def vgg_trainer(sc, mix_impl, rounds):
         sc["topo"], AggregationStrategy("degree", tau=0.1), adam(1e-4),
         classifier_loss(vgg_apply), classifier_accuracy(vgg_apply),
         DecentralizedConfig(rounds=rounds, local_epochs=1, eval_every=1,
-                            mix_impl=mix_impl),
+                            mix_impl=mix_impl, robust=robust),
         data_counts=sc["batcher"].data_counts())
 
 
@@ -365,11 +476,13 @@ def run_vgg(sc, gm):
     from repro_torch import tree as tree_util
 
     out = {}
-    for impl, rounds, counter in (("pallas", 2, gm.gossip_plane),
-                                  ("edges", 1, gm.gossip_edges)):
+    for impl, robust, rounds, counter in (
+            ("pallas", "mean", 2, gm.gossip_plane),
+            ("edges", "mean", 1, gm.gossip_edges),
+            ("edges", "trimmed", 1, gm.gossip_robust)):
         before = counter.launches
         t0 = time.perf_counter()
-        params, hist = vgg_trainer(sc, impl, rounds).run(
+        params, hist = vgg_trainer(sc, impl, rounds, robust).run(
             vgg_params(), sc["batcher"].round_batches, sc["test_iid"],
             sc["test_ood"])
         torch.cuda.synchronize()
@@ -379,11 +492,219 @@ def run_vgg(sc, gm):
             assert np.all(np.isfinite(h.train_loss)), h.train_loss
         assert all(bool(torch.isfinite(x).all())
                    for x in tree_util.leaves(params))
-        out[impl] = {"rounds": rounds, "s_per_round": secs / rounds,
-                     "train_loss_mean": [float(h.train_loss.mean())
-                                         for h in hist]}
-        log(f"vgg16 {impl} " + json.dumps(out[impl]))
+        key = impl if robust == "mean" else f"{impl}_{robust}"
+        out[key] = {"rounds": rounds, "s_per_round": secs / rounds,
+                    "train_loss_mean": [float(h.train_loss.mean())
+                                        for h in hist]}
+        log(f"vgg16 {key} " + json.dumps(out[key]))
         del params
+    return out
+
+
+# ----------------------------------------------------------------------
+# phases 6-7: the robust trainer and the fault layer, FFN at paper scale
+# ----------------------------------------------------------------------
+ROUNDS = 40
+
+
+def device_batches(sc, rounds):
+    """Each round's node batches, built once on the host and kept on the
+    card (12 GB for 40 rounds), so the runs of phases 6-7 share them and
+    their s/round leaves out the host batch build that phase 3 includes."""
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    return [tree_util.tree_map(lambda x: torch.as_tensor(x, device="cuda"),
+                               sc["batcher"].round_batches(r))
+            for r in range(rounds)]
+
+
+def all_finite(params) -> bool:
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    return all(bool(torch.isfinite(x).all())
+               for x in tree_util.leaves(params))
+
+
+def run_robust_ffn(sc, gm, batches, mean_res):
+    """Phase 6: ``DecentralizedTrainer`` with the robust rules."""
+    import torch
+
+    from repro_torch.core.propagation import accuracy_auc
+
+    out = {}
+    for robust, impl, counter in (("trimmed", "edges", gm.gossip_robust),
+                                  ("norm_clip", "pallas", gm.gossip_plane)):
+        tr = ffn_trainer(sc, "degree", impl, ROUNDS, 4, robust=robust,
+                         robust_trim=1)
+        before = counter.launches
+        t0 = time.perf_counter()
+        params, hist = tr.run(ffn_params(), batches.__getitem__,
+                              sc["test_iid"], sc["test_ood"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = counter.launches - before
+        assert launches == ROUNDS, (robust, launches)  # one launch per mix
+        assert all_finite(params), robust
+        res = {"mix_impl": impl, "iid_auc": accuracy_auc(hist, "iid"),
+               "ood_auc": accuracy_auc(hist, "ood"),
+               "s_per_round": secs / ROUNDS, "launches": launches,
+               "final_ood_acc": float(hist[-1].ood_acc.mean())}
+        log(f"ffn degree robust={robust} " + json.dumps(res))
+        out[robust] = res
+    assert out["trimmed"]["iid_auc"] >= 0.9, out["trimmed"]
+    log("ffn degree OOD AUC, robustness against OOD propagation: mean "
+        f"(phase 3) {mean_res['ood_auc']:.4f}, trimmed "
+        f"{out['trimmed']['ood_auc']:.4f}, norm_clip "
+        f"{out['norm_clip']['ood_auc']:.4f}")
+    return out
+
+
+def drive_rounds(sc, round_fn, batches, init_carries=None):
+    """R rounds of a round function from the phase-3 init with the degree
+    matrix, evaluated every 4th round as the trainer does; ``init_carries``
+    (params -> list of carries) selects the fault-round signature."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.core.decentralized import RoundMetrics, eval_round_indices
+    from repro_torch.models.paper_models import classifier_accuracy, ffn_apply
+    from repro_torch.training.optimizer import sgd
+
+    params = ffn_params()
+    opt = sgd(1e-2).init(params)
+    carries = init_carries(params) if init_carries else None
+    coeffs = trainer_coeffs(sc)
+    eval_v = torch.func.vmap(classifier_accuracy(ffn_apply), in_dims=(0, None))
+    to_dev = lambda t: tree_util.tree_map(
+        lambda x: torch.as_tensor(x, device="cuda"), t)
+    tests = to_dev(sc["test_iid"]), to_dev(sc["test_ood"])
+    keep = set(eval_round_indices(ROUNDS, 4))
+    hist = []
+    for r in range(ROUNDS):
+        if carries is None:
+            params, opt, losses = round_fn(params, opt, batches[r], coeffs)
+        else:
+            params, opt, *carries, losses = round_fn(
+                params, opt, *carries, batches[r], coeffs, r)
+        if r in keep:
+            with torch.no_grad():
+                iid, ood = (eval_v(params, t) for t in tests)
+            hist.append(RoundMetrics(round=r, iid_acc=iid.cpu().numpy(),
+                                     ood_acc=ood.cpu().numpy(),
+                                     train_loss=losses.cpu().numpy()))
+    torch.cuda.synchronize()
+    return params, carries, hist
+
+
+def within_breakdown(sc, spec, rate, fseed, rule):
+    """Whether the drawn faulty sets leave every neighbourhood (self
+    included) within the rule's breakdown point in every round: at most
+    trim_k = 1 faulty rows for the trimmed mean, fewer than half for the
+    median."""
+    import numpy as np
+
+    sup = sc["topo"].adjacency + np.eye(N_NODES)
+    size = sup.sum(1)
+    for r in range(ROUNDS):
+        bad = sup @ spec.faulty_mask(rate, fseed, r, N_NODES)
+        if rule == "trimmed" and (bad > 1).any():
+            return False
+        if rule == "median" and (2 * bad >= size).any():
+            return False
+    return True
+
+
+def run_faults(sc, gm, batches):
+    """Phase 7: ``make_fault_round_fn`` for R rounds at the phase-3
+    scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.core.decentralized import (
+        fault_carry_init,
+        make_fault_round_fn,
+        make_round_fn,
+    )
+    from repro_torch.core.dynamic import FaultSpec
+    from repro_torch.core.propagation import accuracy_auc
+    from repro_torch.models.paper_models import classifier_loss, ffn_apply
+    from repro_torch.training.optimizer import sgd
+
+    loss = classifier_loss(ffn_apply)
+    support = sc["topo"].adjacency + np.eye(N_NODES)
+    out = {}
+
+    def fault_run(label, spec, rate, fseed, robust="mean", impl="pallas"):
+        counter = gm.gossip_robust if impl == "edges" else gm.gossip_plane
+        fn = make_fault_round_fn(loss, sgd(1e-2), 5, spec, mix_impl=impl,
+                                 mix_support=support, robust=robust,
+                                 robust_trim=1, device="cuda")
+        before = counter.launches
+        t0 = time.perf_counter()
+        params, (fc,), hist = drive_rounds(
+            sc, fn, batches, lambda p: [fault_carry_init(p, rate, fseed)])
+        secs = time.perf_counter() - t0
+        assert counter.launches - before == ROUNDS, (label, counter.launches)
+        res = {"mode": spec.mode, "quarantine": spec.quarantine,
+               "robust": robust, "mix_impl": impl, "rate": rate,
+               "fseed": fseed, "finite": all_finite(params),
+               "faulty_node_rounds": int(fc["fault_rounds"].sum()),
+               "quarantined_node_rounds": int(fc["rounds_quarantined"].sum()),
+               "iid_auc": accuracy_auc(hist, "iid"),
+               "ood_auc": accuracy_auc(hist, "ood"),
+               "s_per_round": secs / ROUNDS}
+        log(f"faults {label} " + json.dumps(res))
+        out[label] = res
+        return params, fc
+
+    # rate 0 is the synchronous round, bit for bit, on the same backend
+    plain = make_round_fn(loss, sgd(1e-2), 5, mix_impl="pallas",
+                          device="cuda")
+    ref, _, _ = drive_rounds(sc, plain, batches)
+    zero, _ = fault_run("rate0_mean", FaultSpec(mode="nan"), 0.0, 1)
+    assert all(torch.equal(a, b) for a, b in zip(tree_util.leaves(zero),
+                                                 tree_util.leaves(ref)))
+    log("faults rate 0 == make_round_fn: bit-identical parameters after "
+        f"{ROUNDS} rounds")
+    del ref, zero
+
+    # NaN faults: the quarantine screen contains them, the mean does not
+    rate, fseed = 0.05, 1
+    params, fc = fault_run("nan_quarantine", FaultSpec(mode="nan",
+                                                       quarantine=True),
+                           rate, fseed)
+    faulted = fc["fault_rounds"] > 0
+    assert bool(faulted.any())
+    assert out["nan_quarantine"]["finite"]
+    assert torch.equal(fc["first_quar"][faulted], fc["first_fault"][faulted])
+    assert bool((fc["quar_fault_rounds"][faulted] > 0).all())
+    params, _ = fault_run("nan_mean_control", FaultSpec(mode="nan"), rate,
+                          fseed)
+    assert not out["nan_mean_control"]["finite"]
+    del params
+
+    # sign-flip faults: the first fseed whose draws keep every
+    # neighbourhood within the trimmed mean's breakdown point (at 2% a
+    # neighbourhood of 15 holds two faulty rows in 3.6% of rounds)
+    spec = FaultSpec(mode="signflip", byz_scale=3.0)
+    rate = 0.02
+    fseed = next(f for f in range(200)
+                 if within_breakdown(sc, spec, rate, f, "trimmed"))
+    for robust, impl in (("mean", "pallas"), ("median", "edges"),
+                         ("trimmed", "edges")):
+        fault_run(f"signflip_{robust}", spec, rate, fseed, robust, impl)
+        if robust != "mean" and within_breakdown(sc, spec, rate, fseed,
+                                                 robust):
+            assert out[f"signflip_{robust}"]["finite"], robust
+    log("faults signflip x3 at rate {} fseed {}: final IID/OOD AUC {}".format(
+        rate, fseed, {r: (round(out[f"signflip_{r}"]["iid_auc"], 4),
+                          round(out[f"signflip_{r}"]["ood_auc"], 4))
+                      for r in ("mean", "median", "trimmed")}))
     return out
 
 
@@ -403,7 +724,8 @@ def timed(fn):
 def breakdown(name, sc, loss_fn, eval_fn, optimizer, params):
     """One round, piece by piece, each ended by a synchronize: host batch
     build + copy to the card, LocalTrain, each kernel mix (pack, launch,
-    unpack), one eval pass."""
+    unpack; the mean through both mean kernels, the trimmed mean through
+    the robust kernel), one eval pass."""
     import numpy as np
     import torch
 
@@ -425,14 +747,18 @@ def breakdown(name, sc, loss_fn, eval_fn, optimizer, params):
         (p2, opt2, _), t_local = timed(lambda: local(params, opt, batches))
         steps = tree_util.leaves(batches)[0].shape[1]
         mixes = {}
-        for impl in ("pallas", "edges"):
-            mix = make_mix_fn(impl, mix_support=support, device="cuda")
-            _, mixes[impl] = timed(lambda: mix(p2, coeffs))
+        for impl, robust in (("pallas", "mean"), ("edges", "mean"),
+                             ("edges", "trimmed")):
+            mix = make_mix_fn(impl, mix_support=support, robust=robust,
+                              device="cuda")
+            key = impl if robust == "mean" else robust
+            _, mixes[key] = timed(lambda: mix(p2, coeffs))
         with torch.no_grad():
             _, t_eval = timed(lambda: eval_v(p2, test))
         res = {"host_batches_s": t_host, "local_train_s": t_local,
                "local_steps": steps, "s_per_local_step": t_local / steps,
                "mix_pallas_s": mixes["pallas"], "mix_edges_s": mixes["edges"],
+               "mix_robust_trimmed_s": mixes["trimmed"],
                "eval_one_test_set_s": t_eval}
         del p2, opt2, batches
     log(f"{name}_round_breakdown " + json.dumps(res))
@@ -464,6 +790,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
     from repro_torch.kernels import gossip_mix as gm
 
@@ -473,7 +801,11 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    build.load("gossip_mix")
+    names = sorted({src[:-3] for src in SOURCES.values()})
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        list(pool.map(build.build, names))
+    for name in names:
+        build.load(name)
     log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
 
     cases = check_kernels(dev)
@@ -481,19 +813,34 @@ def main() -> int:
 
     ffn_sc = ffn_setup()
     vgg_sc = vgg_setup()
+    counters = {name: getattr(gm, name) for name in KERNELS}
+    paths = {}
+
+    def main_path(name, fn, *args):
+        """One path of the main path: every count 0 just before, read just
+        after."""
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        res = fn(*args)
+        paths[name] = {k: c.launches for k, c in counters.items()}
+        log(f"main path {name}: {time.perf_counter() - t:.1f} s, launches "
+            f"{json.dumps(paths[name])}")
+        return res
+
+    ffn_res = main_path("ffn_mean", run_ffn, ffn_sc, gm)
     torch.cuda.reset_peak_memory_stats()
-    # ---- main path: counts from 0, read right after ----
-    gm.gossip_plane.launches = 0
-    gm.gossip_edges.launches = 0
-    t_main = time.perf_counter()
-    run_ffn(ffn_sc, gm)
-    torch.cuda.reset_peak_memory_stats()
-    run_vgg(vgg_sc, gm)
-    launches = {"gossip_plane": gm.gossip_plane.launches,
-                "gossip_edges": gm.gossip_edges.launches}
+    main_path("vgg16", run_vgg, vgg_sc, gm)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"main path: {time.perf_counter() - t_main:.1f} s, launches "
-        f"{json.dumps(launches)}, VGG-16 peak memory {peak_gb:.2f} GB")
+    log(f"VGG-16 peak memory {peak_gb:.2f} GB")
+    batches = device_batches(ffn_sc, ROUNDS)
+    main_path("ffn_robust", run_robust_ffn, ffn_sc, gm, batches,
+              ffn_res["degree"])
+    main_path("ffn_faults", run_faults, ffn_sc, gm, batches)
+    del batches
+    torch.cuda.empty_cache()
+    launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
+    log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches
 
     from repro_torch.models.paper_models import (
@@ -509,21 +856,20 @@ def main() -> int:
     breakdown("vgg16", vgg_sc, classifier_loss(vgg_apply),
               classifier_accuracy(vgg_apply), adam(1e-4), vgg_params())
 
-    sources = {"gossip_plane": "src/repro/kernels/gossip_mix.py:164",
-               "gossip_edges": "src/repro/kernels/gossip_mix.py:268"}
     kernels = []
-    for name in ("gossip_plane", "gossip_edges"):
+    for name in KERNELS:
         own = [c for c in cases if c["name"] == name]
         main_case = next(c for c in own if c["shape"][1] == VGG_P
                          and c["dtype"] == "float32")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
-            "replaces": sources[name], "launches": launches[name],
+            "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
+            "replaces": REPLACES[name], "launches": launches[name],
             **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")},
             "shape": main_case["shape"], "dtype": main_case["dtype"],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "cases": own,
         })
     log(json.dumps({"kernels": kernels}))

@@ -25,11 +25,13 @@ from repro_torch.core.strategies import (
     AggregationStrategy,
     masked_normalize,
     masked_softmax,
+    renormalize_rows,
     strategy_scores,
 )
 from repro_torch.core.topology import Topology
 
-__all__ = ["PROGRAM_KINDS", "PORTED_KINDS", "CoeffProgram", "program_for"]
+__all__ = ["PROGRAM_KINDS", "PORTED_KINDS", "CoeffProgram", "program_for",
+           "participation_renormalize", "quarantine_renormalize"]
 
 # the reference's lax.switch branch order — state["kind"] indexes it
 PROGRAM_KINDS = ("unweighted", "weighted", "random", "fl", "degree",
@@ -103,3 +105,25 @@ def program_for(topo: Topology, strategy: AggregationStrategy,
         "kind": np.int32(PROGRAM_KINDS.index(strategy.kind)),
     }
     return CoeffProgram(n_nodes=n), state
+
+
+def participation_renormalize(c: torch.Tensor,
+                              active: torch.Tensor) -> torch.Tensor:
+    """Drop inactive *columns* from a row-stochastic mixing matrix and
+    renormalize the surviving rows (``stale_mixing=False`` partial
+    participation).  Rows that lost no mass come back BIT-identical (the
+    row-level ``changed`` gate skips the divide), so an all-active round
+    reproduces the matrix exactly; rows whose whole support went inactive
+    fall back to self-weight 1."""
+    masked = c * active.to(c.dtype)
+    changed = (masked != c).any(dim=-1, keepdim=True)
+    return torch.where(changed, renormalize_rows(masked), c)
+
+
+def quarantine_renormalize(c: torch.Tensor,
+                           quarantined: torch.Tensor) -> torch.Tensor:
+    """Excise quarantined nodes' columns and renormalize the surviving
+    rows: :func:`participation_renormalize` with ``active =
+    ~quarantined``, ``changed`` gate included, so a round with nothing
+    quarantined returns the matrix bit-identical."""
+    return participation_renormalize(c, torch.logical_not(quarantined))

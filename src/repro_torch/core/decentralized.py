@@ -20,8 +20,19 @@ Each round:
 Python loop over rounds with evaluation only on :func:`eval_round_indices`;
 they differ in where the per-round matrices come from (one precomputed
 ``(R, n, n)`` stack vs one matrix per round) and give the same history.
-The ``"sparse"`` circulant backend, robust aggregation, participation and
-faults wait for later slices (ROADMAP Queue 1).
+
+The Byzantine layer (DESIGN.md §16): ``DecentralizedConfig(robust=...)``
+swaps Eq. (2)'s weighted mean for a coordinate-wise trimmed mean or median
+(``mix_impl="einsum"``: the plain ``core.mixing.mix_robust_tables``;
+``"edges"``: the robust CUDA kernel ``kernels.gossip_mix.
+mix_robust_kernel``) or clips neighbour weights by row norm
+(``"norm_clip"``, in front of any backend).  :func:`make_fault_round_fn`
+injects faults into the published plane with an optional quarantine
+screen, and :func:`make_participation_round_fn` lets only a drawn subset
+of nodes train and gossip each round; both draw their per-round masks
+from the port's JAX-compatible threefry (``core.prng``), so the masks
+equal the reference's.  The ``"sparse"`` circulant backend waits for a
+later slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -34,8 +45,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_util
-from repro_torch.core.coeffs import program_for
-from repro_torch.core.mixing import mix_dense
+from repro_torch.core.coeffs import (
+    participation_renormalize,
+    program_for,
+    quarantine_renormalize,
+)
+from repro_torch.core.mixing import (
+    ROBUST_MODES,
+    mix_dense,
+    mix_robust_tables,
+    norm_clip_coeffs,
+    plane_norms,
+)
 from repro_torch.core.strategies import AggregationStrategy
 from repro_torch.core.topology import Topology, padded_neighbor_tables
 from repro_torch.training.optimizer import Optimizer, apply_updates
@@ -51,6 +72,10 @@ __all__ = [
     "edges_schedule",
     "make_local_train_fn",
     "make_round_fn",
+    "participation_carry_init",
+    "make_participation_round_fn",
+    "fault_carry_init",
+    "make_fault_round_fn",
     "eval_round_indices",
 ]
 
@@ -72,7 +97,15 @@ class DecentralizedConfig:
     mix_in_float32: bool = True
     unroll_eval: bool = False  # True → run() delegates to run_unrolled()
     mix_impl: str = "einsum"   # "einsum" | "pallas" | "edges"
-    robust: str = "mean"       # only the paper's Eq. (2) is ported
+    # Robust aggregation (DESIGN.md §16): "mean" (the paper's Eq. (2)) |
+    # "trimmed" (coordinate-wise trimmed mean, robust_trim cut per side) |
+    # "median" (coordinate-wise median) | "norm_clip" (each neighbour's
+    # weight scaled so its row norm is at most robust_clip × the
+    # receiver's own; composes with every mix_impl).  "trimmed"/"median"
+    # run on mix_impl="einsum" (plain version) or "edges" (CUDA kernel).
+    robust: str = "mean"
+    robust_trim: int = 1
+    robust_clip: float = 1.0
     # True: the pipeline supplies E distinct epoch passes per round
     # (NodeBatcher(local_epochs=E)); False: one epoch tiled E times
     epoch_shuffle: bool = True
@@ -115,20 +148,63 @@ def edges_schedule(mix_support) -> Tuple[np.ndarray, np.ndarray]:
     return padded_neighbor_tables(np.maximum(support, np.eye(support.shape[0])))
 
 
+def _edge_tables(mix_support, device):
+    nbr_idx, nbr_mask = edges_schedule(mix_support)
+    dev = resolve_device(device)
+    return (torch.as_tensor(nbr_idx, dtype=torch.int32, device=dev),
+            torch.as_tensor(nbr_mask, device=dev))
+
+
 def make_mix_fn(mix_impl: str = "einsum",
                 mix_support: Optional[np.ndarray] = None,
                 mix_in_float32: bool = True,
                 robust: str = "mean",
+                robust_trim: int = 1,
+                robust_clip: float = 1.0,
                 device=None) -> Callable:
     """Aggregation backend ``(params, coeffs) -> params``.
 
     ``"edges"`` needs ``mix_support`` — the (n, n) neighbourhood mask
     (adjacency + self-loops) that fixes the padded-ELL tables, placed on
-    ``device``; coefficients outside the tables would be dropped."""
-    if robust != "mean":
-        raise NotImplementedError(
-            f"robust={robust!r} is not ported yet (the Byzantine layer, "
-            f"ROADMAP Queue 1); the port has robust='mean'")
+    ``device``; coefficients outside the tables would be dropped.
+
+    ``robust`` (as the reference's ``make_mix_fn``): ``"mean"`` returns
+    the plain backends; ``"trimmed"``/``"median"`` need ``mix_support``
+    and run on ``"einsum"`` (``mix_robust_tables``) or ``"edges"`` (the
+    robust CUDA kernel), any other impl raises; ``"norm_clip"`` puts
+    :func:`core.mixing.norm_clip_coeffs` in front of any backend."""
+    if robust not in ROBUST_MODES:
+        raise ValueError(f"unknown robust mode {robust!r}; "
+                         f"have {ROBUST_MODES}")
+    if robust in ("trimmed", "median"):
+        if mix_impl not in ("einsum", "edges"):
+            raise ValueError(
+                f"robust={robust!r} has no mix_impl={mix_impl!r} path — "
+                f"the per-coordinate sort runs over padded neighbour "
+                f"tables; use mix_impl='einsum' (plain version) or "
+                f"'edges' (CUDA kernel)")
+        if mix_support is None:
+            raise ValueError(
+                f"robust={robust!r} needs mix_support (the (n, n) "
+                f"neighbourhood mask, adjacency + self-loops) to fix the "
+                f"padded-ELL neighbour tables")
+        idx, msk = _edge_tables(mix_support, device)
+        trim_k = int(robust_trim) if robust == "trimmed" else 0
+        if mix_impl == "einsum":
+            return lambda params, coeffs: mix_robust_tables(
+                params, coeffs, idx, msk, robust, trim_k=trim_k,
+                mix_in_float32=mix_in_float32)
+        from repro_torch.kernels.gossip_mix import mix_robust_kernel
+
+        return lambda params, coeffs: mix_robust_kernel(
+            params, coeffs, idx, msk, op=robust, trim_k=trim_k,
+            mix_in_float32=mix_in_float32)
+    if robust == "norm_clip":
+        base = make_mix_fn(mix_impl, mix_support=mix_support,
+                           mix_in_float32=mix_in_float32, device=device)
+        clip = float(robust_clip)
+        return lambda params, coeffs: base(
+            params, norm_clip_coeffs(coeffs, plane_norms(params), clip))
     if mix_impl == "einsum":
         return functools.partial(mix_dense, mix_in_float32=mix_in_float32)
     if mix_impl == "pallas":
@@ -143,10 +219,7 @@ def make_mix_fn(mix_impl: str = "einsum",
                 "padded-ELL neighbour tables")
         from repro_torch.kernels.gossip_mix import mix_edges_kernel
 
-        nbr_idx, nbr_mask = edges_schedule(mix_support)
-        dev = resolve_device(device)
-        idx = torch.as_tensor(nbr_idx, dtype=torch.int32, device=dev)
-        msk = torch.as_tensor(nbr_mask, device=dev)
+        idx, msk = _edge_tables(mix_support, device)
         return lambda params, coeffs: mix_edges_kernel(
             params, coeffs, idx, msk, mix_in_float32=mix_in_float32)
     if mix_impl == "sparse":
@@ -199,6 +272,8 @@ def make_round_fn(loss_fn: Callable, optimizer: Optimizer, local_epochs: int,
                   mix_support: Optional[np.ndarray] = None,
                   mix_in_float32: bool = True,
                   robust: str = "mean",
+                  robust_trim: int = 1,
+                  robust_clip: float = 1.0,
                   device=None) -> Callable:
     """One full round — LocalTrain on every node, then aggregation —
     ``(params, opt, node_batches, coeffs) -> (mixed params, opt, losses)``."""
@@ -206,12 +281,247 @@ def make_round_fn(loss_fn: Callable, optimizer: Optimizer, local_epochs: int,
                                       epoch_shuffle)
     mix = make_mix_fn(mix_impl, mix_support=mix_support,
                       mix_in_float32=mix_in_float32, robust=robust,
+                      robust_trim=robust_trim, robust_clip=robust_clip,
                       device=device)
 
     def round_fn(stacked_params, stacked_opt, node_batches, coeffs):
         params, opt, losses = local_train(stacked_params, stacked_opt,
                                           node_batches)
         return mix(params, coeffs), opt, losses
+
+    return round_fn
+
+
+def _select(mask: torch.Tensor, new, old):
+    """Per node: ``new`` rows where ``mask`` (n,) is set, else ``old``
+    (every leaf, optimizer steps included, carries the node axis)."""
+    def sel(a, b):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)),
+                           a, b)
+    return tree_util.tree_map(sel, new, old)
+
+
+def participation_carry_init(params, rate, pseed) -> dict:
+    """Per-run participation carry (the reference's, DESIGN.md §15):
+    ``rate``/``pseed`` (host scalars), ``pub`` — the published plane, a
+    copy of the initial params — and per-node int32 counters
+    ``staleness``, ``staleness_sum``, ``rounds_active``, ``local_steps``
+    on the params' device."""
+    leaf = tree_util.leaves(params)[0]
+    zeros = torch.zeros((leaf.shape[0],), dtype=torch.int32,
+                        device=leaf.device)
+    return {
+        "rate": np.float32(rate),
+        "pseed": int(pseed),
+        "pub": tree_util.tree_map(lambda x: x.clone(), params),
+        "staleness": zeros,
+        "staleness_sum": zeros,
+        "rounds_active": zeros,
+        "local_steps": zeros,
+    }
+
+
+def _participation_update(pcarry, active, steps):
+    act = active.to(torch.int32)
+    staleness = torch.where(active, 0, pcarry["staleness"] + 1)
+    return {
+        **pcarry,
+        "staleness": staleness,
+        "staleness_sum": pcarry["staleness_sum"] + staleness,
+        "rounds_active": pcarry["rounds_active"] + act,
+        "local_steps": pcarry["local_steps"] + act * steps,
+    }
+
+
+def make_participation_round_fn(loss_fn: Callable, optimizer: Optimizer,
+                                local_epochs: int, participation,
+                                mix_impl: str = "einsum",
+                                epoch_shuffle: bool = True,
+                                mix_support: Optional[np.ndarray] = None,
+                                mix_in_float32: bool = True,
+                                robust: str = "mean",
+                                robust_trim: int = 1,
+                                robust_clip: float = 1.0,
+                                device=None) -> Callable:
+    """Partial-participation round (the reference's, DESIGN.md §15):
+    ``(params, opt, pcarry, node_batches, coeffs, round_idx) -> (params,
+    opt, pcarry, losses)``.  The mix arguments are :func:`make_mix_fn`'s.
+
+    Every node trains (inactive results are discarded); active nodes
+    publish their fresh rows into ``pcarry["pub"]``; the published plane
+    is mixed (stale rows of inactive neighbours, or, with
+    ``stale_mixing=False``, their columns dropped and rows renormalised);
+    active rows take the mix and the fresh optimizer state, inactive rows
+    keep theirs and report loss 0.  ``rate=1.0`` activates every node, so
+    such a run is bit-identical to :func:`make_round_fn`."""
+    local_train = make_local_train_fn(loss_fn, optimizer, local_epochs,
+                                      epoch_shuffle)
+    mix = make_mix_fn(mix_impl, mix_support=mix_support,
+                      mix_in_float32=mix_in_float32, robust=robust,
+                      robust_trim=robust_trim, robust_clip=robust_clip,
+                      device=device)
+
+    def round_fn(stacked_params, stacked_opt, pcarry, node_batches, coeffs,
+                 round_idx):
+        trained, opt_t, losses = local_train(stacked_params, stacked_opt,
+                                             node_batches)
+        n = losses.shape[0]
+        steps = tree_util.leaves(node_batches)[0].shape[1]
+        active = torch.as_tensor(participation.active_mask(
+            pcarry["rate"], pcarry["pseed"], round_idx, n),
+            device=losses.device)
+        pub = _select(active, trained, pcarry["pub"])
+        if not participation.stale_mixing:
+            coeffs = participation_renormalize(coeffs, active)
+        params = _select(active, mix(pub, coeffs), stacked_params)
+        opt = _select(active, opt_t, stacked_opt)
+        losses = torch.where(active, losses, torch.zeros_like(losses))
+        pcarry = _participation_update({**pcarry, "pub": pub}, active, steps)
+        return params, opt, pcarry, losses
+
+    return round_fn
+
+
+def fault_carry_init(params, rate, fseed) -> dict:
+    """Per-run fault/quarantine carry (the reference's, DESIGN.md §16):
+    ``rate``/``fseed`` (host scalars); per node on the params' device:
+    ``qtimer`` (probation countdown, quarantined while > 0), ``norm_ema``
+    (EMA of the published row norm, 0 = not seeded yet),
+    ``rounds_quarantined``, ``fault_rounds``, ``quar_fault_rounds``, and
+    ``first_fault``/``first_quar`` (first such round, −1 = never)."""
+    leaf = tree_util.leaves(params)[0]
+    n, dev = leaf.shape[0], leaf.device
+    zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
+    never = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    return {
+        "rate": np.float32(rate),
+        "fseed": int(fseed),
+        "qtimer": zeros,
+        "norm_ema": torch.zeros((n,), dtype=torch.float32, device=dev),
+        "rounds_quarantined": zeros,
+        "fault_rounds": zeros,
+        "quar_fault_rounds": zeros,
+        "first_fault": never,
+        "first_quar": never,
+    }
+
+
+def _quarantine_screen(fault, fcarry, pub, faulty, round_idx):
+    """The reference's health screen: flag rows with a nonfinite value or
+    a norm above ``spike_ratio`` × their EMA, (re)start their probation,
+    advance the EMA of the rows that passed, and count.  Returns the
+    updated carry and the (n,) quarantined mask."""
+    norms = plane_norms(pub)
+    n = norms.shape[0]
+    nonfinite = sum(
+        (~torch.isfinite(leaf.reshape(n, -1))).sum(dim=1, dtype=torch.int32)
+        for leaf in tree_util.leaves(pub))
+    ema = fcarry["norm_ema"]
+    suspicious = ((nonfinite > 0) | ~torch.isfinite(norms)
+                  | ((ema > 0.0) & (norms > fault.spike_ratio * ema)))
+    qtimer = torch.where(suspicious, fault.probation,
+                         torch.clamp_min(fcarry["qtimer"] - 1, 0))
+    quarantined = qtimer > 0
+    # the EMA moves only on rounds the node passes the screen
+    healthy = torch.where(
+        ema > 0.0, fault.ema_beta * ema + (1.0 - fault.ema_beta) * norms,
+        norms)
+    qint = quarantined.to(torch.int32)
+    fcarry = {
+        **fcarry,
+        "norm_ema": torch.where(suspicious, ema, healthy),
+        "qtimer": qtimer.to(torch.int32),
+        "rounds_quarantined": fcarry["rounds_quarantined"] + qint,
+        "quar_fault_rounds": (fcarry["quar_fault_rounds"]
+                              + qint * faulty.to(torch.int32)),
+        "first_quar": torch.where((fcarry["first_quar"] < 0) & quarantined,
+                                  round_idx, fcarry["first_quar"]),
+    }
+    return fcarry, quarantined
+
+
+def make_fault_round_fn(loss_fn: Callable, optimizer: Optimizer,
+                        local_epochs: int, fault, participation=None,
+                        mix_impl: str = "einsum",
+                        epoch_shuffle: bool = True,
+                        mix_support: Optional[np.ndarray] = None,
+                        mix_in_float32: bool = True,
+                        robust: str = "mean",
+                        robust_trim: int = 1,
+                        robust_clip: float = 1.0,
+                        device=None) -> Callable:
+    """Byzantine-fault round (the reference's, DESIGN.md §16).  Without
+    participation: ``(params, opt, fcarry, node_batches, coeffs,
+    round_idx) -> (params, opt, fcarry, losses)``; with a
+    ``ParticipationSpec`` the participation carry comes before the fault
+    carry on both sides.  The mix arguments are :func:`make_mix_fn`'s.
+
+    Per round: LocalTrain every node, publish (through the stale plane
+    with participation), draw the faulty set (``fault.faulty_mask``, fold
+    index 3) and overwrite faulty nodes' PUBLISHED rows with
+    ``fault.corrupt`` garbage; a faulty node keeps its own trained
+    params.  With ``fault.quarantine`` the screen flags rows, excises
+    their columns from the matrix (``quarantine_renormalize``) and zeroes
+    their plane rows BEFORE the mix, since 0 × NaN would re-poison every
+    destination; quarantined nodes keep training locally.
+
+    ``rate=0.0`` draws no faulty node and every select keeps the clean
+    branch, so a zero-fault run is bit-identical to :func:`make_round_fn`
+    (:func:`make_participation_round_fn` with participation)."""
+    local_train = make_local_train_fn(loss_fn, optimizer, local_epochs,
+                                      epoch_shuffle)
+    mix = make_mix_fn(mix_impl, mix_support=mix_support,
+                      mix_in_float32=mix_in_float32, robust=robust,
+                      robust_trim=robust_trim, robust_clip=robust_clip,
+                      device=device)
+
+    def round_fn(stacked_params, stacked_opt, *state_and_xs):
+        if participation is not None:
+            pcarry, fcarry, node_batches, coeffs, round_idx = state_and_xs
+        else:
+            pcarry = None
+            fcarry, node_batches, coeffs, round_idx = state_and_xs
+        trained, opt_t, losses = local_train(stacked_params, stacked_opt,
+                                             node_batches)
+        n, dev = losses.shape[0], losses.device
+        if participation is not None:
+            active = torch.as_tensor(participation.active_mask(
+                pcarry["rate"], pcarry["pseed"], round_idx, n), device=dev)
+            pub = _select(active, trained, pcarry["pub"])
+            if not participation.stale_mixing:
+                coeffs = participation_renormalize(coeffs, active)
+        else:
+            pub = trained
+        faulty = torch.as_tensor(fault.faulty_mask(
+            fcarry["rate"], fcarry["fseed"], round_idx, n), device=dev)
+        # the corruption lands on the PUBLISHED plane (and stays in
+        # pcarry["pub"] until the node publishes again)
+        pub = _select(faulty, fault.corrupt(pub), pub)
+        fcarry = {
+            **fcarry,
+            "fault_rounds": fcarry["fault_rounds"] + faulty.to(torch.int32),
+            "first_fault": torch.where(
+                (fcarry["first_fault"] < 0) & faulty, round_idx,
+                fcarry["first_fault"]),
+        }
+        if fault.quarantine:
+            fcarry, quarantined = _quarantine_screen(fault, fcarry, pub,
+                                                     faulty, round_idx)
+            coeffs = quarantine_renormalize(coeffs, quarantined)
+            pub_mix = _select(quarantined,
+                              tree_util.tree_map(torch.zeros_like, pub), pub)
+            keep_local = faulty | quarantined
+        else:
+            pub_mix, keep_local = pub, faulty
+        params = _select(keep_local, trained, mix(pub_mix, coeffs))
+        if participation is None:
+            return params, opt_t, fcarry, losses
+        params = _select(active, params, stacked_params)
+        opt = _select(active, opt_t, stacked_opt)
+        losses = torch.where(active, losses, torch.zeros_like(losses))
+        steps = tree_util.leaves(node_batches)[0].shape[1]
+        pcarry = _participation_update({**pcarry, "pub": pub}, active, steps)
+        return params, opt, pcarry, fcarry, losses
 
     return round_fn
 
@@ -258,7 +568,8 @@ class DecentralizedTrainer:
         self.config = config
         self.data_counts = data_counts
         mix_support = None
-        if config.mix_impl == "edges":
+        if (config.mix_impl == "edges"
+                or config.robust in ("trimmed", "median")):
             # support = neighbourhoods ∪ the strategy's round-0 support, so
             # kinds with off-neighbourhood weight (fl's dense 1/n) keep
             # their mass in the static tables
@@ -271,6 +582,7 @@ class DecentralizedTrainer:
             loss_fn, optimizer, config.local_epochs, config.mix_impl,
             config.epoch_shuffle, mix_support=mix_support,
             mix_in_float32=config.mix_in_float32, robust=config.robust,
+            robust_trim=config.robust_trim, robust_clip=config.robust_clip,
             device=self.device)
         self._eval_fn = torch.func.vmap(eval_fn, in_dims=(0, None))
 

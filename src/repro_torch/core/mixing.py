@@ -14,14 +14,44 @@ leading node axis ``(n, ...)``:
 Both accumulate in f32 by default; ``mix_in_float32=False`` accumulates
 in the leaf dtype (the low-precision-aggregation ablation).  The circulant
 ``mix_sparse`` schedule waits for a later slice (ROADMAP Queue 1).
+
+Robust aggregation (DESIGN.md §16): :func:`robust_combine` replaces the
+weighted mean by a coordinate-wise trimmed mean or median over each
+destination's occupied table slots, :func:`mix_robust_tables` applies it
+leaf by leaf, and :func:`norm_clip_coeffs` is the ``norm_clip`` rule as an
+``(n, n)`` coefficient transform in front of any mix.  Unlike the
+reference, the trimmed mean's two sums run in ascending sorted slot order
+(an explicit loop, not ``tensor.sum``), so the CUDA kernel
+``kernels.gossip_mix.gossip_robust`` can equal this plain version bit for
+bit; against the reference's XLA reduction it differs in the last ulps.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.core.strategies import renormalize_rows
 
-__all__ = ["mix_dense", "edge_weights", "mix_edges"]
+__all__ = [
+    "mix_dense",
+    "edge_weights",
+    "mix_edges",
+    "ROBUST_MODES",
+    "oddeven_sort_pairs",
+    "robust_combine",
+    "mix_robust_tables",
+    "plane_norms",
+    "norm_clip_coeffs",
+]
+
+#: robust rules accepted by ``core.decentralized.make_mix_fn(robust=...)``
+ROBUST_MODES = ("mean", "trimmed", "median", "norm_clip")
+
+# nonfinite values are clamped to ±_ROBUST_BIG before the sort (a poisoned
+# coordinate is an extreme outlier, not a NaN comparison); unoccupied
+# slots get _ROBUST_PAD, beyond the clamp, so they sort after every value
+_ROBUST_BIG = 1e30
+_ROBUST_PAD = 2e30
 
 
 def _leaf_mix(c: torch.Tensor, leaf: torch.Tensor,
@@ -61,3 +91,136 @@ def mix_edges(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
         return (wk * gathered).sum(dim=1).to(leaf.dtype)
 
     return tree_util.tree_map(leaf_fn, params)
+
+
+# ----------------------------------------------------------------------
+# robust aggregation: coordinate-wise order statistics over neighbours
+# ----------------------------------------------------------------------
+def oddeven_sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
+    """Sort ``(keys, vals)`` ascending by ``keys`` along dim 0 with the
+    reference's odd-even transposition network: ``d`` passes of
+    compare-exchanges that swap only on ``lo > hi``, so the sort is
+    stable and its output is the unique stable order.  Keys must be
+    finite (see :func:`robust_combine`)."""
+    keys, vals = keys.clone(), vals.clone()
+    d = keys.shape[0]
+    for p in range(d):
+        start = p % 2
+        npairs = (d - start) // 2
+        if npairs == 0:
+            continue
+        stop = start + 2 * npairs
+        lo, hi = slice(start, stop, 2), slice(start + 1, stop, 2)
+        swap = keys[lo] > keys[hi]
+        for t in (keys, vals):
+            a, b = t[lo], t[hi]
+            t[lo], t[hi] = torch.where(swap, b, a), torch.where(swap, a, b)
+    return keys, vals
+
+
+def robust_combine(vals: torch.Tensor, w: torch.Tensor,
+                   self_vals: torch.Tensor, op: str,
+                   trim_k: int = 1) -> torch.Tensor:
+    """Coordinate-wise robust aggregate of gathered neighbour rows.
+
+    vals: ``(d, m, t)``, slot d's value for destination m, coordinate t,
+    in the accumulation dtype; w: ``(d, m)`` slot weights (a slot takes
+    part iff w > 0); self_vals: ``(m, t)``, each destination's own row,
+    the fallback when nothing survives.  ``op="trimmed"`` drops the
+    ``trim_k`` smallest and largest occupied values and takes the
+    weight-renormalised mean of the rest; ``op="median"`` takes the
+    unweighted median of the occupied values.  NaN/±Inf are clamped to
+    ±1e30 first.  Every product and sum is its own rounded op in the
+    dtype of ``vals``, in ascending sorted slot order — the arithmetic of
+    the CUDA kernel, op for op."""
+    if op not in ("trimmed", "median"):
+        raise ValueError(f"robust_combine op {op!r} not in "
+                         f"('trimmed', 'median')")
+    dt = vals.dtype
+    valid = (w > 0)[:, :, None]
+    big = torch.tensor(_ROBUST_BIG, dtype=dt, device=vals.device)
+    keys = torch.nan_to_num(vals, nan=_ROBUST_BIG, posinf=_ROBUST_BIG,
+                            neginf=-_ROBUST_BIG).clamp(-big, big)
+    keys = torch.where(valid, keys, torch.tensor(_ROBUST_PAD, dtype=dt,
+                                                 device=vals.device))
+    w3 = torch.where(valid, w[:, :, None], torch.zeros((), dtype=dt,
+                                                       device=vals.device))
+    keys, w3 = oddeven_sort_pairs(keys, w3.to(dt).expand(keys.shape))
+    occupied = w3 > 0
+    r_lo = torch.cumsum(occupied.to(torch.int32), 0)  # 1-based rank
+    cnt = r_lo[-1]
+    if op == "median":
+        lo = ((cnt - 1) // 2).clamp_min(0)[None].long()
+        med = keys.gather(0, lo)[0] + keys.gather(0, (cnt // 2)[None].long())[0]
+        return torch.where(cnt > 0, 0.5 * med, self_vals)
+    r_hi = cnt[None] - r_lo + occupied.to(torch.int32)
+    keep = occupied & (r_lo > trim_k) & (r_hi > trim_k)
+    wk = torch.where(keep, w3, torch.zeros((), dtype=dt, device=vals.device))
+    mass = torch.zeros(keys.shape[1:], dtype=dt, device=vals.device)
+    num = torch.zeros_like(mass)
+    for i in range(keys.shape[0]):
+        mass = mass + wk[i]
+        num = num + wk[i] * keys[i]
+    safe = torch.where(mass > 0, mass, torch.ones_like(mass))
+    return torch.where(mass > 0, num / safe, self_vals)
+
+
+def mix_robust_tables(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
+                      nbr_mask: torch.Tensor, op: str, trim_k: int = 1,
+                      mix_in_float32: bool = True):
+    """Robust Eq. (2) over the padded-ELL tables, leaf by leaf: the
+    weighted mean replaced by :func:`robust_combine` over each
+    destination's slots (self included; slots whose weight is 0 —
+    padding, dropped or quarantined columns — take no part).  Gathers an
+    ``(dmax, n, |leaf|)`` tensor per leaf: a plain version, not a
+    kernel (``mix_impl="edges"`` runs the kernel)."""
+    idx = nbr_idx.long()
+    w = edge_weights(coeffs.to(torch.float32), idx, nbr_mask)
+    n = idx.shape[0]
+
+    def leaf_fn(leaf):
+        acc_dtype = torch.float32 if mix_in_float32 else leaf.dtype
+        flat = leaf.reshape(n, -1).to(acc_dtype)
+        out = robust_combine(flat[idx.T], w.T.to(acc_dtype), flat, op,
+                             trim_k=trim_k)
+        return out.to(leaf.dtype).reshape(leaf.shape)
+
+    return tree_util.tree_map(leaf_fn, params)
+
+
+def plane_norms(params) -> torch.Tensor:
+    """``(n,)`` f32 L2 norm of each node's whole parameter row: what the
+    ``norm_clip`` rule and the quarantine screen compare."""
+    leaves = tree_util.leaves(params)
+    n = leaves[0].shape[0]
+    sq = torch.zeros((n,), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        flat = leaf.reshape(n, -1).to(torch.float32)
+        sq = sq + (flat * flat).sum(dim=1)
+    return torch.sqrt(sq)
+
+
+def norm_clip_coeffs(coeffs: torch.Tensor, norms: torch.Tensor,
+                     clip_mult: float = 1.0) -> torch.Tensor:
+    """Row-norm clipping as a coefficient transform: neighbour j's weight
+    in row i is scaled by ``min(1, clip_mult·‖x_i‖/‖x_j‖)``.  Neighbours
+    with nonfinite norms are dropped, zero-norm neighbours pass
+    unclipped, self weights are never clipped; rows that changed are
+    renormalised (fallback self-weight 1) and rows left untouched come
+    back BIT-identical, so a round where nothing clips is the plain mean
+    exactly."""
+    c = coeffs
+    n = c.shape[-1]
+    norms = norms.to(torch.float32)
+    denom = torch.where(norms > 0, norms, torch.ones_like(norms))
+    ratio = float(clip_mult) * norms[:, None] / denom[None, :]
+    one = torch.ones((), dtype=torch.float32, device=c.device)
+    factor = torch.where(norms[None, :] > 0, torch.minimum(ratio, one), one)
+    factor = torch.where(torch.isfinite(factor), factor, one)
+    factor = torch.where(torch.isfinite(norms)[None, :], factor,
+                         torch.zeros_like(factor))
+    eye = torch.eye(n, dtype=torch.bool, device=c.device)
+    factor = torch.where(eye, one, factor).to(c.dtype)
+    scaled = c * factor
+    changed = (scaled != c).any(dim=-1, keepdim=True)
+    return torch.where(changed, renormalize_rows(scaled), c)

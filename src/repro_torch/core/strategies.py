@@ -20,6 +20,7 @@ __all__ = [
     "AggregationStrategy",
     "masked_softmax",
     "masked_normalize",
+    "renormalize_rows",
     "strategy_scores",
 ]
 
@@ -55,6 +56,30 @@ def masked_normalize(weights: torch.Tensor,
     Weighted: w = |train_j|)."""
     wm = mask * weights[None, :]
     return wm / wm.sum(dim=1, keepdim=True)
+
+
+def renormalize_rows(c):
+    """Re-normalize the rows of a masked coefficient matrix (a tensor or a
+    numpy array; the result has the same kind).
+
+    Rows with positive mass are divided by their sum; rows whose support
+    was masked away entirely fall back to self-weight 1 (the identity
+    row).  There is no epsilon: a row sum is either positive or the row
+    takes the fallback.  On numpy input a row sum in (0, 1e-9) raises, as
+    it means a masking bug upstream, not a row that lost its neighbours."""
+    n = c.shape[-1]
+    rowsum = c.sum(-1, keepdims=True)
+    if isinstance(c, np.ndarray):
+        tiny = (rowsum > 0) & (rowsum < 1e-9)
+        if np.any(tiny):
+            raise ValueError(
+                f"renormalize_rows: row sums in (0, 1e-9), masking bug? "
+                f"rows={np.nonzero(tiny)[0].tolist()}")
+        safe = np.where(rowsum > 0, rowsum, np.ones_like(rowsum))
+        return np.where(rowsum > 0, c / safe, np.eye(n, dtype=c.dtype))
+    safe = torch.where(rowsum > 0, rowsum, torch.ones_like(rowsum))
+    return torch.where(rowsum > 0, c / safe,
+                       torch.eye(n, dtype=c.dtype, device=c.device))
 
 
 def strategy_scores(topo: Topology,

@@ -1,6 +1,6 @@
 """Gossip mix kernels: Eq. (2) over the packed ``(n, P)`` parameter plane.
 
-Port of the two TPU kernels on the trainer's path in
+Port of the three TPU kernels on the trainer's path in
 ``repro/kernels/gossip_mix.py``:
 
 * :func:`gossip_plane` replaces ``gossip_plane_pallas`` (body
@@ -8,18 +8,24 @@ Port of the two TPU kernels on the trainer's path in
   (``mix_impl="pallas"``);
 * :func:`gossip_edges` replaces ``gossip_edges_pallas`` (body
   ``_edges_kernel``): ``out[i] = Σ_d w[i, d] · plane[idx[i, d]]`` over
-  padded-ELL tables, f32 accumulation in ascending d (``mix_impl="edges"``).
+  padded-ELL tables, f32 accumulation in ascending d (``mix_impl="edges"``);
+* :func:`gossip_robust` replaces ``gossip_robust_pallas`` (body
+  ``_robust_kernel``): the coordinate-wise trimmed mean or median of
+  ``core.mixing.robust_combine`` over the same tables
+  (``mix_impl="edges"`` with ``robust="trimmed"`` or ``"median"``).
 
-Both are hand-written CUDA C++ for Hopper in ``csrc/gossip_mix.cu``
-(what bounds them and what the design does about it is noted there),
-built by ``kernels/build.py`` at first use and called through ``ctypes``.
-Each wrapper takes its plain PyTorch version (``gossip_plane_ref``,
-``gossip_edges_ref``) only for tensors on the CPU; a CUDA tensor launches
-the kernel or raises.  ``gossip_plane.launches`` / ``gossip_edges.launches``
-count kernel launches (plain ints, reset by the caller).
+They are hand-written CUDA C++ for Hopper in ``csrc/gossip_mix.cu`` and
+``csrc/gossip_robust.cu`` (what bounds them and what the design does
+about it is noted there), built by ``kernels/build.py`` at first use and
+called through ``ctypes``.  Each wrapper takes its plain PyTorch version
+(``gossip_plane_ref``, ``gossip_edges_ref``, ``gossip_robust_ref``) only
+for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+``<wrapper>.launches`` counts kernel launches (plain ints, reset by the
+caller).
 
-:func:`mix_plane` and :func:`mix_edges_kernel` are the tree-level wrappers
-the trainer calls: pack once → one launch → unpack once.
+:func:`mix_plane`, :func:`mix_edges_kernel` and :func:`mix_robust_kernel`
+are the tree-level wrappers the trainer calls: pack once → one launch →
+unpack once.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.mixing import edge_weights
+from repro_torch.core.mixing import edge_weights, robust_combine
 from repro_torch.core.plane import PlaneLayout
 
 __all__ = [
@@ -35,26 +41,38 @@ __all__ = [
     "gossip_plane_ref",
     "gossip_edges",
     "gossip_edges_ref",
+    "gossip_robust",
+    "gossip_robust_ref",
     "mix_plane",
     "mix_edges_kernel",
+    "mix_robust_kernel",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = {}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _bound.get("gossip_mix")
+def _lib(name: str = "gossip_mix") -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` with its argtypes set."""
+    lib = _bound.get(name)
     if lib is None:
         from repro_torch.kernels.build import load
 
-        lib = load("gossip_mix")
+        lib = load(name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gossip_plane_launch.argtypes = [p, p, p, i, ll, ll, i, i, p]
-        lib.gossip_plane_launch.restype = ctypes.c_int
-        lib.gossip_edges_launch.argtypes = [p, p, p, p, i, i, ll, ll, i, i, p]
-        lib.gossip_edges_launch.restype = ctypes.c_int
-        _bound["gossip_mix"] = lib
+        if name == "gossip_mix":
+            lib.gossip_plane_launch.argtypes = [p, p, p, i, ll, ll, i, i, p]
+            lib.gossip_plane_launch.restype = ctypes.c_int
+            lib.gossip_edges_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
+                                                i, p]
+            lib.gossip_edges_launch.restype = ctypes.c_int
+        else:
+            lib.gossip_robust_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
+                                                 i, i, i, p]
+            lib.gossip_robust_launch.restype = ctypes.c_int
+            lib.gossip_robust_max_slots.argtypes = []
+            lib.gossip_robust_max_slots.restype = ctypes.c_int
+        _bound[name] = lib
     return lib
 
 
@@ -180,6 +198,25 @@ def gossip_edges_ref(plane: torch.Tensor, weights: torch.Tensor,
     return acc.to(plane.dtype)
 
 
+def _check_tables(plane: torch.Tensor, weights: torch.Tensor,
+                  nbr_idx: torch.Tensor) -> None:
+    n = plane.shape[0]
+    if weights.ndim != 2 or weights.shape[0] != n or \
+            tuple(nbr_idx.shape) != tuple(weights.shape):
+        raise ValueError(f"weights and nbr_idx must both be ({n}, dmax), got "
+                         f"{tuple(weights.shape)} and {tuple(nbr_idx.shape)}")
+
+
+def _check_cuda_tables(plane: torch.Tensor, weights: torch.Tensor,
+                       nbr_idx: torch.Tensor, name: str) -> None:
+    if plane.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {plane.device}")
+    if weights.device != plane.device or weights.dtype != torch.float32:
+        raise ValueError("weights must be float32 on the plane's device")
+    if nbr_idx.device != plane.device or nbr_idx.dtype != torch.int32:
+        raise ValueError("nbr_idx must be int32 on the plane's device")
+
+
 def gossip_edges(plane: torch.Tensor, weights: torch.Tensor,
                  nbr_idx: torch.Tensor,
                  mix_in_float32: bool = True) -> torch.Tensor:
@@ -189,19 +226,10 @@ def gossip_edges(plane: torch.Tensor, weights: torch.Tensor,
     row).  A CUDA launch with an index outside ``[0, n)`` traps."""
     _check_plane(plane)
     n, p = plane.shape
-    if weights.ndim != 2 or weights.shape[0] != n or \
-            tuple(nbr_idx.shape) != tuple(weights.shape):
-        raise ValueError(f"weights and nbr_idx must both be ({n}, dmax), got "
-                         f"{tuple(weights.shape)} and {tuple(nbr_idx.shape)}")
+    _check_tables(plane, weights, nbr_idx)
     if plane.device.type == "cpu":
         return gossip_edges_ref(plane, weights, nbr_idx, mix_in_float32)
-    if plane.device.type != "cuda":
-        raise ValueError(f"gossip_edges runs on cuda or cpu, got "
-                         f"{plane.device}")
-    if weights.device != plane.device or weights.dtype != torch.float32:
-        raise ValueError("weights must be float32 on the plane's device")
-    if nbr_idx.device != plane.device or nbr_idx.dtype != torch.int32:
-        raise ValueError("nbr_idx must be int32 on the plane's device")
+    _check_cuda_tables(plane, weights, nbr_idx, "gossip_edges")
     weights, nbr_idx = weights.contiguous(), nbr_idx.contiguous()
     ld = _check_cuda_plane(plane, "gossip_edges")
     out = _out_like(plane, ld)
@@ -229,4 +257,90 @@ def mix_edges_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
     plane = layout.pack(params)
     w = edge_weights(coeffs.to(torch.float32), nbr_idx, nbr_mask)
     mixed = gossip_edges(plane, w, nbr_idx.to(torch.int32), mix_in_float32)
+    return layout.unpack(mixed)
+
+
+# ----------------------------------------------------------------------
+# robust edge-list mix
+# ----------------------------------------------------------------------
+ROBUST_OPS = ("trimmed", "median")
+
+
+def gossip_robust_ref(plane: torch.Tensor, weights: torch.Tensor,
+                      nbr_idx: torch.Tensor, op: str = "trimmed",
+                      trim_k: int = 1,
+                      mix_in_float32: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gossip_robust`: gather the
+    ``(dmax, n, P)`` neighbour values and reduce them with
+    ``core.mixing.robust_combine`` (the reference's stable odd-even sort,
+    sums in ascending sorted order, in bf16 when ``mix_in_float32=False``
+    on a bf16 plane).  Memory is ``2·dmax·n·P`` accumulation-dtype
+    values: columns are independent, so a caller may run it over column
+    chunks."""
+    lowp = not mix_in_float32 and plane.dtype != torch.float32
+    acc_dtype = plane.dtype if lowp else torch.float32
+    flat = plane.to(acc_dtype)
+    out = robust_combine(flat[nbr_idx.long().T], weights.T.to(acc_dtype),
+                         flat, op, trim_k=trim_k)
+    return out.to(plane.dtype)
+
+
+def gossip_robust(plane: torch.Tensor, weights: torch.Tensor,
+                  nbr_idx: torch.Tensor, op: str = "trimmed",
+                  trim_k: int = 1,
+                  mix_in_float32: bool = True) -> torch.Tensor:
+    """Robust Eq. (2) over padded-ELL tables: for each destination row
+    and column, the trimmed mean (``trim_k`` per side) or the median of
+    the occupied slots' values (slots with weight > 0), falling back to
+    the row's own value.  Operands as :func:`gossip_edges`; on the card
+    the table width dmax is at most the widest kernel instantiation (64)
+    and an index outside ``[0, n)`` traps."""
+    _check_plane(plane)
+    n, p = plane.shape
+    _check_tables(plane, weights, nbr_idx)
+    if op not in ROBUST_OPS:
+        raise ValueError(f"gossip_robust op {op!r} not in {ROBUST_OPS}")
+    if trim_k < 0:
+        raise ValueError(f"trim_k must be >= 0, got {trim_k}")
+    if plane.device.type == "cpu":
+        return gossip_robust_ref(plane, weights, nbr_idx, op, trim_k,
+                                 mix_in_float32)
+    _check_cuda_tables(plane, weights, nbr_idx, "gossip_robust")
+    lib = _lib("gossip_robust")
+    dmax = weights.shape[1]
+    if dmax > lib.gossip_robust_max_slots():
+        raise ValueError(
+            f"gossip_robust: table width dmax={dmax} is wider than the "
+            f"widest kernel instantiation ({lib.gossip_robust_max_slots()} "
+            f"slots); a node with that many neighbours needs a wider "
+            f"instantiation in csrc/gossip_robust.cu")
+    weights, nbr_idx = weights.contiguous(), nbr_idx.contiguous()
+    ld = _check_cuda_plane(plane, "gossip_robust")
+    out = _out_like(plane, ld)
+    lowp = int(not mix_in_float32 and plane.dtype != torch.float32)
+    with torch.cuda.device(plane.device):
+        stream = torch.cuda.current_stream(plane.device).cuda_stream
+        rc = lib.gossip_robust_launch(
+            weights.data_ptr(), nbr_idx.data_ptr(), plane.data_ptr(),
+            out.data_ptr(), n, dmax, p, ld, _DTYPE_CODES[plane.dtype], lowp,
+            int(op == "median"), trim_k, stream)
+    _raise_on(rc, "gossip_robust")
+    gossip_robust.launches += 1
+    return out
+
+
+gossip_robust.launches = 0
+
+
+def mix_robust_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
+                      nbr_mask: torch.Tensor, op: str = "trimmed",
+                      trim_k: int = 1, mix_in_float32: bool = True):
+    """Robust Eq. (2) over a stacked tree via :func:`gossip_robust`: pack
+    once → per-edge weight gather → one launch → unpack once.  Equals
+    ``core.mixing.mix_robust_tables`` bit for bit on the CPU."""
+    layout = PlaneLayout.from_tree(params)
+    plane = layout.pack(params)
+    w = edge_weights(coeffs.to(torch.float32), nbr_idx, nbr_mask)
+    mixed = gossip_robust(plane, w, nbr_idx.to(torch.int32), op, trim_k,
+                          mix_in_float32)
     return layout.unpack(mixed)

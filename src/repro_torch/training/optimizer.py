@@ -7,8 +7,9 @@ over the node axis.  The port writes that axis out: every tree here has
 leaves ``(n, ...)``, and every per-node quantity stays per node.  In
 particular :func:`global_norm` is one norm per node — the reference
 computes it under ``vmap``, so a norm taken over the stacked tensors would
-be wrong.  The step counter is shared (every node takes the same number of
-steps in a synchronous round).  States are dicts of trees so they flatten
+be wrong.  The step counter too is one int32 per node, ``(n,)``, as in
+the reference's vmapped state, so a round with partial participation can
+keep an inactive node's count.  States are dicts of trees so they flatten
 in ``jax.tree`` order.
 """
 from __future__ import annotations
@@ -64,6 +65,17 @@ def _f32_zeros(p):
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
+def _step_zeros(params) -> torch.Tensor:
+    leaf = tree_util.leaves(params)[0]
+    return torch.zeros((leaf.shape[0],), dtype=torch.int32,
+                       device=leaf.device)
+
+
+def _per_node(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(n,) ``v`` shaped to broadcast against a stacked leaf ``x``."""
+    return v.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
 def sgd(lr: float, momentum: float = 0.0,
         clip_norm: Optional[float] = None) -> Optimizer:
     """Plain SGD (+ momentum); updates in f32."""
@@ -72,7 +84,7 @@ def sgd(lr: float, momentum: float = 0.0,
     def init(params):
         mom = tree_util.tree_map(_f32_zeros, params) if momentum > 0.0 \
             else None
-        return {"momentum": mom, "step": 0}
+        return {"momentum": mom, "step": _step_zeros(params)}
 
     def update(grads, state, params=None):
         if clip_norm is not None:
@@ -98,7 +110,8 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def init(params):
         return {"mu": tree_util.tree_map(_f32_zeros, params),
-                "nu": tree_util.tree_map(_f32_zeros, params), "step": 0}
+                "nu": tree_util.tree_map(_f32_zeros, params),
+                "step": _step_zeros(params)}
 
     def update(grads, state, params=None):
         if clip_norm is not None:
@@ -110,13 +123,13 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         nu = tree_util.tree_map(
             lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)),
             state["nu"], grads)
-        s = torch.tensor(float(step), dtype=torch.float32)
-        mu_hat = 1.0 / (1.0 - torch.tensor(b1, dtype=torch.float32) ** s)
-        nu_hat = 1.0 / (1.0 - torch.tensor(b2, dtype=torch.float32) ** s)
-        mu_hat, nu_hat = float(mu_hat), float(nu_hat)
+        s = step.to(torch.float32)
+        f32 = dict(dtype=torch.float32, device=s.device)
+        mu_hat = 1.0 / (1.0 - torch.tensor(b1, **f32) ** s)
+        nu_hat = 1.0 / (1.0 - torch.tensor(b2, **f32) ** s)
         updates = tree_util.tree_map(
-            lambda m, v: -lr * (m * mu_hat) / (torch.sqrt(v * nu_hat) + eps),
-            mu, nu)
+            lambda m, v: -lr * (m * _per_node(mu_hat, m))
+            / (torch.sqrt(v * _per_node(nu_hat, v)) + eps), mu, nu)
         return updates, {"mu": mu, "nu": nu, "step": step}
 
     return Optimizer(init, update)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.core import topology as ttopo
+from repro_torch.core.decentralized import edges_schedule
 from repro_torch.core.mixing import edge_weights
 from repro_torch.core.plane import aligned_plane
 from repro_torch.kernels import gossip_mix as tk
@@ -75,3 +76,79 @@ def test_kernels_match_plain_versions_on_the_card(dtype, aligned, f32):
             assert bool(((got_p - ref_p).abs() <= _bf16_ulp(ref_p)).all())
         else:
             assert torch.equal(got_p, ref_p)
+
+
+def _robust_case(n, p, seed, star=False):
+    """(plane, w, idx) on BA(n, 2) or, with ``star``, a hub joined to every
+    other node (table width n): random weights, a few zeroed, rows 0, 3
+    and 5 poisoned with NaN / +Inf / -Inf."""
+    rng = np.random.default_rng(seed)
+    if star:
+        sup = np.eye(n)
+        sup[0, :] = sup[:, 0] = 1.0
+    else:
+        sup = ttopo.barabasi_albert(n, 2, seed).adjacency + np.eye(n)
+    idx, msk = edges_schedule(sup)
+    c = rng.random((n, n)) * sup * (rng.random((n, n)) > 0.1)
+    np.fill_diagonal(c, np.diagonal(c) + 0.5)
+    c = (c / c.sum(1, keepdims=True)).astype(np.float32)
+    plane = rng.normal(size=(n, p)).astype(np.float32)
+    plane[0] = np.nan
+    plane[2, ::2] = np.inf
+    plane[n - 1] = -np.inf
+    w = edge_weights(torch.as_tensor(c), torch.as_tensor(idx),
+                     torch.as_tensor(msk))
+    return plane, w, torch.as_tensor(idx, dtype=torch.int32)
+
+
+def _same(a, b):
+    """Equal values, NaN where the other has NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f32", [True, False])
+@pytest.mark.parametrize("op,trim_k", [("trimmed", 1), ("trimmed", 2),
+                                       ("median", 0)])
+def test_robust_kernel_equals_plain_version_on_the_card(dtype, f32, op,
+                                                        trim_k):
+    """``gossip_robust`` against ``gossip_robust_ref`` on the same inputs
+    on the card, bit for bit (the same sort order, sums in the same order,
+    no FMA), with NaN/±Inf rows, across table widths that select each
+    instantiation: 5, 15, 20 and 64 slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cases = [(5, 37, 1, False), (33, 1001, 2, False), (70, 515, 3, False),
+             (64, 300, 4, True)]
+    for n, p, seed, star in cases:
+        plane, w, idx = _robust_case(n, p, seed, star)
+        pt = aligned_plane(n, p, dtype, "cuda")
+        pt.copy_(torch.as_tensor(plane))
+        w, idx = w.cuda(), idx.cuda()
+        before = tk.gossip_robust.launches
+        got = tk.gossip_robust(pt, w, idx, op, trim_k, f32)
+        torch.cuda.synchronize()
+        assert tk.gossip_robust.launches == before + 1
+        ref = tk.gossip_robust_ref(pt, w, idx, op, trim_k, f32)
+        assert got.dtype == dtype and got.shape == (n, p)
+        assert _same(got.float(), ref.float()), (n, p)
+
+
+@pytest.mark.cuda
+def test_robust_kernel_refuses_what_it_cannot_take():
+    """A plane with unaligned rows, and a table wider than the widest
+    instantiation (64 slots), are refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    plane, w, idx = _robust_case(33, 1001, 2)
+    before = tk.gossip_robust.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.gossip_robust(torch.as_tensor(plane).cuda(), w.cuda(), idx.cuda())
+    plane, w, idx = _robust_case(65, 64, 5, star=True)
+    assert w.shape[1] == 65
+    pt = aligned_plane(65, 64, torch.float32, "cuda")
+    pt.copy_(torch.as_tensor(plane))
+    with pytest.raises(ValueError, match="widest kernel instantiation"):
+        tk.gossip_robust(pt, w.cuda(), idx.cuda())
+    assert tk.gossip_robust.launches == before
