@@ -31,12 +31,30 @@ Phases, in order; any failure raises and the script exits nonzero:
    rate 0 bit-identical to ``make_round_fn``; NaN faults contained by the
    quarantine screen (and poisoning the plane without it); sign-flip
    faults under the mean, the median and the trimmed mean;
+8. serving, stablelm-1.6b at full width and depth (bf16, 1.64 B
+   parameters per node, a fleet of n = 4 in one 13.2 GB plane, a shared
+   init drawn on the card): ``FleetScheduler`` serves 2 requests of 64
+   tokens per node, 16 new tokens each; the full-sequence prefill through
+   the flash kernel makes exactly 24 launches, agrees with the chunked
+   prefill, and its argmax is each request's first token wherever the
+   top-2 margin exceeds twice the decode path's logit difference; a long
+   prefill (S = 4096 per node); ``swap_node`` installs a new row that the
+   next request decodes with;
+9. gemma2-27b at full width cut to its first local and global layer
+   (bf16, S = 8192): the flash prefill (exactly 2 launches) against the
+   chunked one;
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
 
-Phases 3, 4, 6 and 7 are the main path: every launch counter is set to 0
-just before each of them and read just after.  The script imports nothing
-of JAX.
+Phase 2 also holds the flash-attention kernel against its plain version
+at the stablelm prefill shape (4, 4096, 32 heads, hd 64; bf16 and f32),
+the gemma2 shapes (1, 8192, 32 over 16 kv heads, hd 128, cap 50, window
+4096 and 0) and a ragged S, with SDPA as the library yardstick where no
+softcap applies.
+
+Phases 3, 4, 6, 7, 8 and 9 are the main path: every launch counter is set
+to 0 just before each of them and read just after.  The script imports
+nothing of JAX.
 """
 import json
 import statistics
@@ -49,12 +67,15 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 N_NODES = 33
 FFN_P, VGG_P = 118_282, 14_982_479
-KERNELS = ("gossip_plane", "gossip_edges", "gossip_robust")
+KERNELS = ("gossip_plane", "gossip_edges", "gossip_robust",
+           "flash_attention")
 SOURCES = {"gossip_plane": "gossip_mix.cu", "gossip_edges": "gossip_mix.cu",
-           "gossip_robust": "gossip_robust.cu"}
+           "gossip_robust": "gossip_robust.cu",
+           "flash_attention": "flash_attention.cu"}
 REPLACES = {"gossip_plane": "src/repro/kernels/gossip_mix.py:164",
             "gossip_edges": "src/repro/kernels/gossip_mix.py:268",
-            "gossip_robust": "src/repro/kernels/gossip_mix.py:387"}
+            "gossip_robust": "src/repro/kernels/gossip_mix.py:387",
+            "flash_attention": "src/repro/kernels/flash_attention.py:86"}
 ROBUST_CHUNK = 1 << 19          # plain-version columns per chunk
 
 
@@ -168,6 +189,7 @@ def check_kernels(dev):
                 case = {
                     "name": name, "shape": [N_NODES, p],
                     "dtype": str(dtype).replace("torch.", ""),
+                    "main": shape_name == "vgg16" and dtype == torch.float32,
                     "max_abs_err": max_err, "tolerance": tol_txt,
                     "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=5),
                     "library_ms": cuda_ms(lib),
@@ -256,6 +278,8 @@ def check_robust_kernel(gm, plane, w, idx, shape_name):
             "name": "gossip_robust", "shape": [n, p],
             "dtype": str(plane.dtype).replace("torch.", ""),
             "plane": shape_name, "op": op, "trim_k": trim_k,
+            "main": (shape_name == "vgg16" and plane.dtype == torch.float32
+                     and op == "trimmed"),
             "max_abs_err": max_err,
             "tolerance": "== 0 (NaN where the plain version has NaN)",
             "ms": cuda_ms(run), "plain_ms": plain_ms, "library_ms": None,
@@ -709,6 +733,378 @@ def run_faults(sc, gm, batches):
 
 
 # ----------------------------------------------------------------------
+# phase 2, flash attention: the kernel against its plain version
+# ----------------------------------------------------------------------
+FLASH_CASES = (
+    # (label, (B, S, H, KV, hd), dtype, window, softcap, main)
+    ("stablelm_prefill", (4, 4096, 32, 32, 64), "bfloat16", 0, 0.0, True),
+    ("stablelm_prefill", (4, 4096, 32, 32, 64), "float32", 0, 0.0, False),
+    ("gemma2_local", (1, 8192, 32, 16, 128), "bfloat16", 4096, 50.0, False),
+    ("gemma2_global", (1, 8192, 32, 16, 128), "bfloat16", 0, 50.0, False),
+    ("ragged", (2, 1000, 8, 2, 64), "float32", 256, 50.0, False),
+    ("ragged", (2, 1000, 8, 2, 64), "bfloat16", 256, 50.0, False),
+)
+FLASH_F32_TOL = 2e-5    # times max|ref|
+
+
+def unmasked_pairs(s, window):
+    """(query, key) pairs a causal row set keeps: min(s + 1, window)."""
+    if window <= 0:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def check_flash(dev):
+    """``flash_attention`` against ``flash_attention_ref`` at the serving
+    path's shapes.  Gates: f32 max abs err <= 2e-5 max|ref|; bf16
+    elementwise within one bf16 ulp of the plain version's output beyond
+    that same f32 bound (each side rounds its own f32 value once); every
+    output finite.  SDPA (``is_causal``) is the library yardstick where
+    no softcap or window applies."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = []
+    for label, (b, s, h, kv, hd), dt, window, cap, main in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd)))
+        run = lambda: fa.flash_attention(q, k, v, window=window,
+                                         logit_softcap=cap)
+        plain = lambda: fa.flash_attention_ref(q, k, v, window=window,
+                                               logit_softcap=cap)
+        out, ref = run().float(), plain().float()
+        torch.cuda.synchronize()
+        assert out.shape == (b, s, h, hd) and bool(torch.isfinite(out).all())
+        err = (out - ref).abs()
+        max_err = float(err.max())
+        f32_tol = FLASH_F32_TOL * float(ref.abs().max())
+        if dtype == torch.float32:
+            ok = max_err <= f32_tol
+            tol_txt = f"<= 2e-5*max|ref| = {f32_tol:.3g}"
+            over_ulp, gate_use = None, max_err / f32_tol
+        else:
+            ulp = bf16_ulp(ref)
+            ok = bool((err <= ulp + f32_tol).all())
+            tol_txt = "<= 1 bf16 ulp + 2e-5*max|ref| elementwise"
+            over_ulp = int((err > ulp).sum())
+            gate_use = float((err / (ulp + f32_tol)).max())
+        del out, ref, err
+        assert ok, f"flash_attention {label} {dt}: {max_err} {tol_txt}"
+        library_ms = None
+        if window == 0 and cap == 0.0:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            del qt, kt, vt
+        pairs = unmasked_pairs(s, window)
+        nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * q.element_size()
+        flops = 4 * hd * h * b * pairs
+        bnd, by = bound_ms(nbytes, flops)
+        case = {
+            "name": "flash_attention", "case": label, "shape": [b, s, h, kv, hd],
+            "dtype": dt, "window": window, "softcap": cap, "main": main,
+            "max_abs_err": max_err, "tolerance": tol_txt,
+            "elements_beyond_one_ulp": over_ulp,
+            "max_err_over_gate": gate_use,
+            "ms": cuda_ms(run, reps=10), "plain_ms": cuda_ms(plain, reps=3),
+            "library_ms": library_ms, "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes, "flops": flops, "unmasked_pairs": pairs,
+        }
+        log("kernel_case " + json.dumps(case))
+        cases.append(case)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return cases
+
+
+# ----------------------------------------------------------------------
+# phases 8-9: serving over the dense transformer stack
+# ----------------------------------------------------------------------
+SERVE_NODES, SERVE_SLOTS, PROMPT_LEN, NEW_TOKENS = 4, 2, 64, 16
+LONG_PREFILL = 4096
+# the flash prefill's last-position logits (bf16 values cast to f32)
+# against the chunked prefill's: two bf16 ulps at |logit| in [4, 8),
+# pinned from a run on an H100 SXM (700 W) that measured 0.039 for
+# stablelm-1.6b (max |logit| 5.06) and 0.0156 for gemma2-27b (4.83);
+# both prefills and the kernel are deterministic on one card
+FLASH_VS_CHUNKED_TOL = 0.0625
+
+
+def top2_margin(logits):
+    """Top-1 minus top-2 logit, per row."""
+    import torch
+
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def decode_path_logits(cfg, fleet, toks):
+    """The scheduler's own computation of each prompt's next-token logits:
+    the fleet's chunked self-feeding prefill (the decode path, einsum
+    attention against the cache) over whole prompts ``(n, B, S)`` from a
+    fresh cache of the scheduler's shapes, so every step repeats the
+    scheduler's arithmetic on the same shapes."""
+    import torch
+
+    from repro_torch.serving.serve_step import (
+        make_cache,
+        make_fleet_prefill_step,
+    )
+
+    n, b, s = toks.shape
+    lens = torch.full((n, b), s, dtype=torch.int32, device=toks.device)
+    cache = make_cache(cfg, fleet.n_nodes, fleet.n_slots, fleet.max_seq,
+                       toks.device)
+    last, _, _ = make_fleet_prefill_step(cfg, fleet.layout)(
+        fleet.plane, toks.to(torch.int32), lens, lens, cache)
+    return last
+
+
+def decode_step_times(cfg, fleet, reps=5):
+    """One fleet decode step (every node, every slot, one token): its host
+    time (synchronized wall clock), the device's busy time in it (the sum
+    of its kernels' times under ``torch.profiler``), the device's idle
+    share, its host-to-device copies (each from pageable memory waits for
+    the stream), and the step's byte bound (the plane read once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.serve_step import make_cache, make_fleet_decode_step
+
+    dev = fleet.plane.device
+    step = make_fleet_decode_step(cfg, fleet.layout)
+    toks = torch.zeros((fleet.n_nodes, fleet.n_slots, 1), dtype=torch.int32,
+                       device=dev)
+    cache = make_cache(cfg, fleet.n_nodes, fleet.n_slots, fleet.max_seq, dev)
+    run = lambda: step(fleet.plane, toks, cache)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    assert busy_ms > 0, "the profiler saw no device time"
+    htod = sum(e.count for e in events if "HtoD" in e.key) / reps
+    nbytes = fleet.plane.numel() * fleet.plane.element_size()
+    return {"host_ms": host_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / host_ms),
+            "htod_copies_per_step": htod,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def first_token_gate(label, reqs, flash, dec):
+    """Each request's first token equals the argmax of the decode path's
+    logits (the scheduler's own computation) exactly, and the argmax of
+    the flash prefill's wherever the flash logits' top-2 margin exceeds
+    twice the largest flash-vs-decode logit difference; near-ties are
+    counted."""
+    import torch
+
+    diff = float((flash - dec).abs().max())
+    margin = top2_margin(flash)
+    flat = [(r, i) for i, r in enumerate(reqs)]
+    gated = ties = 0
+    for r, i in flat:
+        assert r.output[0] == int(torch.argmax(dec.reshape(-1, dec.shape[-1])[i])), \
+            (label, r.rid)
+        if float(margin.reshape(-1)[i]) > 2 * diff:
+            assert r.output[0] == int(torch.argmax(
+                flash.reshape(-1, flash.shape[-1])[i])), (label, r.rid)
+            gated += 1
+        else:
+            ties += 1
+    log(f"{label}: first tokens == decode-path argmax for {len(flat)} of "
+        f"{len(flat)}; == flash-prefill argmax for {gated} gated (top-2 "
+        f"margin > 2 x {diff:.4g}), {ties} near-ties not gated")
+    return {"flash_vs_decode_max_abs": diff, "gated": gated,
+            "near_ties": ties}
+
+
+def run_serving(dev, flash_ms=None, cfg=None, n=SERVE_NODES,
+                prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
+                long_len=LONG_PREFILL):
+    """Phase 8: the serving tier at stablelm-1.6b's full width and depth.
+    ``flash_ms``: the kernel's time at the long prefill's attention shape
+    (phase 2's main case), for flash's share of that prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import ForwardOptions, init_params
+    from repro_torch.serving.scheduler import FleetScheduler, Request
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = cfg or get_config("stablelm-1.6b")
+    res = {"arch": cfg.name, "params_per_node": cfg.param_count(),
+           "nodes": n}
+    t0 = time.perf_counter()
+    one = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    fleet = FleetScheduler(
+        cfg, tree_util.tree_map(lambda x: x.unsqueeze(0).expand(
+            (n,) + x.shape), one), n_nodes=n, n_slots=SERVE_SLOTS,
+        max_seq=prompt_len + new_tokens + 1, prefill_chunk=8)
+    del one
+    torch.cuda.synchronize()
+    res["init_and_pack_s"] = time.perf_counter() - t0
+    res["plane_gb"] = fleet.plane.numel() * fleet.plane.element_size() / 1e9
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(n, SERVE_SLOTS,
+                                                    prompt_len))
+    reqs = [Request(rid=i * SERVE_SLOTS + j, prompt=prompts[i, j].tolist(),
+                    max_new=new_tokens)
+            for i in range(n) for j in range(SERVE_SLOTS)]
+    for r in reqs:
+        fleet.submit(r, node=r.rid // SERVE_SLOTS)
+    t0 = time.perf_counter()
+    steps = fleet.run_until_drained()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert all(r.done and len(r.output) == new_tokens for r in reqs), \
+        [len(r.output) for r in reqs]
+    res.update({"requests": len(reqs), "scheduler_steps": steps,
+                "serve_s": secs,
+                "generated_tokens_per_s": len(reqs) * new_tokens / secs})
+
+    res["fleet_decode_step"] = decode_step_times(cfg, fleet)
+    params = fleet.layout.unpack(fleet.plane)
+    toks = torch.as_tensor(prompts, device=dev)
+    flash_prefill = make_forward_prefill(cfg, ForwardOptions(
+        attn_impl="pallas"))
+    before = fa.flash_attention.launches
+    flash = flash_prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches - before
+    assert launches == cfg.n_layers, launches   # one per layer, whole fleet
+    chunked = make_forward_prefill(cfg, ForwardOptions(attn_impl="chunked"))(
+        params, {"tokens": toks})
+    assert bool(torch.isfinite(flash).all()) and flash.shape == (
+        n, SERVE_SLOTS, cfg.vocab_size)
+    vs_chunked = float((flash - chunked).abs().max())
+    res.update({"prefill_launches": launches,
+                "flash_vs_chunked_max_abs": vs_chunked,
+                "max_abs_logit": float(flash.abs().max())})
+    assert vs_chunked <= FLASH_VS_CHUNKED_TOL, vs_chunked
+    dec = decode_path_logits(cfg, fleet, toks)
+    res["first_token"] = first_token_gate("serving", reqs, flash, dec)
+    del flash, chunked, dec
+
+    # one long prefill, B = 1 per node
+    long_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             size=(n, 1, long_len)), device=dev)
+    flash_prefill(params, {"tokens": long_toks[:, :, :256]})   # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = fa.flash_attention.launches
+    t0 = time.perf_counter()
+    out = flash_prefill(params, {"tokens": long_toks})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert fa.flash_attention.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(out).all())
+    res["long_prefill"] = {
+        "tokens": n * long_len, "s": secs, "tokens_per_s": n * long_len / secs,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if flash_ms is not None:
+        # phase 2 timed the kernel at this prefill's attention shape
+        res["long_prefill"]["flash_share"] = (cfg.n_layers * flash_ms
+                                              / (secs * 1e3))
+    del out
+
+    # swap node 1's row for a second init; a new request on node 1 decodes
+    # with it
+    other = init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    ptr = fleet.plane.data_ptr()
+    old_head = params["head"][1, :4, :4].clone()
+    fleet.swap_node(1, other)
+    assert fleet.plane.data_ptr() == ptr
+    assert torch.equal(params["head"][1], other["head"])    # the old views
+    assert not torch.equal(params["head"][1, :4, :4], old_head)
+    del other
+    new_prompts = rng.integers(0, cfg.vocab_size, size=(SERVE_SLOTS,
+                                                        prompt_len))
+    reqs = [Request(rid=100 + j, prompt=new_prompts[j].tolist(), max_new=4)
+            for j in range(SERVE_SLOTS)]
+    for r in reqs:
+        fleet.submit(r, node=1)
+    fleet.run_until_drained()
+    node1 = tree_util.tree_map(lambda a: a[1:2], fleet.layout.unpack(fleet.plane))
+    nt = torch.zeros_like(toks)
+    nt[1] = torch.as_tensor(new_prompts, device=dev)
+    flash = flash_prefill(node1, {"tokens": nt[1:2]})[0]
+    dec = decode_path_logits(cfg, fleet, nt)[1]
+    res["swap_first_token"] = first_token_gate("swap_node", reqs, flash, dec)
+    del fleet, params, node1
+    torch.cuda.empty_cache()
+    log("serving " + json.dumps(res))
+    return res
+
+
+def run_gemma2(dev, cfg=None, seq=8192):
+    """Phase 9: gemma2-27b at full width, its first local and global
+    layer, one prefill of S tokens through the flash kernel (2 launches)
+    against the chunked one."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import (
+        ForwardOptions,
+        add_node_axis,
+        init_params,
+    )
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = cfg or dataclasses.replace(get_config("gemma2-27b"), n_layers=2)
+    assert cfg.layer_kinds() == ("local", "global")
+    params = add_node_axis(init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(1, 1, seq)), device=dev)
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "seq": seq}
+    out = {}
+    for impl in ("pallas", "chunked"):
+        prefill = make_forward_prefill(cfg, ForwardOptions(attn_impl=impl))
+        before = fa.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[impl] = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        res[f"{impl}_s"] = time.perf_counter() - t0
+        res[f"{impl}_launches"] = fa.flash_attention.launches - before
+    assert res["pallas_launches"] == 2 and res["chunked_launches"] == 0, res
+    assert bool(torch.isfinite(out["pallas"]).all())
+    diff = float((out["pallas"] - out["chunked"]).abs().max())
+    res.update({"flash_vs_chunked_max_abs": diff,
+                "max_abs_logit": float(out["pallas"].abs().max()),
+                "argmax_equal": bool(torch.equal(
+                    out["pallas"].argmax(-1), out["chunked"].argmax(-1)))})
+    log("gemma2 " + json.dumps(res))
+    assert diff <= FLASH_VS_CHUNKED_TOL, diff
+    del params, out
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 5: where one round's time goes
 # ----------------------------------------------------------------------
 def timed(fn):
@@ -793,6 +1189,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm
 
     card = card_line()
@@ -808,12 +1205,13 @@ def main() -> int:
         build.load(name)
     log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
 
-    cases = check_kernels(dev)
+    cases = check_kernels(dev) + check_flash(dev)
     small_device_check()
 
     ffn_sc = ffn_setup()
     vgg_sc = vgg_setup()
-    counters = {name: getattr(gm, name) for name in KERNELS}
+    counters = {name: getattr(fa if name == "flash_attention" else gm, name)
+                for name in KERNELS}
     paths = {}
 
     def main_path(name, fn, *args):
@@ -839,6 +1237,11 @@ def main() -> int:
     main_path("ffn_faults", run_faults, ffn_sc, gm, batches)
     del batches
     torch.cuda.empty_cache()
+    flash_main = next(c for c in cases
+                      if c["name"] == "flash_attention" and c["main"])
+    assert flash_main["shape"] == [SERVE_NODES, LONG_PREFILL, 32, 32, 64]
+    main_path("serving_stablelm", run_serving, dev, flash_main["ms"])
+    main_path("prefill_gemma2", run_gemma2, dev)
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches
@@ -859,8 +1262,7 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         own = [c for c in cases if c["name"] == name]
-        main_case = next(c for c in own if c["shape"][1] == VGG_P
-                         and c["dtype"] == "float32")
+        main_case = next(c for c in own if c["main"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}",

@@ -66,6 +66,7 @@ __all__ = [
     "RoundMetrics",
     "DecentralizedTrainer",
     "stack_params",
+    "unstack_params",
     "round_coeffs",
     "coeffs_stack",
     "make_mix_fn",
@@ -85,6 +86,11 @@ MIX_IMPLS = ("einsum", "pallas", "edges")
 def stack_params(params_list) -> object:
     """[tree] * n  →  stacked tree with leading node axis."""
     return tree_util.tree_map(lambda *xs: torch.stack(xs), *params_list)
+
+
+def unstack_params(stacked, n: int) -> list:
+    """Stacked tree → n per-node trees (views)."""
+    return [tree_util.tree_map(lambda x: x[i], stacked) for i in range(n)]
 
 
 @dataclasses.dataclass(frozen=True)

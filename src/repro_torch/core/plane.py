@@ -17,6 +17,11 @@ copies), each leaf in its own shape and dtype.
 Dtype policy: the plane dtype defaults to the widest leaf dtype
 (``torch.promote_types`` over the leaves — f32 as soon as any leaf is
 f32); pass ``torch.bfloat16`` to halve the plane's bytes.
+
+The serving tier's bridge is :meth:`PlaneLayout.pack_row`: one node's
+freshly mixed params become its serving weights by a write into its
+plane row (``FleetScheduler.swap_node``), in place, so every view that
+:meth:`unpack` handed out sees them.
 """
 from __future__ import annotations
 
@@ -66,6 +71,13 @@ class PlaneLayout:
         return 0 if not self.slots else (self.slots[-1].offset
                                          + self.slots[-1].size)
 
+    def plane_nbytes(self, dtype: Optional[Any] = None) -> int:
+        """Bytes of one packed ``(n, P)`` plane in ``dtype`` (None → the
+        widest leaf dtype), row padding not counted."""
+        dtype = self.widest_dtype if dtype is None else dtype
+        return (self.n_nodes * self.n_params
+                * torch.empty((), dtype=dtype).element_size())
+
     @property
     def widest_dtype(self):
         return functools.reduce(torch.promote_types,
@@ -110,6 +122,34 @@ class PlaneLayout:
             plane[:, s.offset:s.offset + s.size].copy_(
                 leaf.reshape(self.n_nodes, s.size))
         return plane
+
+    def pack_row(self, params_one, dtype: Optional[Any] = None
+                 ) -> torch.Tensor:
+        """ONE node's tree (no leading node axis) → ``(P,)`` row."""
+        dtype = self.widest_dtype if dtype is None else dtype
+        leaves, treedef = tree_util.flatten(params_one)
+        if treedef != self.treedef or any(
+                tuple(l.shape) != s.shape for l, s in zip(leaves, self.slots)):
+            raise ValueError(
+                f"PlaneLayout.pack_row: layout packs leaf shapes "
+                f"{[s.shape for s in self.slots]}, got "
+                f"{[tuple(l.shape) for l in leaves]}")
+        row = torch.empty((self.n_params,), dtype=dtype,
+                          device=leaves[0].device)
+        for leaf, s in zip(leaves, self.slots):
+            row[s.offset:s.offset + s.size].copy_(leaf.reshape(-1))
+        return row
+
+    def unpack_row(self, row: torch.Tensor):
+        """``(P,)`` row → one node's tree of views (inverse of
+        :meth:`pack_row`; a dtype cast copies)."""
+        if row.shape[-1] != self.n_params:
+            raise ValueError(
+                f"PlaneLayout.unpack_row: row has {row.shape[-1]} columns, "
+                f"layout packs {self.n_params}")
+        leaves = [row[s.offset:s.offset + s.size].reshape(s.shape).to(s.dtype)
+                  for s in self.slots]
+        return tree_util.unflatten(self.treedef, leaves)
 
     def unpack(self, plane: torch.Tensor):
         """``(n, P)`` plane → stacked tree of views, each leaf in its own

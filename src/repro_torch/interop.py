@@ -15,13 +15,18 @@ from repro_torch import tree as tree_util
 __all__ = ["params_from_jax", "params_to_numpy"]
 
 
-def params_from_jax(tree_of_numpy, device) -> object:
+def params_from_jax(tree_of_numpy, device, dtype=None) -> object:
     """JAX parameter pytree of numpy arrays → the port's tensors on
-    ``device`` (dtypes kept; numpy has no bfloat16, so a bf16 tree comes
-    over as f32 and is cast by the caller)."""
-    return tree_util.tree_map(
-        lambda a: torch.as_tensor(np.array(a, copy=True), device=device),
-        tree_of_numpy)
+    ``device``.  Dtypes are kept unless ``dtype`` is given, which casts
+    every floating leaf: numpy has no bfloat16, so a bf16 tree (the
+    transformer's, ``cfg.weight_dtype``) comes over as f32 and is cast
+    here."""
+    def leaf(a):
+        t = torch.as_tensor(np.array(a, copy=True), device=device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+
+    return tree_util.tree_map(leaf, tree_of_numpy)
 
 
 def params_to_numpy(params) -> object:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["flatten", "unflatten", "tree_map", "leaves"]
+__all__ = ["flatten", "unflatten", "tree_map", "leaves", "leaves_with_paths"]
 
 
 def flatten(tree) -> Tuple[List[Any], Any]:
@@ -58,6 +58,26 @@ def unflatten(treedef, leaves_in):
 
 def leaves(tree) -> List[Any]:
     return flatten(tree)[0]
+
+
+def leaves_with_paths(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """``(path, leaf)`` in flatten order; a path holds the dict keys and
+    list/tuple indices from the root (``jax.tree_util``'s
+    ``tree_flatten_with_path`` keys, unwrapped)."""
+    out: List[Tuple[Tuple[Any, ...], Any]] = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, c in enumerate(node):
+                walk(c, path + (i,))
+        elif node is not None:
+            out.append((path, node))
+
+    walk(tree, ())
+    return out
 
 
 def tree_map(fn: Callable, tree, *rest):

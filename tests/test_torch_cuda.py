@@ -12,6 +12,7 @@ from repro_torch.core import topology as ttopo
 from repro_torch.core.decentralized import edges_schedule
 from repro_torch.core.mixing import edge_weights
 from repro_torch.core.plane import aligned_plane
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gossip_mix as tk
 
 torch.set_num_threads(2)
@@ -152,3 +153,87 @@ def test_robust_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="widest kernel instantiation"):
         tk.gossip_robust(pt, w.cuda(), idx.cuda())
     assert tk.gossip_robust.launches == before
+
+
+# ----------------------------------------------------------------------
+# flash attention
+# ----------------------------------------------------------------------
+def _qkv_case(b, s, h, kv, hd, seed, dtype):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+                 .to(dtype).cuda()
+                 for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,window,cap", [
+    (1, 128, 4, 2, 32, 0, 0.0),      # GQA, one full tile pair
+    (2, 100, 4, 4, 32, 16, 20.0),    # ragged S, window and softcap
+    (1, 1000, 8, 2, 64, 256, 50.0),  # ragged, many tiles, window > tile
+    (2, 300, 4, 1, 64, 0, 0.0),      # MQA, ragged
+    (1, 520, 4, 2, 128, 200, 50.0),  # hd 128 (32-key tiles), gemma2 cap
+    (3, 64, 2, 2, 128, 0, 0.0),      # one q tile exactly
+    (1, 7, 3, 1, 32, 3, 0.0),        # shorter than a tile
+])
+def test_flash_kernel_matches_plain_version_on_the_card(dtype, b, s, h, kv,
+                                                        hd, window, cap):
+    """The flash kernel against ``flash_attention_ref`` on the same card
+    inputs: f32 within 2e-5·max|ref| (another summation order: the
+    online softmax against one softmax); bf16 within one bf16 ulp of the
+    plain version's output beyond that same f32 bound (each rounds its own
+    f32 value once, and near zero the f32 difference exceeds an ulp);
+    all finite, exactly one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    q, k, v = _qkv_case(b, s, h, kv, hd, s + hd, dtype)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, window=window, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    ref = tfa.flash_attention_ref(q, k, v, window=window,
+                                  logit_softcap=cap)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    got, ref = got.float(), ref.float()
+    f32_tol = 2e-5 * ref.abs().max()
+    if dtype == torch.float32:
+        assert (got - ref).abs().max() <= f32_tol
+    else:
+        assert bool(((got - ref).abs() <= _bf16_ulp(ref) + f32_tol).all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_inputs_on_the_card():
+    """q, k, v read in place through their strides (slices of one fused
+    qkv tensor, as a model might hand them over)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(3)
+    qkv = torch.as_tensor(rng.normal(size=(2, 200, 8, 64)).astype(
+        np.float32)).cuda()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = tfa.flash_attention(q, k, v, window=50)
+    ref = tfa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=50)
+    assert (got - ref).abs().max() <= 2e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_take():
+    """A head dim without an instantiation, a non-contiguous head dim and
+    H not a multiple of KV are refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    before = tfa.flash_attention.launches
+    q, k, v = _qkv_case(1, 64, 4, 2, 48, 0, torch.float32)
+    with pytest.raises(ValueError, match="head dim 48"):
+        tfa.flash_attention(q, k, v)
+    wide, k, v = _qkv_case(1, 64, 4, 2, 128, 0, torch.float32)
+    k, v = k[..., :64], v[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(wide[..., ::2], k.contiguous(), v.contiguous())
+    q3, _, _ = _qkv_case(1, 64, 3, 2, 64, 0, torch.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(q3, k, v)
+    assert tfa.flash_attention.launches == before
