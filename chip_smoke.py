@@ -45,6 +45,18 @@ Phases, in order; any failure raises and the script exits nonzero:
 9. gemma2-27b at full width cut to its first local and global layer
    (bf16, S = 8192): the flash prefill (exactly 2 launches) against the
    chunked one;
+10. serving rwkv6-3b at full width and depth (bf16 with its f32 decay
+   leaves, 3.10 B parameters per node, a fleet of n = 2 in one f32 plane,
+   a distinct init per node drawn on the card): ``FleetScheduler`` serves
+   2 requests of 64 tokens per node, 16 new tokens each; a second wave
+   re-uses the freed slots and must equal the same prompts served by a
+   fresh ``FleetScheduler``; the full-sequence prefill through the RWKV-6
+   scan kernel makes exactly 32 launches and agrees, to fixed bounds,
+   with the plain scan body and with the decode path, and its argmax is
+   each first token wherever the top-2 margin exceeds twice that bound; a
+   long prefill (S = 4096 per node); one fleet decode step at position 81
+   and at 4088 with the share of its device time spent casting the plane;
+   ``swap_node`` installs a new row that the next request decodes with;
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
 
@@ -53,12 +65,19 @@ at the stablelm prefill shape (4, 4096, 32 heads, hd 64; bf16 and f32),
 the gemma2 shapes (1, 8192, 32 over 16 kv heads, hd 128, cap 50, window
 4096 and 0) and a ragged S, with SDPA as the library yardstick where no
 softcap or window applies and ``flex_attention`` (compiled) where one
-does.
+does.  It also holds the RWKV-6 scan kernel against its plain version
+at the rwkv6-3b prefill shape (2, 4096, 40 heads, hd 64; bf16 from a zero
+and a nonzero state, f32), a ragged (3, 1000, 4, 64) whose r, k, v are
+slices of one fused tensor, and hd 32; no PyTorch call computes the
+recurrence, so it has no library yardstick.
 
-Phases 3, 4, 6, 7, 8 and 9 are the main path: every launch counter is set
-to 0 just before each of them and read just after.  The script imports
-nothing of JAX.
+Phases 3, 4, 6, 7, 8, 9 and 10 are the main path: every launch counter is
+set to 0 just before each of them and read just after.  The script
+imports nothing of JAX.
 """
+import dataclasses
+import gc
+import importlib
 import json
 import os
 import statistics
@@ -72,14 +91,20 @@ F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 N_NODES = 33
 FFN_P, VGG_P = 118_282, 14_982_479
 KERNELS = ("gossip_plane", "gossip_edges", "gossip_robust",
-           "flash_attention")
+           "flash_attention", "rwkv_scan")
 SOURCES = {"gossip_plane": "gossip_mix.cu", "gossip_edges": "gossip_mix.cu",
            "gossip_robust": "gossip_robust.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "rwkv_scan": "ssm_scan.cu"}
 REPLACES = {"gossip_plane": "src/repro/kernels/gossip_mix.py:164",
             "gossip_edges": "src/repro/kernels/gossip_mix.py:268",
             "gossip_robust": "src/repro/kernels/gossip_mix.py:387",
-            "flash_attention": "src/repro/kernels/flash_attention.py:86"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:86",
+            "rwkv_scan": "src/repro/kernels/ssm_scan.py:86"}
+# the wrapper modules under repro_torch.kernels
+MODULES = {"gossip_plane": "gossip_mix", "gossip_edges": "gossip_mix",
+           "gossip_robust": "gossip_mix",
+           "flash_attention": "flash_attention", "rwkv_scan": "ssm_scan"}
 ROBUST_CHUNK = 1 << 19          # plain-version columns per chunk
 
 
@@ -879,6 +904,112 @@ def check_flash(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 2, the RWKV-6 scan: the kernel against its plain version
+# ----------------------------------------------------------------------
+RWKV_CASES = (
+    # (label, (B, S, H, hd), dtype, initial state, strided, main)
+    ("rwkv6_prefill", (2, 4096, 40, 64), "bfloat16", "zero", False, True),
+    ("rwkv6_prefill", (2, 4096, 40, 64), "bfloat16", "random", False, False),
+    ("rwkv6_prefill", (2, 4096, 40, 64), "float32", "random", False, False),
+    ("ragged_strided", (3, 1000, 4, 64), "bfloat16", "random", True, False),
+    ("hd32", (2, 2048, 8, 32), "float32", "random", False, False),
+)
+# times max|ref|, for f32 y and every final state: pinned from the first
+# run on an H100 SXM (700 W), which measured at most 1.96e-7 (f32 y
+# 1.8e-7, states 2.0e-7); there bf16 y came to at most 99.94% of its gate
+# (one ulp), 191 of 21 M outputs more than one ulp off by less than the
+# f32 bound
+RWKV_F32_TOL = 1e-6
+RWKV_LIBRARY = "none: no PyTorch call computes the RWKV-6 recurrence"
+
+
+def rwkv_inputs(gen, dev, b, s, h, hd, dtype, state, strided):
+    """r, k, v ~ N(0, 0.5²) in ``dtype`` (strided: slices of one fused
+    (B, S, 3H, hd) tensor); decays w = exp(-exp(x)), x uniform in [-6, 0]
+    (w from 0.37 to 0.9975: short and long memory); u ~ N(0, 0.3²); the
+    initial state zero or ~ N(0, 0.1²)."""
+    import torch
+
+    normal = lambda shape, scale: torch.randn(
+        shape, generator=gen, device=dev).mul_(scale)
+    if strided:
+        fused = normal((b, s, 3 * h, hd), 0.5).to(dtype)
+        r, k, v = fused[:, :, :h], fused[:, :, h:2 * h], fused[:, :, 2 * h:]
+    else:
+        r, k, v = (normal((b, s, h, hd), 0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand((b, s, h, hd), generator=gen,
+                                        device=dev) * 6 - 6))
+    u = normal((h, hd), 0.3)
+    st = (torch.zeros((b, h, hd, hd), device=dev) if state == "zero"
+          else normal((b, h, hd, hd), 0.1))
+    return r, k, v, w, u, st
+
+
+def check_rwkv(dev):
+    """``rwkv_scan`` against ``rwkv_scan_ref`` at the serving path's
+    shapes.  Gates: f32 y and every final state within RWKV_F32_TOL of
+    max|ref| (another summation order); bf16 y elementwise within one
+    bf16 ulp of the plain version's beyond that bound (each rounds its own
+    f32 value once); every output finite."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ts
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for label, (b, s, h, hd), dt, state, strided, main in RWKV_CASES:
+        dtype = getattr(torch, dt)
+        x = rwkv_inputs(gen, dev, b, s, h, hd, dtype, state, strided)
+        run = lambda: ts.rwkv_scan(*x)
+        plain = lambda: ts.rwkv_scan_ref(*x)
+        (y, sf), (yr, sr) = run(), plain()
+        torch.cuda.synchronize()
+        assert y.shape == (b, s, h, hd) and bool(torch.isfinite(y).all()) \
+            and bool(torch.isfinite(sf).all())
+        y, yr = y.float(), yr.float()
+        err = (y - yr).abs()
+        max_err = float(err.max())
+        y_tol = RWKV_F32_TOL * float(yr.abs().max())
+        state_err = float((sf - sr).abs().max())
+        state_tol = RWKV_F32_TOL * float(sr.abs().max())
+        if dtype == torch.float32:
+            ok = max_err <= y_tol
+            tol_txt = f"<= {RWKV_F32_TOL:g}*max|ref| = {y_tol:.3g}"
+            over_ulp, gate_use = None, max_err / y_tol
+        else:
+            ulp = bf16_ulp(yr)
+            ok = bool((err <= ulp + y_tol).all())
+            tol_txt = (f"<= 1 bf16 ulp + {RWKV_F32_TOL:g}*max|ref| "
+                       f"elementwise")
+            over_ulp = int((err > ulp).sum())
+            gate_use = float((err / (ulp + y_tol)).max())
+        del y, yr, sf, sr, err
+        assert ok, f"rwkv_scan {label} {dt}: {max_err} {tol_txt}"
+        assert state_err <= state_tol, (label, dt, state_err, state_tol)
+        n_elem = b * s * h * hd
+        nbytes = (4 * n_elem * x[0].element_size() + 4 * n_elem
+                  + 2 * b * h * hd * hd * 4 + h * hd * 4)
+        flops = 4 * b * s * h * hd * hd
+        bnd, by = bound_ms(nbytes, flops)
+        case = {
+            "name": "rwkv_scan", "case": label, "shape": [b, s, h, hd],
+            "dtype": dt, "initial_state": state, "strided": strided,
+            "main": main, "max_abs_err": max_err, "tolerance": tol_txt,
+            "elements_beyond_one_ulp": over_ulp,
+            "max_err_over_gate": gate_use, "state_max_abs_err": state_err,
+            "state_err_over_gate": state_err / state_tol,
+            "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=3),
+            "library_ms": None, "library": RWKV_LIBRARY,
+            "bound_ms": bnd, "bound_by": by, "bytes": nbytes, "flops": flops,
+        }
+        log("kernel_case " + json.dumps(case))
+        cases.append(case)
+        del x
+        torch.cuda.empty_cache()
+    return cases
+
+
+# ----------------------------------------------------------------------
 # phases 8-9: serving over the dense transformer stack
 # ----------------------------------------------------------------------
 SERVE_NODES, SERVE_SLOTS, PROMPT_LEN, NEW_TOKENS = 4, 2, 64, 16
@@ -939,10 +1070,12 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
     copies (each from pageable memory waits for the stream), and the
     step's byte bound: the plane read once, plus the K/V entries up to
     ``position`` that attention must read (the one new entry written in
-    place is left out)."""
+    place is left out), or for the ``ssm`` family its state leaves read
+    once (O(1) in the position)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.models.transformer import SSM_STATE_LEAVES
     from repro_torch.serving.serve_step import make_cache, make_fleet_decode_step
 
     dev = fleet.plane.device
@@ -969,16 +1102,20 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
     assert busy_ms > 0, "the profiler saw no device time"
     htod = sum(e.count for e in events if "HtoD" in e.key) / reps
     plane_bytes = fleet.plane.numel() * fleet.plane.element_size()
-    kv = cache["k"]     # (n, L, B, T, KV, hd)
-    kv_bytes = 2 * (kv.numel() // kv.shape[3]) * (position + 1) \
-        * kv.element_size()
+    if "k" in cache:
+        kv = cache["k"]     # (n, L, B, T, KV, hd)
+        cache_bytes = 2 * (kv.numel() // kv.shape[3]) * (position + 1) \
+            * kv.element_size()
+    else:
+        cache_bytes = sum(cache[k].numel() * cache[k].element_size()
+                          for k in SSM_STATE_LEAVES)
     del cache
     return {"max_seq": max_seq, "position": position, "host_ms": host_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / host_ms),
             "htod_copies_per_step": htod, "plane_bytes": plane_bytes,
-            "kv_bytes": kv_bytes,
-            "bound_ms": (plane_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3}
+            "cache_bytes": cache_bytes,
+            "bound_ms": (plane_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3}
 
 
 def first_token_gate(label, reqs, flash, dec):
@@ -1192,6 +1329,324 @@ def run_gemma2(dev, cfg=None, seq=8192):
 
 
 # ----------------------------------------------------------------------
+# phase 10: serving the RWKV-6 family
+# ----------------------------------------------------------------------
+# n = 2, not phase 8's 4: the two f32 leaf kinds (decay_base, bonus_u)
+# make the plane f32, 12.4 GB per node, and each fleet step casts its
+# 3.1 B bf16 leaves back out (a fresh 6.2 GB per node)
+RWKV_NODES = 2
+RWKV_PARAMS = 3_099_694_080     # rwkv6-3b per node (the reference's tree)
+# each layer's time-mix output and final state through the scan kernel
+# against the plain scan body on the same input (the plain path's hidden
+# state), relative Frobenius error: pinned from a run on an H100 SXM
+# (700 W) that measured 5.9e-5 to 1.62e-4 over the 32 layers (bf16).  No
+# end-to-end logit bound can hold: at this random init the model is
+# chaotic, and a difference in the last bit grows a few times a layer,
+# in f32 too (``rwkv_layer_errors`` prints it); that run's kernel and
+# plain prefills parted by 6.2 logits
+RWKV_LAYER_REL_TOL = 1e-3
+
+
+def serve_wave(fleet, prompts, rid0, new_tokens):
+    """Submit ``prompts`` (n, slots, S) to their nodes, drain, and return
+    the requests, the scheduler steps and the seconds."""
+    import torch
+
+    from repro_torch.serving.scheduler import Request
+
+    n, slots, _ = prompts.shape
+    reqs = [Request(rid=rid0 + i * slots + j, prompt=prompts[i, j].tolist(),
+                    max_new=new_tokens)
+            for i in range(n) for j in range(slots)]
+    for r in reqs:
+        fleet.submit(r, node=(r.rid - rid0) // slots)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = fleet.run_until_drained()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert all(r.done and len(r.output) == new_tokens for r in reqs), \
+        [len(r.output) for r in reqs]
+    return reqs, steps, secs
+
+
+def unpack_device_ms(layout, plane, reps=3):
+    """Device time of one ``PlaneLayout.unpack`` of the plane (the casts
+    of its bf16 leaves out of the f32 plane), from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    layout.unpack(plane)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            layout.unpack(plane)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / 1e3 / reps
+
+
+def rwkv_layer_errors(cfg, params, toks):
+    """Each layer's time-mix (output and final state) through the scan
+    kernel against the plain scan body on the same input, the plain
+    path's hidden state: the relative Frobenius error of each layer (the
+    larger of the two).  Beside it, the kernel path's own hidden state,
+    carried through the layers, against the plain path's: how a
+    difference grows with depth.  Its kernel launches compare the kernel
+    with its plain version, so they are taken back out of the count."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ts
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import norm_apply
+
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    kernel = tt.ForwardOptions(use_ssm_kernel=True)
+    launches = ts.rwkv_scan.launches
+    x = xk = tt._embed_inputs(params, cfg, toks)
+    local, carried = [], []
+    for i in range(cfg.n_layers):
+        lp = tt._layer(params["dense_layers"], i)
+        h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
+        out_k, st_k, _ = ssm_lib.rwkv_time_mix(lp["time_mix"], cfg, h,
+                                               use_kernel=True)
+        out_p, st_p, _ = ssm_lib.rwkv_time_mix(lp["time_mix"], cfg, h)
+        local.append(max(rel(out_k, out_p), rel(st_k, st_p)))
+        x, _ = tt._rwkv_layer(lp, cfg, x, tt.ForwardOptions())
+        xk, _ = tt._rwkv_layer(lp, cfg, xk, kernel)
+        carried.append(rel(xk, x))
+    assert ts.rwkv_scan.launches - launches == 2 * cfg.n_layers
+    ts.rwkv_scan.launches = launches
+    return local, carried
+
+
+def depth_samples(values):
+    """``{layer: value}`` after layers 1, 2, 4, 8, ... and the last."""
+    n = len(values)
+    layers = sorted({min(2 ** i, n) for i in range(n.bit_length() + 1)})
+    return {k: float(f"{values[k - 1]:.3g}") for k in layers}
+
+
+def decode_path_gate(label, reqs, kern, dec):
+    """Each request's first token equals the argmax of the decode path's
+    logits (the scheduler's own arithmetic, so exactly); how many also
+    equal the kernel prefill's argmax is counted, not gated: the random
+    init is chaotic, and two summation orders part by O(1) logits."""
+    import torch
+
+    flat_dec = dec.reshape(-1, dec.shape[-1])
+    flat_kern = kern.reshape(-1, kern.shape[-1])
+    same = 0
+    for i, r in enumerate(reqs):
+        assert r.output[0] == int(torch.argmax(flat_dec[i])), (label, r.rid)
+        same += r.output[0] == int(torch.argmax(flat_kern[i]))
+    diff = float((kern - dec).abs().max())
+    log(f"{label}: first tokens == decode-path argmax for {len(reqs)} of "
+        f"{len(reqs)}; == kernel-prefill argmax for {same} (not gated); "
+        f"kernel prefill vs decode-path logits {diff:.4g} (not gated)")
+    return {"kernel_vs_decode_logits_max_abs": diff,
+            "equal_to_kernel_argmax": same, "requests": len(reqs)}
+
+
+def run_rwkv(dev, scan_ms=None, cfg=None, n=RWKV_NODES,
+             prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
+             long_len=LONG_PREFILL, decode_context=DECODE_CONTEXT,
+             n_params=RWKV_PARAMS):
+    """Phase 10: the serving tier over rwkv6-3b at full width and depth.
+    ``scan_ms``: the kernel's time at the long prefill's scan shape
+    (phase 2's main case), for the kernel's share of that prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ssm_scan as ts
+    from repro_torch.models.transformer import ForwardOptions, init_params
+    from repro_torch.serving.scheduler import FleetScheduler, Request
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = cfg or get_config("rwkv6-3b")
+    t0 = time.perf_counter()
+    # a distinct init per node, so a step that reads another node's row
+    # is caught against the per-node prefill
+    inits = [init_params(torch.Generator(device=dev).manual_seed(i), cfg)
+             for i in range(n)]
+    per_node = sum(x.numel() for x in tree_util.leaves(inits[0]))
+    assert per_node == n_params, per_node
+    res = {"arch": cfg.name, "params_per_node": per_node, "nodes": n,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "f32_params_per_node": sum(
+               x.numel() for x in tree_util.leaves(inits[0])
+               if x.dtype == torch.float32)}
+    stacked = tree_util.tree_map(lambda *xs: torch.stack(xs), *inits)
+    del inits
+    max_seq = prompt_len + new_tokens + 1
+    fleet = FleetScheduler(cfg, stacked, n_nodes=n, n_slots=SERVE_SLOTS,
+                           max_seq=max_seq, prefill_chunk=8)
+    del stacked
+    torch.cuda.synchronize()
+    res["init_and_pack_s"] = time.perf_counter() - t0
+    res["plane_dtype"] = str(fleet.plane.dtype).replace("torch.", "")
+    res["plane_bytes"] = fleet.plane.numel() * fleet.plane.element_size()
+    log(f"rwkv6-3b fleet of {n}: {res['plane_dtype']} plane of "
+        f"{res['plane_bytes']} bytes")
+    rng = np.random.default_rng(1)
+    shape = (n, SERVE_SLOTS, prompt_len)
+    prompts = rng.integers(0, cfg.vocab_size, size=shape)
+    reqs, steps, secs = serve_wave(fleet, prompts, 0, new_tokens)
+    res.update({"requests": len(reqs), "scheduler_steps": steps,
+                "serve_s": secs,
+                "generated_tokens_per_s": len(reqs) * new_tokens / secs})
+
+    # a second wave into the freed slots, against a fresh scheduler
+    prompts2 = rng.integers(0, cfg.vocab_size, size=shape)
+    reused, _, res["reused_serve_s"] = serve_wave(fleet, prompts2, 100,
+                                                  new_tokens)
+    # the unpacked f32 leaves are views of the plane: copy them, so that
+    # the old plane is freed before the fresh scheduler packs its own
+    params = tree_util.tree_map(
+        lambda t: t.clone() if t.dtype == torch.float32 else t,
+        fleet.layout.unpack(fleet.plane))
+    del fleet
+    torch.cuda.empty_cache()
+    fresh = FleetScheduler(cfg, params, n_nodes=n, n_slots=SERVE_SLOTS,
+                           max_seq=max_seq, prefill_chunk=8)
+    del params
+    torch.cuda.empty_cache()
+    first, _, _ = serve_wave(fresh, prompts2, 100, new_tokens)
+    assert [r.output for r in reused] == [r.output for r in first], \
+        "a re-used slot served other tokens than a fresh scheduler"
+    res["readmission_equal"] = len(reused)
+    log(f"rwkv6-3b re-admission: the {len(reused)} requests of the second "
+        f"wave == the same prompts on a fresh FleetScheduler, token for "
+        f"token")
+    fleet = fresh
+    del first, reused
+
+    # the full-sequence prefill through the scan kernel
+    params = fleet.layout.unpack(fleet.plane)
+    toks = torch.as_tensor(prompts, device=dev)
+    scan_prefill = make_forward_prefill(cfg, ForwardOptions(
+        use_ssm_kernel=True))
+    before = ts.rwkv_scan.launches
+    kern = scan_prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = ts.rwkv_scan.launches - before
+    assert launches == cfg.n_layers, launches   # one per layer, whole fleet
+    plain = make_forward_prefill(cfg, ForwardOptions())(params,
+                                                        {"tokens": toks})
+    assert ts.rwkv_scan.launches - before == launches
+    assert bool(torch.isfinite(kern).all()) and kern.shape == (
+        n, SERVE_SLOTS, cfg.vocab_size)
+    local, carried = rwkv_layer_errors(cfg, params, toks)
+    # the same on node 0's weights cast to f32: a carried difference that
+    # grows as fast there is no bf16 rounding effect
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    local32, carried32 = rwkv_layer_errors(
+        f32, tree_util.tree_map(lambda a: a[:1].float(), params), toks[:1])
+    worst = max(local)
+    res.update({"prefill_launches": launches,
+                "layer_rel_err_max": worst, "layer_rel_err": local,
+                "carried_rel_diff": carried,
+                "f32_layer_rel_err_max": max(local32),
+                "f32_carried_rel_diff": carried32,
+                "kernel_vs_plain_logits_max_abs": float(
+                    (kern - plain).abs().max()),
+                "max_abs_logit": float(kern.abs().max())})
+    log(f"rwkv6-3b prefill: {launches} rwkv_scan launches; per layer, "
+        f"kernel vs plain scan body on the same input: relative error "
+        f"<= {worst:.3g} (gate {RWKV_LAYER_REL_TOL}; f32 "
+        f"{max(local32):.3g}); the difference carried through the layers "
+        f"(not gated), by layer: {depth_samples(carried)} (f32 "
+        f"{depth_samples(carried32)}); logits "
+        f"{res['kernel_vs_plain_logits_max_abs']:.4g} apart, max |logit| "
+        f"{res['max_abs_logit']:.4g}")
+    assert worst <= RWKV_LAYER_REL_TOL, local
+    del params
+    dec = decode_path_logits(cfg, fleet, toks)
+    res["first_token"] = decode_path_gate("rwkv6-3b serving", reqs, kern,
+                                          dec)
+    del kern, plain, dec
+
+    # one long prefill, B = 1 per node
+    params = fleet.layout.unpack(fleet.plane)
+    long_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             size=(n, 1, long_len)), device=dev)
+    scan_prefill(params, {"tokens": long_toks[:, :, :256]})   # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ts.rwkv_scan.launches
+    t0 = time.perf_counter()
+    out = scan_prefill(params, {"tokens": long_toks})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert ts.rwkv_scan.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(out).all())
+    res["long_prefill"] = {
+        "tokens": n * long_len, "s": secs, "tokens_per_s": n * long_len / secs,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if scan_ms is not None:
+        # phase 2 timed the kernel at this prefill's scan shape
+        res["long_prefill"]["scan_share"] = cfg.n_layers * scan_ms / (secs
+                                                                      * 1e3)
+    del out, params
+    torch.cuda.empty_cache()
+
+    # the fleet decode step: O(1) state, so the position should not matter
+    res["fleet_decode_step"] = decode_step_times(cfg, fleet, position=81)
+    res["fleet_decode_step_long"] = decode_step_times(
+        cfg, fleet, max_seq=decode_context, position=decode_context - 8)
+    unpack_ms = unpack_device_ms(fleet.layout, fleet.plane)
+    res["unpack_device_ms"] = unpack_ms
+    res["unpack_share_of_step"] = (
+        unpack_ms / res["fleet_decode_step"]["device_busy_ms"])
+    log(f"rwkv6-3b decode step: device {res['fleet_decode_step']['device_busy_ms']:.4g}"
+        f" ms at position 81, {res['fleet_decode_step_long']['device_busy_ms']:.4g}"
+        f" ms at {decode_context - 8}; the plane's unpack casts "
+        f"{unpack_ms:.4g} ms ({100 * res['unpack_share_of_step']:.1f}%)")
+    torch.cuda.empty_cache()
+
+    # swap node 1's row for an init no node has; a new request on node 1
+    # decodes with it
+    other = init_params(torch.Generator(device=dev).manual_seed(n), cfg)
+    ptr = fleet.plane.data_ptr()
+    f32_view = fleet.layout.unpack(fleet.plane)["dense_layers"]["time_mix"][
+        "bonus_u"]
+    fleet.swap_node(1, other)
+    assert fleet.plane.data_ptr() == ptr
+    assert torch.equal(f32_view[1], other["dense_layers"]["time_mix"][
+        "bonus_u"])                                       # an old view
+    head = next(sl for (path, _), sl in zip(
+        tree_util.leaves_with_paths(other), fleet.layout.slots)
+        if path == ("head",))
+    assert torch.equal(fleet.plane[1, head.offset:head.offset + head.size],
+                       other["head"].reshape(-1).float())
+    del other, f32_view
+    new_prompts = rng.integers(0, cfg.vocab_size, size=(SERVE_SLOTS,
+                                                        prompt_len))
+    reqs = [Request(rid=200 + j, prompt=new_prompts[j].tolist(), max_new=4)
+            for j in range(SERVE_SLOTS)]
+    for r in reqs:
+        fleet.submit(r, node=1)
+    fleet.run_until_drained()
+    node1 = tree_util.tree_map(lambda a: a[1:2],
+                               fleet.layout.unpack(fleet.plane))
+    nt = torch.zeros_like(toks)
+    nt[1] = torch.as_tensor(new_prompts, device=dev)
+    kern = scan_prefill(node1, {"tokens": nt[1:2]})[0]
+    del node1
+    dec = decode_path_logits(cfg, fleet, nt)[1]
+    res["swap_first_token"] = decode_path_gate("rwkv6-3b swap_node", reqs,
+                                               kern, dec)
+    del fleet, kern, dec
+    torch.cuda.empty_cache()
+    log("serving_rwkv " + json.dumps(res))
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 5: where one round's time goes
 # ----------------------------------------------------------------------
 def timed(fn):
@@ -1276,7 +1731,6 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fa
 
     # torch.compile (the flex_attention yardstick) caches beside the kernels
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -1297,13 +1751,13 @@ def main() -> int:
         build.load(name)
     log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
 
-    cases = check_kernels(dev) + check_flash(dev)
+    cases = check_kernels(dev) + check_flash(dev) + check_rwkv(dev)
     small_device_check()
 
     ffn_sc = ffn_setup()
     vgg_sc = vgg_setup()
-    counters = {name: getattr(fa if name == "flash_attention" else gm, name)
-                for name in KERNELS}
+    counters = {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{MODULES[name]}"), name) for name in KERNELS}
     paths = {}
 
     def main_path(name, fn, *args):
@@ -1314,8 +1768,11 @@ def main() -> int:
         t = time.perf_counter()
         res = fn(*args)
         paths[name] = {k: c.launches for k, c in counters.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
         log(f"main path {name}: {time.perf_counter() - t:.1f} s, launches "
-            f"{json.dumps(paths[name])}")
+            f"{json.dumps(paths[name])}, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
         return res
 
     ffn_res = main_path("ffn_mean", run_ffn, ffn_sc, gm)
@@ -1334,6 +1791,10 @@ def main() -> int:
     assert flash_main["shape"] == [SERVE_NODES, LONG_PREFILL, 32, 32, 64]
     main_path("serving_stablelm", run_serving, dev, flash_main["ms"])
     main_path("prefill_gemma2", run_gemma2, dev)
+    rwkv_main = next(c for c in cases if c["name"] == "rwkv_scan"
+                     and c["main"])
+    assert rwkv_main["shape"] == [RWKV_NODES, LONG_PREFILL, 40, 64]
+    main_path("serving_rwkv6", run_rwkv, dev, rwkv_main["ms"])
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches

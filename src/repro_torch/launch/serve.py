@@ -12,6 +12,8 @@ loop instead.  It runs on the CUDA card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --smoke --nodes 4 --batch 2 --prompt-len 8 --new-tokens 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --smoke --nodes 2 --batch 2 --prompt-len 8 --new-tokens 5 --device cpu
 """
 from __future__ import annotations
 

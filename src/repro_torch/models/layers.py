@@ -14,8 +14,9 @@ Weight layouts are the reference's, behind the node axis:
   * MLP: wi/wg ``(N, d_model, d_ff)``, wo ``(N, d_ff, d_model)``;
   * norms: ``(N, d)`` vectors.
 
-The MoE, MLA and SSM blocks, ``attention_apply`` and ``attention_decode``
-are on no path of the port yet (ROADMAP Queue 1 item 10).
+The RWKV-6 blocks live in ``models/ssm.py``.  The MoE, MLA and Mamba
+blocks, ``attention_apply`` and ``attention_decode`` are on no path of the
+port yet (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""Model assembly for the dense family (port of
+"""Model assembly for the dense and SSM families (port of
 ``repro/models/transformer.py``).
 
   dense — [norm → GQA attention → +res] [norm → MLP → +res]   (× L)
+  ssm   — [norm → RWKV-6 time-mix → +res] [norm → channel-mix → +res]
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
 ``head`` (unless tied) and ``dense_layers``, whose leaves are stacked
@@ -18,10 +19,14 @@ Attention runs by ``ForwardOptions.attn_impl``: ``"einsum"`` (full
 ``(S, T)`` logits), ``"chunked"`` (the plain online-softmax scan) or
 ``"pallas"`` (the flash-attention CUDA kernel,
 ``kernels.flash_attention``; the name is kept from the reference).
-Decode is always the einsum path against the cache.
+Decode is always the einsum path against the cache.  The RWKV-6
+scan runs by ``ForwardOptions.use_ssm_kernel``: the RWKV-6 CUDA kernel
+(``kernels.ssm_scan``, one launch per layer for the fleet) or the
+reference's one-step scan body, which decode always runs
+(``models/ssm.py``).
 
-The ``moe``, ``ssm`` and ``hybrid`` families, MLA and the modality
-frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+The ``moe`` and ``hybrid`` families, MLA and the modality frontends raise
+``NotImplementedError`` (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from repro_torch import resolve_device
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     _causal_mask,
     _qk_norm,
@@ -55,17 +61,20 @@ from repro_torch.models.layers import (
 
 __all__ = ["init_params", "forward", "forward_nodes", "init_cache",
            "decode_step", "decode_step_nodes", "unembed_nodes",
-           "ForwardOptions", "ATTN_IMPLS"]
+           "ForwardOptions", "ATTN_IMPLS", "SSM_STATE_LEAVES"]
 
 Params = Dict[str, Any]
 ATTN_IMPLS = ("einsum", "chunked", "pallas")
+# the cache leaves that carry state from one token to the next (the
+# ``ssm`` family's), in the order ``_rwkv_layer`` takes them
+SSM_STATE_LEAVES = ("rwkv_state", "tm_prev", "cm_prev")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's transformer stack does not run yet."""
-    if cfg.family in ("moe", "ssm", "hybrid") or cfg.is_moe or cfg.hybrid_ssm:
+    if cfg.family in ("moe", "hybrid") or cfg.is_moe or cfg.hybrid_ssm:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (MoE, SSM and hybrid "
+            f"{cfg.name}: the {cfg.family!r} family (MoE and hybrid "
             f"blocks) is not ported yet (ROADMAP Queue 1 item 10)")
     if cfg.use_mla:
         raise NotImplementedError(
@@ -95,15 +104,21 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
         p["head"] = dense_init_on_device(generator,
                                          (cfg.d_model, cfg.vocab_size), dtype)
     stack = lambda t: t.unsqueeze(0).repeat((L,) + (1,) * t.ndim)
-    p["dense_layers"] = {
+    layers = {
         "norm1": tree_util.tree_map(
             stack, norm_init(cfg.norm_kind, cfg.d_model, dtype, dev)),
         "norm2": tree_util.tree_map(
             stack, norm_init(cfg.norm_kind, cfg.d_model, dtype, dev)),
-        "attn": attention_init(generator, cfg, dtype, L),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype,
-                        L),
     }
+    if cfg.family == "ssm":
+        layers["time_mix"] = ssm_lib.rwkv_init(generator, cfg, dtype, L)
+        layers["channel_mix"] = ssm_lib.rwkv_channel_init(generator, cfg,
+                                                          dtype, L)
+    else:
+        layers["attn"] = attention_init(generator, cfg, dtype, L)
+        layers["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                 cfg.mlp_kind, dtype, L)
+    p["dense_layers"] = layers
     return p
 
 
@@ -132,12 +147,16 @@ class ForwardOptions:
     """attn_impl: ``"einsum"`` — full (S, T) logits;
     ``"chunked"`` — the plain online-softmax scan, O(bq·bkv) memory;
     ``"pallas"`` — the flash-attention CUDA kernel (``use_flash=True``).
+    use_ssm_kernel: the RWKV-6 scan through its CUDA kernel (the ``ssm``
+    family's prefill; decode never runs it).
 
     The reference's remat/scan knobs shape a traced training program;
     the port runs eagerly and has none."""
 
     def __init__(self, use_flash: bool = False,
-                 attn_impl: Optional[str] = None):
+                 attn_impl: Optional[str] = None,
+                 use_ssm_kernel: bool = False):
+        self.use_ssm_kernel = use_ssm_kernel
         self.attn_impl = attn_impl or ("pallas" if use_flash else "einsum")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
@@ -168,6 +187,21 @@ def _attn_block(lp, cfg, x, positions, window: int, opts: ForwardOptions):
 def _ffn_block(lp, cfg, x):
     h = norm_apply(cfg.norm_kind, lp["norm2"], x, cfg.norm_eps)
     return mlp_apply(lp["mlp"], h, cfg.mlp_kind)
+
+
+def _rwkv_layer(lp, cfg, x, opts: ForwardOptions, carry=None):
+    """One RWKV-6 layer of every node.  ``carry`` is the decode cache's
+    ``(rwkv_state, tm_prev, cm_prev)`` of this layer or None (a prefill
+    from zeros); returns (x, the new carry)."""
+    state, tm_prev, cm_prev = carry or (None, None, None)
+    h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
+    tm, state, tm_prev = ssm_lib.rwkv_time_mix(
+        lp["time_mix"], cfg, h, state, tm_prev,
+        use_kernel=opts.use_ssm_kernel)
+    x = x + tm
+    h = norm_apply(cfg.norm_kind, lp["norm2"], x, cfg.norm_eps)
+    cm, cm_prev = ssm_lib.rwkv_channel_mix(lp["channel_mix"], h, cm_prev)
+    return x + cm, (state, tm_prev, cm_prev)
 
 
 def _node_rows(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -215,6 +249,9 @@ def forward_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     for i, window in enumerate(_layer_windows(cfg)):
         lp = _layer(params["dense_layers"], i)
+        if cfg.family == "ssm":
+            x, _ = _rwkv_layer(lp, cfg, x, opts)
+            continue
         x = x + _attn_block(lp, cfg, x, positions, window, opts)
         x = x + _ffn_block(lp, cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -246,17 +283,28 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     ``(L, B, T, KV, hd)``.  T is uniform across layers, as in the
     reference: the longest layer's length (max_seq, or the window when
     it is longer), local layers ring-indexing inside it; only an
-    all-local pattern caches just the window."""
+    all-local pattern caches just the window.  The ``ssm`` family keeps
+    instead the RWKV state ``rwkv_state`` ``(L, B, H, hd, hd)`` f32 and
+    the token-shift carries ``tm_prev``/``cm_prev`` ``(L, B, D)``: O(1)
+    in the sequence, ``max_seq`` unused."""
     check_supported(cfg)
     dev = resolve_device(device)
+    position = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
+    if cfg.family == "ssm":
+        hd, L, d = cfg.rwkv_head_dim, cfg.n_layers, cfg.d_model
+        carry = lambda: torch.zeros((L, batch_size, d),
+                                    dtype=cfg.activation_dtype, device=dev)
+        return {"position": position,
+                "rwkv_state": torch.zeros((L, batch_size, d // hd, hd, hd),
+                                          dtype=torch.float32, device=dev),
+                "tm_prev": carry(), "cm_prev": carry()}
     kinds = cfg.layer_kinds()
     lens = [cfg.window_size if k == "local" else max_seq for k in kinds]
     t = max(lens) if lens else max_seq
     if all(k == "local" for k in kinds):
         t = min(cfg.window_size, max_seq)
     shape = (cfg.n_layers, batch_size, t, cfg.n_kv_heads, cfg.head_dim_)
-    return {"position": torch.zeros((batch_size,), dtype=torch.int32,
-                                    device=dev),
+    return {"position": position,
             "k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev)}
 
@@ -300,14 +348,27 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, Params]:
     """One decode step of every node: tokens ``(N, B, 1)``, the cache with
     a leading node axis (``position`` ``(N, B)``, K/V ``(N, L, B, T, KV,
-    hd)``) → (logits ``(N, B, 1, V)``, new cache).  ``opts`` is accepted
-    for the reference's signature; decode attention is always einsum."""
+    hd)``, or the ``ssm`` family's state leaves) → (logits
+    ``(N, B, 1, V)``, new cache).  ``opts`` is accepted for the
+    reference's signature; decode attention is always einsum and the
+    RWKV scan always the one-step body."""
     check_supported(cfg)
     x = _node_rows(params, tokens)
     # the reference multiplies the embedding by the f32 root here (an f32
     # product), where _embed_inputs rounds the root to the embedding's type
     x = (x.float() * _root_d(cfg)).to(cfg.activation_dtype)
     position = cache["position"]
+    if cfg.family == "ssm":
+        carries = []
+        for i in range(cfg.n_layers):
+            x, carry = _rwkv_layer(
+                _layer(params["dense_layers"], i), cfg, x, ForwardOptions(),
+                tuple(cache[k][:, i] for k in SSM_STATE_LEAVES))
+            carries.append(carry)
+        new_cache = {"position": position + 1}
+        for j, k in enumerate(SSM_STATE_LEAVES):
+            new_cache[k] = torch.stack([c[j] for c in carries], 1)
+        return unembed_nodes(params, cfg, x), new_cache
     ks, vs = [], []
     for i, window in enumerate(_layer_windows(cfg)):
         lp = _layer(params["dense_layers"], i)

@@ -8,10 +8,14 @@ freed slots between steps, and evicting on EOS/max-length — continuous
 batching on top of the serving steps.
 
 Host-side state (queues, slot maps: :class:`Request`, ``_SlotBook``) is
-numpy, copied from the reference; device state is the stacked KV cache.
-Admission resets a slot's cache column (position ← 0) and feeds the
-prompt through chunked prefill (``make_prefill_step``): one call advances
-up to ``prefill_chunk`` prompt tokens.  The legacy token-by-token replay
+numpy, copied from the reference; device state is the stacked cache.
+Admission resets a slot's cache column (position ← 0, and the ``ssm``
+family's recurrent state and token-shift carries ← 0:
+``serve_step.reset_slots``) and feeds the prompt through chunked prefill
+(``make_prefill_step``): one call advances up to ``prefill_chunk`` prompt
+tokens.  The reference resets only ``position``, so there a re-used slot
+of an RWKV model starts from the previous request's state (ROADMAP
+Queue 3).  The legacy token-by-token replay
 stays behind ``prefill_chunk=None`` as the bit-equality reference.
 
 :class:`FleetScheduler` holds the whole fleet as ONE ``(n, P)`` parameter
@@ -34,11 +38,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decentralized import unstack_params
 from repro_torch.core.plane import PlaneLayout
-from repro_torch.models.transformer import decode_step, init_cache
+from repro_torch.models.transformer import (
+    add_node_axis,
+    decode_step,
+    drop_node_axis,
+    init_cache,
+)
 from repro_torch.serving.serve_step import (
     make_cache,
     make_fleet_prefill_step,
     make_prefill_step,
+    reset_slots,
 )
 
 __all__ = ["Request", "NodeScheduler", "FleetScheduler"]
@@ -255,11 +265,10 @@ class NodeScheduler:
     def _admit(self):
         fresh = self.book.admit()
         if fresh:
-            # reset the admitted slots' cache columns: position ← 0
-            mask = np.zeros(self.n_slots, bool)
-            mask[fresh] = True
-            self.cache["position"] = self.cache["position"].masked_fill(
-                self._tensor(mask), 0)
+            mask = np.zeros((1, self.n_slots), bool)
+            mask[0, fresh] = True
+            self.cache = drop_node_axis(reset_slots(
+                add_node_axis(self.cache), self._tensor(mask)))
 
     # ------------------------------------------------------------------
     def step(self) -> int:
@@ -373,8 +382,8 @@ class FleetScheduler:
             for i in b.admit():
                 fresh[n, i] = True
         if fresh.any():
-            self.cache["position"] = self.cache["position"].masked_fill(
-                torch.as_tensor(fresh, device=self.device), 0)
+            self.cache = reset_slots(self.cache,
+                                     torch.as_tensor(fresh, device=self.device))
         if all(b.active == 0 for b in self.books):
             return 0
         chunk = ((self.prefill_chunk or 1)

@@ -12,7 +12,8 @@ written out (``models.transformer.forward_nodes`` /
   logits only (the ``prefill_32k`` surface).  With
   ``ForwardOptions(attn_impl="pallas")`` it makes one flash-attention
   launch per layer for the whole fleet, the node axis folded into the
-  batch.
+  batch; for the ``ssm`` family ``ForwardOptions(use_ssm_kernel=True)``
+  makes one RWKV-6 scan launch per layer the same way.
 * :func:`make_prefill_step` — chunked prefill through the decode path:
   one call advances up to C tokens per slot with per-slot valid lengths.
   Lanes whose planned tokens run out *self-feed* their own greedy sample;
@@ -40,6 +41,7 @@ from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plane import PlaneLayout
 from repro_torch.models.transformer import (
+    SSM_STATE_LEAVES,
     ForwardOptions,
     add_node_axis,
     decode_step,
@@ -57,6 +59,7 @@ __all__ = [
     "make_fleet_decode_step",
     "make_fleet_prefill_step",
     "make_cache",
+    "reset_slots",
     "greedy_generate",
 ]
 
@@ -84,7 +87,8 @@ def make_forward_prefill(cfg: ModelConfig,
 
 def _slot_mask(valid: torch.Tensor, key: str, ref: torch.Tensor):
     """Broadcast an ``(N, B)`` validity mask against a node-stacked cache
-    leaf: ``position`` is ``(N, B)``, K/V are ``(N, L, B, ...)``."""
+    leaf: ``position`` is ``(N, B)``, K/V and the ``ssm`` state leaves are
+    ``(N, L, B, ...)``."""
     if key == "position":
         return valid
     n, b = valid.shape
@@ -142,10 +146,22 @@ def make_prefill_step(cfg: ModelConfig,
 def make_cache(cfg: ModelConfig, n_nodes: int, batch_per_node: int,
                max_seq: int, device=None):
     """Node-stacked decode cache: ``position`` ``(N, B)``, K/V
-    ``(N, L, B, T, KV, hd)``."""
+    ``(N, L, B, T, KV, hd)`` (``ssm``: ``rwkv_state``
+    ``(N, L, B, H, hd, hd)``, ``tm_prev``/``cm_prev`` ``(N, L, B, D)``)."""
     one = init_cache(cfg, batch_per_node, max_seq, device)
     return tree_util.tree_map(
         lambda x: x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.ndim), one)
+
+
+def reset_slots(cache, fresh: torch.Tensor):
+    """Admission into the slots where ``fresh`` ``(N, B)`` is True: their
+    ``position`` ← 0 and every leaf that carries state from token to
+    token (``SSM_STATE_LEAVES``) ← 0, so a request never inherits the
+    previous occupant's recurrent state.  K/V leaves are left alone: the
+    mask hides entries past ``position``."""
+    return {k: (v.masked_fill(_slot_mask(fresh, k, v), 0)
+                if k == "position" or k in SSM_STATE_LEAVES else v)
+            for k, v in cache.items()}
 
 
 def make_serve_step(cfg: ModelConfig, opts: Optional[ForwardOptions] = None):

@@ -15,42 +15,47 @@ from typing import Any, Callable, List, Tuple
 __all__ = ["flatten", "unflatten", "tree_map", "leaves", "leaves_with_paths"]
 
 
+def _walk(node, out: List[Any]):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys), tuple(_walk(node[k], out) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return (kind, len(node), tuple(_walk(c, out) for c in node))
+    if node is None:
+        return ("none",)
+    out.append(node)
+    return ("leaf",)
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)``; ``treedef`` is a hashable structure spec."""
+    """``(leaves, treedef)``; ``treedef`` is a hashable structure spec.
+
+    The recursion is a module-level function, not a closure: a nested
+    function that calls itself is a reference cycle, which would keep the
+    leaves (gigabytes of tensors for a large model) alive until the
+    cyclic garbage collector happens to run."""
     out: List[Any] = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return (kind, len(node), tuple(walk(c) for c in node))
-        if node is None:
-            return ("none",)
-        out.append(node)
-        return ("leaf",)
-
-    spec = walk(tree)
+    spec = _walk(tree, out)
     return out, spec
+
+
+def _build(spec, it):
+    kind = spec[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(s, it) for k, s in zip(spec[1], spec[2])}
+    children = [_build(s, it) for s in spec[2]]
+    return children if kind == "list" else tuple(children)
 
 
 def unflatten(treedef, leaves_in):
     """Inverse of :func:`flatten`."""
     it = iter(leaves_in)
-
-    def build(spec):
-        kind = spec[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(s) for k, s in zip(spec[1], spec[2])}
-        children = [build(s) for s in spec[2]]
-        return children if kind == "list" else tuple(children)
-
-    tree = build(treedef)
+    tree = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the tree has slots")
     return tree
@@ -60,23 +65,23 @@ def leaves(tree) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _walk_paths(node, path, out):
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_paths(node[k], path + (k,), out)
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            _walk_paths(c, path + (i,), out)
+    elif node is not None:
+        out.append((path, node))
+
+
 def leaves_with_paths(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
     """``(path, leaf)`` in flatten order; a path holds the dict keys and
     list/tuple indices from the root (``jax.tree_util``'s
     ``tree_flatten_with_path`` keys, unwrapped)."""
     out: List[Tuple[Tuple[Any, ...], Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (k,))
-        elif isinstance(node, (list, tuple)):
-            for i, c in enumerate(node):
-                walk(c, path + (i,))
-        elif node is not None:
-            out.append((path, node))
-
-    walk(tree, ())
+    _walk_paths(tree, (), out)
     return out
 
 

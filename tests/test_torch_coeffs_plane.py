@@ -102,3 +102,34 @@ def test_plane_rejects_other_trees():
         layout.pack({"a": torch.zeros(2, 3), "b": [torch.zeros(2)]})
     with pytest.raises(ValueError, match="columns"):
         layout.unpack(torch.zeros(2, 4))
+
+
+def test_tree_helpers_and_plane_free_tensors_without_the_collector():
+    """With the cyclic garbage collector off, a tree's tensors die as soon
+    as the last tree holding them goes: flatten, unflatten, tree_map,
+    leaves_with_paths, pack and unpack keep no reference (a self-calling
+    nested function would, through its own closure, until a collection)."""
+    import gc
+    import weakref
+
+    from repro_torch import tree as tree_util
+
+    gc.disable()
+    try:
+        tree = {"a": torch.zeros(2, 3), "b": [torch.ones(2), None]}
+        refs = [weakref.ref(t) for t in tree_util.leaves(tree)]
+        stacked = tree_util.tree_map(lambda t: t + 1, tree)
+        tree_util.leaves_with_paths(tree)
+        layout = TPlaneLayout.from_tree(stacked)
+        plane = layout.pack(stacked)
+        views = layout.unpack(plane)
+        plane_ref = weakref.ref(plane)
+        stacked_refs = [weakref.ref(t) for t in tree_util.leaves(stacked)]
+        del tree
+        assert all(r() is None for r in refs)
+        del stacked
+        assert all(r() is None for r in stacked_refs)
+        del plane, views
+        assert plane_ref() is None
+    finally:
+        gc.enable()

@@ -14,6 +14,7 @@ from repro_torch.core.mixing import edge_weights
 from repro_torch.core.plane import aligned_plane
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gossip_mix as tk
+from repro_torch.kernels import ssm_scan as tscan
 
 torch.set_num_threads(2)
 
@@ -237,3 +238,132 @@ def test_flash_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="multiple"):
         tfa.flash_attention(q3, k, v)
     assert tfa.flash_attention.launches == before
+
+
+# ----------------------------------------------------------------------
+# the RWKV-6 scan
+# ----------------------------------------------------------------------
+# times max|ref|, f32 y and state (chip_smoke.py's RWKV_F32_TOL: at most
+# 2.0e-7 measured on an H100 SXM, 700 W)
+RWKV_REL_TOL = 1e-6
+
+
+def _rwkv_case(b, s, h, hd, seed, dtype, per_seq_u=False):
+    """r, k, v ~ N(0, 0.5²) in ``dtype``; decays w = exp(-exp(x)) with x
+    uniform in [-6, 0] (w from 0.37 to 0.9975: short and long memory);
+    u ~ N(0, 0.3²); a nonzero initial state ~ N(0, 0.1²)."""
+    rng = np.random.default_rng(seed)
+    cuda = lambda a, dt=torch.float32: torch.as_tensor(
+        a.astype(np.float32)).to(dt).cuda()
+    r, k, v = (cuda(rng.normal(size=(b, s, h, hd)) * 0.5, dtype)
+               for _ in range(3))
+    w = cuda(np.exp(-np.exp(rng.uniform(-6, 0, size=(b, s, h, hd)))))
+    u = cuda(rng.normal(size=((b,) if per_seq_u else ()) + (h, hd)) * 0.3)
+    st = cuda(rng.normal(size=(b, h, hd, hd)) * 0.1)
+    return r, k, v, w, u, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hd,per_seq_u", [
+    (1, 64, 2, 32, False),     # four whole chunks of 16 steps
+    (2, 100, 3, 64, True),     # ragged S, a bonus per sequence
+    (1, 1000, 4, 64, False),   # ragged, many chunks
+    (2, 37, 1, 32, True),      # ragged, hd 32
+    (3, 5, 2, 64, False),      # shorter than a chunk
+])
+def test_rwkv_kernel_matches_plain_version_on_the_card(dtype, b, s, h, hd,
+                                                       per_seq_u):
+    """The RWKV-6 kernel against ``rwkv_scan_ref`` on the same card inputs
+    from a nonzero state: y and the final state within RWKV_REL_TOL of
+    max|ref| (another summation order), bf16 y within one bf16 ulp beyond
+    that bound; all finite, exactly one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    r, k, v, w, u, st = _rwkv_case(b, s, h, hd, s + hd, dtype, per_seq_u)
+    before = tscan.rwkv_scan.launches
+    y, sf = tscan.rwkv_scan(r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    assert tscan.rwkv_scan.launches == before + 1
+    yr, sr = tscan.rwkv_scan_ref(r, k, v, w, u, st)
+    assert y.dtype == dtype and y.shape == r.shape and sf.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(sf).all())
+    y_tol = RWKV_REL_TOL * float(yr.float().abs().max())
+    if dtype == torch.float32:
+        assert float((y - yr).abs().max()) <= y_tol
+    else:
+        assert bool(((y.float() - yr.float()).abs()
+                     <= _bf16_ulp(yr.float()) + y_tol).all())
+    assert float((sf - sr).abs().max()) <= RWKV_REL_TOL * float(
+        sr.abs().max())
+
+
+@pytest.mark.cuda
+def test_rwkv_kernel_reads_strided_inputs_on_the_card():
+    """r, k, v read in place as slices of one fused tensor, w as every
+    other head of a wider one: the same result as contiguous copies, bit
+    for bit (the same arithmetic on the same values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(4)
+    fused = torch.as_tensor(rng.normal(size=(3, 200, 12, 64)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    r, k, v = fused[:, :, :4], fused[:, :, 4:8], fused[:, :, 8:]
+    wide = torch.as_tensor(np.exp(-np.exp(rng.uniform(
+        -6, 0, size=(3, 200, 8, 64)))).astype(np.float32)).cuda()
+    w = wide[:, :, ::2]
+    u = torch.as_tensor(rng.normal(size=(4, 64)).astype(np.float32)).cuda()
+    st = torch.zeros((3, 4, 64, 64), device="cuda")
+    y, s = tscan.rwkv_scan(r, k, v, w, u, st)
+    yc, sc = tscan.rwkv_scan(*(t.contiguous() for t in (r, k, v, w)), u, st)
+    assert torch.equal(y, yc) and torch.equal(s, sc)
+
+
+@pytest.mark.cuda
+def test_rwkv_kernel_refuses_what_it_cannot_take():
+    """A head dim without an instantiation, a bf16 w, a non-contiguous
+    head dimension are refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    before = tscan.rwkv_scan.launches
+    r, k, v, w, u, st = _rwkv_case(1, 8, 2, 16, 0, torch.float32)
+    with pytest.raises(ValueError, match="head dim 16"):
+        tscan.rwkv_scan(r, k, v, w, u, st)
+    r, k, v, w, u, st = _rwkv_case(1, 8, 2, 32, 0, torch.float32)
+    with pytest.raises(TypeError, match="float32"):
+        tscan.rwkv_scan(r, k, v, w.to(torch.bfloat16), u, st)
+    wide = torch.cat([r, r], -1)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tscan.rwkv_scan(wide, k, v, w, u, st)
+    assert tscan.rwkv_scan.launches == before
+
+
+@pytest.mark.cuda
+def test_rwkv_fleet_prefill_one_launch_per_layer_on_the_card():
+    """A fleet of two nodes (their own inits, drawn on the card) through
+    ``make_forward_prefill`` with ``use_ssm_kernel=True``: one launch per
+    layer, the last-position logits finite and within 1e-4 of the plain
+    scan body's (``use_ssm_kernel=False``; f32, hd 32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = get_smoke_config("rwkv6-3b")
+    stacked = tree_util.tree_map(
+        lambda *xs: torch.stack(xs),
+        *[tt.init_params(torch.Generator(device="cuda").manual_seed(i), cfg)
+          for i in range(2)])
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 3, 50)), device="cuda")
+    before = tscan.rwkv_scan.launches
+    got = make_forward_prefill(cfg, tt.ForwardOptions(use_ssm_kernel=True))(
+        stacked, {"tokens": toks})
+    assert tscan.rwkv_scan.launches == before + cfg.n_layers
+    ref = make_forward_prefill(cfg, tt.ForwardOptions())(stacked,
+                                                         {"tokens": toks})
+    assert tscan.rwkv_scan.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-4

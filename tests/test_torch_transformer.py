@@ -184,7 +184,7 @@ def test_ring_buffer_wraps_like_the_reference():
 
 def test_unported_families_raise():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("deepseek-v2-236b", "rwkv6-3b", "hymba-1.5b",
+    for arch in ("deepseek-v2-236b", "hymba-1.5b",
                  "llama4-scout-17b-a16e", "musicgen-medium", "internvl2-1b"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tt.init_params(gen, tget(arch))
