@@ -51,11 +51,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    2 requests of 64 tokens per node, 16 new tokens each; a second wave
    re-uses the freed slots and must equal the same prompts served by a
    fresh ``FleetScheduler``; the full-sequence prefill through the RWKV-6
-   scan kernel makes exactly 32 launches and agrees, to fixed bounds,
-   with the plain scan body and with the decode path, and its argmax is
-   each first token wherever the top-2 margin exceeds twice that bound; a
-   long prefill (S = 4096 per node); one fleet decode step at position 81
-   and at 4088 with the share of its device time spent casting the plane;
+   scan kernel makes exactly 32 launches and each layer's kernel time-mix
+   agrees with the plain scan body on the same input; the same model cut
+   to 2 layers (where a random init is not yet chaotic) holds its kernel
+   prefill to the plain scan body and to the decode path by fixed bounds,
+   and its argmax to each first token wherever the top-2 margin exceeds
+   twice the decode bound; a long prefill (S = 4096 per node); one fleet
+   decode step at position 81 and at 4088 with the share of its device
+   time spent casting the plane; ``swap_node`` installs a new row that the
+   next request decodes with;
+11. serving deepseek-v2-236b at full width cut to its dense first layer
+   (MLA: 128 heads over a rank-512 latent; bf16, 1.39 B parameters per
+   node, a fleet of n = 4 in one 11.1 GB plane, a distinct init per node
+   drawn on the card): ``FleetScheduler`` serves 2 requests of 64 tokens
+   per node, 16 new tokens each; a second wave re-uses the freed slots
+   and must equal the same prompts served by a fresh ``FleetScheduler``;
+   the full-sequence prefill through the latent-attention kernel makes
+   exactly 1 launch and agrees with the plain chunked prefill and, to a
+   fixed bound, with the decode path, and its argmax is each first token
+   wherever the top-2 margin exceeds twice that bound; a long prefill
+   (S = 4096 per node); one fleet decode step at position 81 and at 4088;
    ``swap_node`` installs a new row that the next request decodes with;
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
@@ -69,9 +84,16 @@ does.  It also holds the RWKV-6 scan kernel against its plain version
 at the rwkv6-3b prefill shape (2, 4096, 40 heads, hd 64; bf16 from a zero
 and a nonzero state, f32), a ragged (3, 1000, 4, 64) whose r, k, v are
 slices of one fused tensor, and hd 32; no PyTorch call computes the
-recurrence, so it has no library yardstick.
+recurrence, so it has no library yardstick.  And it holds the MLA
+latent-attention kernel against its plain version at deepseek-v2's
+prefill shape (4, 4096, 128 heads, r 512, dr 64; f32 queries over a bf16
+and an f32 latent), a ragged (3, 1000, 16) whose latent and rope key are
+slices of one (B, S, 576) tensor, the smoke config's ranks (r 32, dr 16)
+and a latent shorter than the queries (T = 600 < S = 1024, all bf16),
+with one SDPA call over [q_lat || q_rope] and [c_kv || k_rope] as the
+library yardstick.
 
-Phases 3, 4, 6, 7, 8, 9 and 10 are the main path: every launch counter is
+Phases 3, 4, 6, 7, 8, 9, 10 and 11 are the main path: every launch counter is
 set to 0 just before each of them and read just after.  The script
 imports nothing of JAX.
 """
@@ -91,20 +113,22 @@ F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 N_NODES = 33
 FFN_P, VGG_P = 118_282, 14_982_479
 KERNELS = ("gossip_plane", "gossip_edges", "gossip_robust",
-           "flash_attention", "rwkv_scan")
+           "flash_attention", "rwkv_scan", "mla_attention")
 SOURCES = {"gossip_plane": "gossip_mix.cu", "gossip_edges": "gossip_mix.cu",
            "gossip_robust": "gossip_robust.cu",
            "flash_attention": "flash_attention.cu",
-           "rwkv_scan": "ssm_scan.cu"}
+           "rwkv_scan": "ssm_scan.cu", "mla_attention": "mla_attention.cu"}
 REPLACES = {"gossip_plane": "src/repro/kernels/gossip_mix.py:164",
             "gossip_edges": "src/repro/kernels/gossip_mix.py:268",
             "gossip_robust": "src/repro/kernels/gossip_mix.py:387",
             "flash_attention": "src/repro/kernels/flash_attention.py:86",
-            "rwkv_scan": "src/repro/kernels/ssm_scan.py:86"}
+            "rwkv_scan": "src/repro/kernels/ssm_scan.py:86",
+            "mla_attention": "src/repro/kernels/mla_attention.py:79"}
 # the wrapper modules under repro_torch.kernels
 MODULES = {"gossip_plane": "gossip_mix", "gossip_edges": "gossip_mix",
            "gossip_robust": "gossip_mix",
-           "flash_attention": "flash_attention", "rwkv_scan": "ssm_scan"}
+           "flash_attention": "flash_attention", "rwkv_scan": "ssm_scan",
+           "mla_attention": "mla_attention"}
 ROBUST_CHUNK = 1 << 19          # plain-version columns per chunk
 
 
@@ -1010,6 +1034,175 @@ def check_rwkv(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 2, MLA latent attention: the kernel against its plain version
+# ----------------------------------------------------------------------
+MLA_CASES = (
+    # (label, (B, S, H, r, dr), T, q/out dtype, c_kv/k_rope dtype, strided,
+    #  main)
+    ("deepseek_prefill", (4, 4096, 128, 512, 64), 4096, "float32",
+     "bfloat16", False, True),
+    ("deepseek_prefill", (4, 4096, 128, 512, 64), 4096, "float32", "float32",
+     False, False),
+    ("ragged_strided", (3, 1000, 16, 512, 64), 1000, "float32", "bfloat16",
+     True, False),
+    ("smoke", (2, 256, 4, 32, 16), 256, "float32", "float32", False, False),
+    ("t_ne_s", (2, 1024, 16, 512, 64), 600, "bfloat16", "bfloat16", False,
+     False),
+)
+# times max|ref|, for f32 outputs (another summation order; bf16 outputs
+# one bf16 ulp beyond it): pinned from the first full run on an H100 SXM
+# (700 W), which measured f32 outputs at most 3.7e-6 of max|ref| (18% of
+# the gate) and the all-bf16 T != S case at 99.1% of its gate (761 of
+# 19 M outputs more than one ulp off, by less than this bound)
+MLA_F32_TOL = 2e-5
+
+
+def mla_pairs(s, t):
+    """(query, latent row) pairs a causal sequence keeps: t <= s, t < T."""
+    m = min(s, t)
+    return m * (m + 1) // 2 + (s - m) * t
+
+
+def sdpa_backend(q, k, v):
+    """The first SDPA backend that computes the yardstick on these inputs
+    (flash, cuDNN, memory-efficient), or "math"."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([be]):
+                F.scaled_dot_product_attention(q[:, :, :8], k[:, :, :8],
+                                               v[:, :, :8], is_causal=True,
+                                               scale=1.0)
+            return be
+        except RuntimeError:
+            continue
+    return SDPBackend.MATH
+
+
+def mla_library(ql, qr, ck, kr):
+    """The library yardstick: one SDPA call with q = [q_lat || q_rope]
+    (576 wide), k = [c_kv || k_rope] as one kv head shared by all heads
+    (expanded, stride 0), v = c_kv and scale 1, causal; in q's type (SDPA
+    takes one type for q, k and v).  Returns (the call, the backend's
+    name); the math backend runs one sequence at a time, as it holds the
+    whole (H, S, T) logits."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    h = ql.shape[2]
+    q = torch.cat([ql, qr], -1).transpose(1, 2)
+    k = torch.cat([ck, kr], -1).to(ql.dtype)[:, None].expand(-1, h, -1, -1)
+    v = ck.to(ql.dtype)[:, None].expand(-1, h, -1, -1)
+    be = sdpa_backend(q, k, v)
+
+    def call():
+        with sdpa_kernel([be]):
+            if be != SDPBackend.MATH:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      scale=1.0)
+            return torch.cat([F.scaled_dot_product_attention(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], is_causal=True,
+                scale=1.0) for i in range(q.shape[0])])
+
+    name = be.name.lower() + (" (one sequence a call)"
+                              if be == SDPBackend.MATH else "")
+    return call, name
+
+
+def mla_inputs(gen, dev, b, s, t, h, r, dr, q_dtype, kv_dtype, strided):
+    """q_lat, q_rope ~ N(0, 1)·2/√(r + dr) in ``q_dtype`` (logits of a few
+    units, as the model's pre-scaled queries give); c_kv, k_rope ~ N(0, 1)
+    (the RMS-normed latent) in ``kv_dtype``, strided: slices of one
+    (B, T, r + dr) tensor."""
+    import torch
+
+    scale = 2.0 / (r + dr) ** 0.5
+    normal = lambda shape, sc: torch.randn(shape, generator=gen,
+                                           device=dev).mul_(sc)
+    ql = normal((b, s, h, r), scale).to(q_dtype)
+    qr = normal((b, s, h, dr), scale).to(q_dtype)
+    if strided:
+        fused = normal((b, t, r + dr), 1.0).to(kv_dtype)
+        ck, kr = fused[..., :r], fused[..., r:]
+    else:
+        ck, kr = (normal((b, t, w), 1.0).to(kv_dtype) for w in (r, dr))
+    return ql, qr, ck, kr
+
+
+def check_mla(dev):
+    """``mla_attention`` against ``mla_attention_ref`` at the serving
+    path's shapes.  Gates: f32 outputs within MLA_F32_TOL·max|ref|; bf16
+    outputs elementwise within one bf16 ulp of the plain version's beyond
+    that bound; every output finite; the SDPA yardstick within
+    LIBRARY_REL_TOL of the plain version."""
+    import torch
+
+    from repro_torch.kernels import mla_attention as tm
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for label, (b, s, h, r, dr), t, qdt, kvdt, strided, main in MLA_CASES:
+        x = mla_inputs(gen, dev, b, s, t, h, r, dr, getattr(torch, qdt),
+                       getattr(torch, kvdt), strided)
+        run = lambda: tm.mla_attention(*x)
+        plain = lambda: tm.mla_attention_ref(*x)
+        out, ref = run().float(), plain().float()
+        torch.cuda.synchronize()
+        assert out.shape == (b, s, h, r) and bool(torch.isfinite(out).all())
+        err = (out - ref).abs()
+        max_err = float(err.max())
+        f32_tol = MLA_F32_TOL * float(ref.abs().max())
+        if qdt == "float32":
+            ok = max_err <= f32_tol
+            tol_txt = f"<= {MLA_F32_TOL:g}*max|ref| = {f32_tol:.3g}"
+            over_ulp, gate_use = None, max_err / f32_tol
+        else:
+            ulp = bf16_ulp(ref)
+            ok = bool((err <= ulp + f32_tol).all())
+            tol_txt = f"<= 1 bf16 ulp + {MLA_F32_TOL:g}*max|ref| elementwise"
+            over_ulp = int((err > ulp).sum())
+            gate_use = float((err / (ulp + f32_tol)).max())
+        del out, err
+        assert ok, f"mla_attention {label} {qdt}/{kvdt}: {max_err} {tol_txt}"
+        library, lib_name = mla_library(*x)
+        lib_out = library()
+        lib_err = float((lib_out.transpose(1, 2).float() - ref).norm()
+                        / ref.norm())
+        del lib_out, ref
+        assert lib_err <= LIBRARY_REL_TOL, (label, lib_name, lib_err)
+        main_shape = b * s * h >= 1 << 21
+        library_ms = cuda_ms(library, reps=2 if main_shape else 10)
+        del library
+        pairs = b * mla_pairs(s, t)
+        q_bytes = x[0].element_size()
+        nbytes = (b * s * h * (2 * r + dr) * q_bytes
+                  + b * t * (r + dr) * x[2].element_size())
+        flops = 2 * (2 * r + dr) * h * pairs
+        bnd, by = bound_ms(nbytes, flops)
+        case = {
+            "name": "mla_attention", "case": label, "shape": [b, s, h, r, dr],
+            "latent_rows": t, "dtype": f"{qdt}/{kvdt}", "strided": strided,
+            "main": main, "max_abs_err": max_err, "tolerance": tol_txt,
+            "elements_beyond_one_ulp": over_ulp,
+            "max_err_over_gate": gate_use,
+            "ms": cuda_ms(run, reps=3 if main_shape else 10),
+            "plain_ms": cuda_ms(plain, reps=2 if main_shape else 5),
+            "library_ms": library_ms, "library": lib_name,
+            "library_rel_err": lib_err, "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes, "flops": flops, "unmasked_pairs": pairs,
+        }
+        log("kernel_case " + json.dumps(case))
+        cases.append(case)
+        del x
+        torch.cuda.empty_cache()
+    return cases
+
+
+# ----------------------------------------------------------------------
 # phases 8-9: serving over the dense transformer stack
 # ----------------------------------------------------------------------
 SERVE_NODES, SERVE_SLOTS, PROMPT_LEN, NEW_TOKENS = 4, 2, 64, 16
@@ -1070,8 +1263,8 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
     copies (each from pageable memory waits for the stream), and the
     step's byte bound: the plane read once, plus the K/V entries up to
     ``position`` that attention must read (the one new entry written in
-    place is left out), or for the ``ssm`` family its state leaves read
-    once (O(1) in the position)."""
+    place is left out; MLA's latent and rope-key entries likewise), or for
+    the ``ssm`` family its state leaves read once (O(1) in the position)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1106,6 +1299,10 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
         kv = cache["k"]     # (n, L, B, T, KV, hd)
         cache_bytes = 2 * (kv.numel() // kv.shape[3]) * (position + 1) \
             * kv.element_size()
+    elif "ckv" in cache:    # MLA: ckv (n, L, B, T, r), kr (n, L, B, T, dr)
+        cache_bytes = sum((cache[k].numel() // cache[k].shape[3])
+                          * (position + 1) * cache[k].element_size()
+                          for k in ("ckv", "kr"))
     else:
         cache_bytes = sum(cache[k].numel() * cache[k].element_size()
                           for k in SSM_STATE_LEAVES)
@@ -1118,34 +1315,33 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
             "bound_ms": (plane_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3}
 
 
-def first_token_gate(label, reqs, flash, dec):
-    """The flash prefill's logits are within FLASH_VS_DECODE_TOL of the
-    decode path's (the scheduler's own computation); each request's first
-    token equals the decode path's argmax exactly, and the flash
-    prefill's wherever the flash logits' top-2 margin exceeds twice that
-    fixed bound; near-ties are counted."""
+def first_token_gate(label, reqs, flash, dec, tol=FLASH_VS_DECODE_TOL):
+    """The kernel prefill's logits are within the fixed bound ``tol`` of
+    the decode path's (the scheduler's own computation); each request's
+    first token equals the decode path's argmax exactly, and the kernel
+    prefill's wherever the kernel logits' top-2 margin exceeds twice that
+    bound; near-ties are counted."""
     import torch
 
     diff = float((flash - dec).abs().max())
-    assert diff <= FLASH_VS_DECODE_TOL, (label, diff)
+    assert diff <= tol, (label, diff)
     margin = top2_margin(flash)
     flat = [(r, i) for i, r in enumerate(reqs)]
     gated = ties = 0
     for r, i in flat:
         assert r.output[0] == int(torch.argmax(dec.reshape(-1, dec.shape[-1])[i])), \
             (label, r.rid)
-        if float(margin.reshape(-1)[i]) > 2 * FLASH_VS_DECODE_TOL:
+        if float(margin.reshape(-1)[i]) > 2 * tol:
             assert r.output[0] == int(torch.argmax(
                 flash.reshape(-1, flash.shape[-1])[i])), (label, r.rid)
             gated += 1
         else:
             ties += 1
-    log(f"{label}: flash vs decode-path logits {diff:.4g} <= "
-        f"{FLASH_VS_DECODE_TOL}; first tokens == decode-path argmax for "
-        f"{len(flat)} of {len(flat)}; == flash-prefill argmax for {gated} "
-        f"gated (top-2 margin > 2 x {FLASH_VS_DECODE_TOL}), {ties} "
-        f"near-ties not gated")
-    return {"flash_vs_decode_max_abs": diff, "gated": gated,
+    log(f"{label}: kernel prefill vs decode-path logits {diff:.4g} <= "
+        f"{tol}; first tokens == decode-path argmax for "
+        f"{len(flat)} of {len(flat)}; == kernel-prefill argmax for {gated} "
+        f"gated (top-2 margin > 2 x {tol}), {ties} near-ties not gated")
+    return {"kernel_vs_decode_max_abs": diff, "gated": gated,
             "near_ties": ties}
 
 
@@ -1450,6 +1646,74 @@ def decode_path_gate(label, reqs, kern, dec):
             "equal_to_kernel_argmax": same, "requests": len(reqs)}
 
 
+# rwkv6-3b at full width cut to 2 layers: the kernel prefill's
+# last-position logits against the plain scan body's and the decode
+# path's, by dtype (kernel vs plain, kernel vs decode path).  bf16 is the
+# serving dtype, but there the decode path's input already differs from
+# the prefill's in the last bit (it scales the embedding by the f32 root
+# of d, the forward pass by that root rounded to bf16), and a random init
+# grows such a difference many times a layer; in f32 both paths compute
+# the same values in other summation orders.  Pinned from a run on an
+# H100 SXM (700 W) that measured, bf16: 0.031 (one ulp at max |logit|
+# 4.28) and 1.14; f32: 2.6e-5 and 7.2e-5 (max |logit| 4.59)
+RWKV_CUT_LAYERS = 2
+RWKV_CUT_TOLS = {"bfloat16": (0.0625, 1.5), "float32": (1e-4, 2.5e-4)}
+
+
+def run_rwkv_cut(dev, cfg, n, prompts, new_tokens, dtype):
+    """rwkv6-3b at full width cut to ``RWKV_CUT_LAYERS`` layers, where a
+    random init is not yet chaotic, in ``dtype``: a fleet of n distinct
+    inits drawn on the card serves the phase's prompts (their first
+    tokens), and the kernel prefill (one launch a layer) is held against
+    the plain scan body's and the decode path's logits by the fixed
+    bounds ``RWKV_CUT_TOLS[dtype]``, and its argmax against each first
+    token wherever the top-2 margin exceeds twice the decode bound."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import ssm_scan as ts
+    from repro_torch.models.transformer import ForwardOptions, init_params
+    from repro_torch.serving.scheduler import FleetScheduler
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cut = dataclasses.replace(cfg, n_layers=RWKV_CUT_LAYERS, dtype=dtype,
+                              param_dtype=dtype)
+    plain_tol, decode_tol = RWKV_CUT_TOLS[dtype]
+    label = f"rwkv6-3b cut to {cut.n_layers} layers, {dtype}"
+    stacked = tree_util.tree_map(
+        lambda *xs: torch.stack(xs),
+        *[init_params(torch.Generator(device=dev).manual_seed(i), cut)
+          for i in range(n)])
+    fleet = FleetScheduler(cut, stacked, n_nodes=n, n_slots=SERVE_SLOTS,
+                           max_seq=prompts.shape[-1] + new_tokens + 1,
+                           prefill_chunk=8)
+    del stacked
+    reqs, _, _ = serve_wave(fleet, prompts, 300, new_tokens)
+    params = fleet.layout.unpack(fleet.plane)
+    toks = torch.as_tensor(prompts, device=dev)
+    before = ts.rwkv_scan.launches
+    kern = make_forward_prefill(cut, ForwardOptions(use_ssm_kernel=True))(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = ts.rwkv_scan.launches - before
+    assert launches == cut.n_layers, launches
+    plain = make_forward_prefill(cut, ForwardOptions())(params,
+                                                        {"tokens": toks})
+    assert bool(torch.isfinite(kern).all())
+    vs_plain = float((kern - plain).abs().max())
+    res = {"layers": cut.n_layers, "nodes": n, "dtype": dtype,
+           "prefill_launches": launches, "kernel_vs_plain_max_abs": vs_plain,
+           "max_abs_logit": float(kern.abs().max())}
+    log(f"{label}: kernel prefill vs plain scan body logits {vs_plain:.4g} "
+        f"<= {plain_tol} (max |logit| {res['max_abs_logit']:.4g})")
+    assert vs_plain <= plain_tol, (label, vs_plain)
+    dec = decode_path_logits(cut, fleet, toks)
+    res["first_token"] = first_token_gate(label, reqs, kern, dec, decode_tol)
+    del fleet, params, kern, plain, dec
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_rwkv(dev, scan_ms=None, cfg=None, n=RWKV_NODES,
              prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
              long_len=LONG_PREFILL, decode_context=DECODE_CONTEXT,
@@ -1569,6 +1833,8 @@ def run_rwkv(dev, scan_ms=None, cfg=None, n=RWKV_NODES,
     res["first_token"] = decode_path_gate("rwkv6-3b serving", reqs, kern,
                                           dec)
     del kern, plain, dec
+    res["cut"] = {dt: run_rwkv_cut(dev, cfg, n, prompts, new_tokens, dt)
+                  for dt in RWKV_CUT_TOLS}
 
     # one long prefill, B = 1 per node
     params = fleet.layout.unpack(fleet.plane)
@@ -1643,6 +1909,190 @@ def run_rwkv(dev, scan_ms=None, cfg=None, n=RWKV_NODES,
     del fleet, kern, dec
     torch.cuda.empty_cache()
     log("serving_rwkv " + json.dumps(res))
+    return res
+
+
+# ----------------------------------------------------------------------
+# phase 11: serving MLA, deepseek-v2 cut to its dense first layer
+# ----------------------------------------------------------------------
+DEEPSEEK_NODES = 4
+DEEPSEEK_PARAMS = 1_386_562_560   # per node: the reference's 17-leaf tree
+DEEPSEEK_REDUCED = {
+    "n_layers": "60 -> 1: the dense first layer (first_k_dense = 1); "
+                "layers 2-60 are MoE layers, whose block is not ported"}
+# the kernel prefill's last-position logits (bf16 values cast to f32)
+# against the plain chunked prefill's and against the scheduler's decode
+# path: two bf16 ulps at |logit| in [4, 8), pinned from a run on an H100
+# SXM (700 W) that measured 0.031 and 0.033 (max |logit| 4.63); a step
+# that reads another node's row is off by whole logits
+MLA_VS_PLAIN_TOL = 0.0625
+MLA_VS_DECODE_TOL = 0.0625
+
+
+def run_deepseek(dev, mla_ms=None, cfg=None, n=DEEPSEEK_NODES,
+                 prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
+                 long_len=LONG_PREFILL, decode_context=DECODE_CONTEXT,
+                 n_params=DEEPSEEK_PARAMS):
+    """Phase 11: the serving tier over deepseek-v2-236b at full width, cut
+    to its dense first layer (MLA attention, SwiGLU FFN).  ``mla_ms``: the
+    kernel's time at the long prefill's attention shape (phase 2's main
+    case), for the kernel's share of that prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import mla_attention as tm
+    from repro_torch.models.transformer import ForwardOptions, init_params
+    from repro_torch.serving.scheduler import FleetScheduler, Request
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = cfg or dataclasses.replace(get_config("deepseek-v2-236b"),
+                                     n_layers=1)
+    assert cfg.use_mla and cfg.n_layers <= cfg.first_k_dense
+    log(f"{cfg.name}: reduced {json.dumps(DEEPSEEK_REDUCED)}")
+    t0 = time.perf_counter()
+    # a distinct init per node, so a step that reads another node's row
+    # is caught against the per-node prefill
+    inits = [init_params(torch.Generator(device=dev).manual_seed(i), cfg)
+             for i in range(n)]
+    leaves = tree_util.leaves(inits[0])
+    per_node = sum(x.numel() for x in leaves)
+    assert per_node == n_params, per_node
+    res = {"arch": cfg.name, "reduced": DEEPSEEK_REDUCED,
+           "params_per_node": per_node, "leaves": len(leaves), "nodes": n,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_lora_rank": cfg.kv_lora_rank,
+           "dtypes": sorted({str(x.dtype) for x in leaves})}
+    stacked = tree_util.tree_map(lambda *xs: torch.stack(xs), *inits)
+    del inits, leaves
+    max_seq = prompt_len + new_tokens + 1
+    fleet = FleetScheduler(cfg, stacked, n_nodes=n, n_slots=SERVE_SLOTS,
+                           max_seq=max_seq, prefill_chunk=8)
+    del stacked
+    torch.cuda.synchronize()
+    res["init_and_pack_s"] = time.perf_counter() - t0
+    res["plane_dtype"] = str(fleet.plane.dtype).replace("torch.", "")
+    res["plane_bytes"] = fleet.plane.numel() * fleet.plane.element_size()
+    log(f"{cfg.name} fleet of {n}: {res['plane_dtype']} plane of "
+        f"{res['plane_bytes']} bytes, {per_node} parameters a node")
+    rng = np.random.default_rng(3)
+    shape = (n, SERVE_SLOTS, prompt_len)
+    prompts = rng.integers(0, cfg.vocab_size, size=shape)
+    reqs, steps, secs = serve_wave(fleet, prompts, 0, new_tokens)
+    res.update({"requests": len(reqs), "scheduler_steps": steps,
+                "serve_s": secs,
+                "generated_tokens_per_s": len(reqs) * new_tokens / secs})
+
+    # a second wave into the freed slots, against a fresh scheduler: the
+    # latent cache keeps the first wave's entries past position
+    prompts2 = rng.integers(0, cfg.vocab_size, size=shape)
+    reused, _, res["reused_serve_s"] = serve_wave(fleet, prompts2, 100,
+                                                  new_tokens)
+    params = fleet.layout.unpack(fleet.plane)   # views of the bf16 plane
+    del fleet
+    fresh = FleetScheduler(cfg, params, n_nodes=n, n_slots=SERVE_SLOTS,
+                           max_seq=max_seq, prefill_chunk=8)
+    del params
+    torch.cuda.empty_cache()
+    first, _, _ = serve_wave(fresh, prompts2, 100, new_tokens)
+    assert [r.output for r in reused] == [r.output for r in first], \
+        "a re-used slot served other tokens than a fresh scheduler"
+    res["readmission_equal"] = len(reused)
+    log(f"{cfg.name} re-admission: the {len(reused)} requests of the second "
+        f"wave == the same prompts on a fresh FleetScheduler, token for "
+        f"token")
+    fleet = fresh
+    del first, reused
+
+    # the full-sequence prefill through the latent-attention kernel
+    params = fleet.layout.unpack(fleet.plane)
+    toks = torch.as_tensor(prompts, device=dev)
+    kern_prefill = make_forward_prefill(cfg, ForwardOptions(
+        attn_impl="pallas"))
+    before = tm.mla_attention.launches
+    kern = kern_prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = tm.mla_attention.launches - before
+    assert launches == cfg.n_layers, launches   # one per layer, whole fleet
+    plain = make_forward_prefill(cfg, ForwardOptions(attn_impl="chunked"))(
+        params, {"tokens": toks})
+    assert tm.mla_attention.launches - before == launches
+    assert bool(torch.isfinite(kern).all()) and kern.shape == (
+        n, SERVE_SLOTS, cfg.vocab_size)
+    vs_plain = float((kern - plain).abs().max())
+    res.update({"prefill_launches": launches,
+                "kernel_vs_plain_max_abs": vs_plain,
+                "max_abs_logit": float(kern.abs().max())})
+    log(f"{cfg.name} prefill: {launches} mla_attention launch(es); kernel "
+        f"vs plain chunked prefill logits {vs_plain:.4g} <= "
+        f"{MLA_VS_PLAIN_TOL} (max |logit| {res['max_abs_logit']:.4g})")
+    assert vs_plain <= MLA_VS_PLAIN_TOL, vs_plain
+    dec = decode_path_logits(cfg, fleet, toks)
+    res["first_token"] = first_token_gate(f"{cfg.name} serving", reqs, kern,
+                                          dec, MLA_VS_DECODE_TOL)
+    del kern, plain, dec
+
+    # one long prefill, B = 1 per node
+    long_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             size=(n, 1, long_len)), device=dev)
+    kern_prefill(params, {"tokens": long_toks[:, :, :256]})   # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = tm.mla_attention.launches
+    t0 = time.perf_counter()
+    out = kern_prefill(params, {"tokens": long_toks})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert tm.mla_attention.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(out).all())
+    res["long_prefill"] = {
+        "tokens": n * long_len, "s": secs, "tokens_per_s": n * long_len / secs,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if mla_ms is not None:
+        # phase 2 timed the kernel at this prefill's attention shape
+        res["long_prefill"]["kernel_share"] = (cfg.n_layers * mla_ms
+                                               / (secs * 1e3))
+    del out, params
+    torch.cuda.empty_cache()
+
+    # one fleet decode step against a short and a long latent cache
+    res["fleet_decode_step"] = decode_step_times(cfg, fleet, max_seq=128,
+                                                 position=81)
+    res["fleet_decode_step_long"] = decode_step_times(
+        cfg, fleet, max_seq=decode_context, position=decode_context - 8)
+    torch.cuda.empty_cache()
+
+    # swap node 1's row for an init no node has; a new request on node 1
+    # decodes with it
+    other = init_params(torch.Generator(device=dev).manual_seed(n), cfg)
+    ptr = fleet.plane.data_ptr()
+    views = fleet.layout.unpack(fleet.plane)
+    old_head = views["head"][1, :4, :4].clone()
+    fleet.swap_node(1, other)
+    assert fleet.plane.data_ptr() == ptr
+    assert torch.equal(views["head"][1], other["head"])    # the old views
+    assert not torch.equal(views["head"][1, :4, :4], old_head)
+    del other, views
+    new_prompts = rng.integers(0, cfg.vocab_size, size=(SERVE_SLOTS,
+                                                        prompt_len))
+    reqs = [Request(rid=200 + j, prompt=new_prompts[j].tolist(), max_new=4)
+            for j in range(SERVE_SLOTS)]
+    for r in reqs:
+        fleet.submit(r, node=1)
+    fleet.run_until_drained()
+    node1 = tree_util.tree_map(lambda a: a[1:2],
+                               fleet.layout.unpack(fleet.plane))
+    nt = torch.zeros_like(toks)
+    nt[1] = torch.as_tensor(new_prompts, device=dev)
+    kern = kern_prefill(node1, {"tokens": nt[1:2]})[0]
+    del node1
+    dec = decode_path_logits(cfg, fleet, nt)[1]
+    res["swap_first_token"] = first_token_gate(f"{cfg.name} swap_node", reqs,
+                                               kern, dec, MLA_VS_DECODE_TOL)
+    del fleet, kern, dec
+    torch.cuda.empty_cache()
+    log("serving_deepseek " + json.dumps(res))
     return res
 
 
@@ -1751,7 +2201,8 @@ def main() -> int:
         build.load(name)
     log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
 
-    cases = check_kernels(dev) + check_flash(dev) + check_rwkv(dev)
+    cases = (check_kernels(dev) + check_flash(dev) + check_rwkv(dev)
+             + check_mla(dev))
     small_device_check()
 
     ffn_sc = ffn_setup()
@@ -1795,6 +2246,10 @@ def main() -> int:
                      and c["main"])
     assert rwkv_main["shape"] == [RWKV_NODES, LONG_PREFILL, 40, 64]
     main_path("serving_rwkv6", run_rwkv, dev, rwkv_main["ms"])
+    mla_main = next(c for c in cases if c["name"] == "mla_attention"
+                    and c["main"])
+    assert mla_main["shape"] == [DEEPSEEK_NODES, LONG_PREFILL, 128, 512, 64]
+    main_path("serving_deepseek", run_deepseek, dev, mla_main["ms"])
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches

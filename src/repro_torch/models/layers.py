@@ -11,12 +11,16 @@ itself holds no weight and runs on the node axis folded into the batch,
 Weight layouts are the reference's, behind the node axis:
   * attention q: ``(N, d_model, n_heads, hd)``; k, v: ``(N, d_model, KV, hd)``;
     o: ``(N, n_heads, hd, d_model)``;
+  * MLA (deepseek-v2): w_dkv ``(N, d, r)``, w_kr ``(N, d, dr)``, w_uk
+    ``(N, r, H, dn)``, w_uv ``(N, r, H, dv)``, w_o ``(N, H, dv, d)``, and
+    w_dq ``(N, d, q_lora)`` + w_uq ``(N, q_lora, H, dn + dr)`` or wq
+    ``(N, d, H, dn + dr)``;
   * MLP: wi/wg ``(N, d_model, d_ff)``, wo ``(N, d_ff, d_model)``;
   * norms: ``(N, d)`` vectors.
 
-The RWKV-6 blocks live in ``models/ssm.py``.  The MoE, MLA and Mamba
-blocks, ``attention_apply`` and ``attention_decode`` are on no path of the
-port yet (ROADMAP Queue 1 item 10).
+The RWKV-6 blocks live in ``models/ssm.py``.  The MoE and Mamba blocks,
+``attention_apply`` and ``attention_decode`` are on no path of the port
+yet (ROADMAP Queue 1 items 1, 7 and 8).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ __all__ = [
     "softcap",
     "rope", "apply_rope",
     "attention_init",
+    "mla_init", "mla_apply", "mla_decode", "mla_chunked",
     "mlp_init", "mlp_apply",
     "node_matmul",
 ]
@@ -294,6 +299,195 @@ def _sdpa_chunked(cfg, q, k, v, q_offset: int = 0, window: int = 0,
         blk = acc / torch.clamp_min(l[..., None], 1e-30)
         out[:, qi * bq:(qi + 1) * bq] = blk.permute(0, 3, 1, 2, 4)
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v2)
+# ----------------------------------------------------------------------
+def mla_init(generator, cfg, dtype, layers: int):
+    """Stacked ``(layers, ...)`` MLA weights drawn on the generator's
+    device, one leaf at a time: the latent compressor ``w_dkv``, the shared
+    rope key ``w_kr``, the latent up-projections ``w_uk``/``w_uv``, the
+    output ``w_o``, ``kv_norm``, and the query path (``w_dq``, ``w_uq``,
+    ``q_norm`` when ``q_lora_rank > 0``, else ``wq``)."""
+    d, h = cfg.d_model, cfg.n_heads
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
+    dev = generator.device
+    init = lambda shape: dense_init_on_device(generator, (layers,) + shape,
+                                              dtype, stacked=1)
+    norm = lambda n: {"scale": torch.zeros((layers, n), dtype=dtype,
+                                           device=dev)}
+    p = {"w_dkv": init((d, r)), "w_kr": init((d, dr)),
+         "w_uk": init((r, h, dn)), "w_uv": init((r, h, dv)),
+         "w_o": init((h, dv, d)), "kv_norm": norm(r)}
+    if cfg.q_lora_rank:
+        p["w_dq"] = init((d, cfg.q_lora_rank))
+        p["w_uq"] = init((cfg.q_lora_rank, h, dn + dr))
+        p["q_norm"] = norm(cfg.q_lora_rank)
+    else:
+        p["wq"] = init((d, h, dn + dr))
+    return p
+
+
+def _mla_q(p, cfg, x):
+    """x ``(N, B, S, d)`` → q_nope ``(N, B, S, H, dn)``, q_rope
+    ``(N, B, S, H, dr)`` (not yet roped), through the low-rank query path
+    when ``q_lora_rank > 0``."""
+    if cfg.q_lora_rank:
+        cq = rmsnorm(p["q_norm"], node_matmul(x, p["w_dq"]), cfg.norm_eps)
+        q = node_matmul(cq, p["w_uq"])
+    else:
+        q = node_matmul(x, p["wq"])
+    dn = cfg.qk_nope_head_dim
+    return q[..., :dn], q[..., dn:]
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_latents(p, cfg, x, cos, sin):
+    """The latent ``c_kv`` ``(N, B, S, r)`` (RMS-normed) and the roped
+    shared key ``k_rope`` ``(N, B, S, dr)``, in x's type."""
+    c_kv = rmsnorm(p["kv_norm"], node_matmul(x, p["w_dkv"]), cfg.norm_eps)
+    k_rope = apply_rope(node_matmul(x, p["w_kr"])[..., None, :], cos, sin)
+    return c_kv, k_rope[..., 0, :]
+
+
+def _mla_absorb(p, q_nope):
+    """``w_uk`` absorbed into the query, in f32: q_lat ``(N, B, S, H, r)``
+    with ``logits = q_lat · c_kv + q_rope · k_rope``."""
+    return torch.einsum("nbshk,nrhk->nbshr", q_nope.float(),
+                        p["w_uk"].float())
+
+
+def _mla_out(p, ctx, dtype):
+    """The latent context ``(N, B, S, H, r)`` f32 → up-projected by
+    ``w_uv`` in f32, cast to the activation type, through ``w_o``."""
+    out = torch.einsum("nbshr,nrhv->nbshv", ctx, p["w_uv"].float())
+    return node_matmul(out.to(dtype).flatten(-2), p["w_o"].flatten(1, 2))
+
+
+def mla_chunked(cfg, q_lat, q_rope, c_kv, k_rope, q_offset: int = 0,
+                bq: int = 512, bkv: int = 512):
+    """Online-softmax MLA attention in latent space, in plain PyTorch
+    (``attn_impl="chunked"``).  q_lat ``(B, S, H, r)``, q_rope
+    ``(B, S, H, dr)``, c_kv ``(B, T, r)``, k_rope ``(B, T, dr)`` → latent
+    context ``(B, S, H, r)`` f32; memory O(bq·bkv) per head.  As the
+    reference, S and T must be multiples of the blocks.  Blocks wholly
+    above the diagonal are skipped, which is exact (they add p = 0 with
+    alpha = 1)."""
+    b, s, h, r = q_lat.shape
+    t = c_kv.shape[1]
+    bq, bkv = min(bq, s), min(bkv, t)
+    assert s % bq == 0 and t % bkv == 0, (s, bq, t, bkv)
+    scale = _mla_scale(cfg)
+    dev = q_lat.device
+    qlf, qrf = q_lat.float(), q_rope.float()
+    ckf, krf = c_kv.float(), k_rope.float()
+    out = torch.empty((b, s, h, r), dtype=torch.float32, device=dev)
+    for qi in range(s // bq):
+        q_lo = q_offset + qi * bq
+        ql, qr = qlf[:, qi * bq:(qi + 1) * bq], qrf[:, qi * bq:(qi + 1) * bq]
+        qpos = q_lo + torch.arange(bq, device=dev)[:, None]
+        acc = torch.zeros((b, h, bq, r), dtype=torch.float32, device=dev)
+        m = torch.full((b, h, bq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, h, bq), dtype=torch.float32, device=dev)
+        for ki in range(t // bkv):
+            k_lo = ki * bkv
+            if k_lo > q_lo + bq - 1:
+                break
+            ck, kr = ckf[:, k_lo:k_lo + bkv], krf[:, k_lo:k_lo + bkv]
+            logits = torch.einsum("bshr,btr->bhst", ql, ck)
+            logits += torch.einsum("bshk,btk->bhst", qr, kr)
+            logits *= scale
+            kpos = k_lo + torch.arange(bkv, device=dev)[None, :]
+            logits = logits.masked_fill(~(kpos <= qpos), NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhst,btr->bhsr", p,
+                                                        ck)
+            m = m_new
+        blk = acc / torch.clamp_min(l[..., None], 1e-30)
+        out[:, qi * bq:(qi + 1) * bq] = blk.permute(0, 2, 1, 3)
+    return out
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """``(N, B, ...)`` → ``(N·B, ...)``."""
+    return t.reshape((t.shape[0] * t.shape[1],) + t.shape[2:])
+
+
+def mla_apply(p, cfg, x, positions, impl: str = "einsum"):
+    """Full-sequence MLA of every node: x ``(N, B, S, d)``, positions
+    ``(S,)``.  ``impl``: ``"einsum"`` (full ``(S, S)`` logits),
+    ``"chunked"`` (:func:`mla_chunked`) or ``"pallas"`` (the latent
+    attention CUDA kernel, ``kernels.mla_attention``, one launch for the
+    fleet: the node axis folded into the batch).  The kernel branch keeps
+    the reference's pre-scaling and types: q_lat f32 times 1/√(dn + dr),
+    q_rope times the scale rounded to the activation type, then cast to
+    f32; c_kv and k_rope in the activation type; the context f32."""
+    from repro_torch.kernels.mla_attention import mla_attention
+
+    n, b, s = x.shape[:3]
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    cos, sin = rope(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv, k_rope = _mla_latents(p, cfg, x, cos, sin)
+    q_lat = _mla_absorb(p, q_nope)
+    scale = _mla_scale(cfg)
+    if impl == "pallas":
+        # the reference multiplies q_rope by a weakly typed scalar, which
+        # takes q_rope's type first
+        typed = torch.tensor(scale).to(q_rope.dtype).item()
+        ctx = mla_attention(_fold(q_lat * scale),
+                            _fold((q_rope * typed).to(q_lat.dtype)),
+                            _fold(c_kv), _fold(k_rope)).float()
+    elif impl == "chunked":
+        ctx = mla_chunked(cfg, _fold(q_lat), _fold(q_rope), _fold(c_kv),
+                          _fold(k_rope))
+    else:
+        ckf = _fold(c_kv).float()
+        logits = torch.einsum("bshr,btr->bhst", _fold(q_lat), ckf)
+        logits += torch.einsum("bshk,btk->bhst", _fold(q_rope).float(),
+                               _fold(k_rope).float())
+        logits = logits * scale + _causal_mask(s, s, 0, 0, x.device)
+        probs = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", probs, ckf)
+    return _mla_out(p, ctx.reshape(q_lat.shape), x.dtype)
+
+
+def mla_decode(p, cfg, x, cache_ckv, cache_kr, position):
+    """One token of every node against one layer's latent cache: x
+    ``(N, B, 1, d)``, cache_ckv ``(N, B, T, r)``, cache_kr
+    ``(N, B, T, dr)``, position ``(N, B)``.  The new latent and rope key
+    are written at ``position`` (nowhere when it is past T, as the
+    reference's one-hot blend); returns (out, new_ckv, new_kr)."""
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    cos, sin = rope(position[..., None], cfg.qk_rope_head_dim,
+                    cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_new, kr_new = _mla_latents(p, cfg, x, cos, sin)
+
+    t = cache_ckv.shape[2]
+    kpos = torch.arange(t, device=x.device)
+    write = (kpos == position[..., None])[..., None]         # (N, B, T, 1)
+    new_ckv = torch.where(write, c_new, cache_ckv)
+    new_kr = torch.where(write, kr_new, cache_kr)
+
+    q_lat = _mla_absorb(p, q_nope)
+    ckf = new_ckv.float()
+    logits = torch.einsum("nbshr,nbtr->nbhst", q_lat, ckf)
+    logits += torch.einsum("nbshk,nbtk->nbhst", q_rope.float(),
+                           new_kr.float())
+    logits = logits * _mla_scale(cfg)
+    mask = additive_mask(kpos <= position[..., None])          # (N, B, T)
+    probs = torch.softmax(logits + mask[:, :, None, None, :], dim=-1)
+    ctx = torch.einsum("nbhst,nbtr->nbshr", probs, ckf)
+    return _mla_out(p, ctx, x.dtype), new_ckv, new_kr
 
 
 # ----------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Model assembly for the dense and SSM families (port of
+"""Model assembly for the dense and SSM families and MLA (port of
 ``repro/models/transformer.py``).
 
-  dense — [norm → GQA attention → +res] [norm → MLP → +res]   (× L)
+  dense — [norm → GQA or MLA attention → +res] [norm → MLP → +res]  (× L)
   ssm   — [norm → RWKV-6 time-mix → +res] [norm → channel-mix → +res]
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
@@ -18,15 +18,20 @@ reference's single-node signatures, ``N = 1``.
 Attention runs by ``ForwardOptions.attn_impl``: ``"einsum"`` (full
 ``(S, T)`` logits), ``"chunked"`` (the plain online-softmax scan) or
 ``"pallas"`` (the flash-attention CUDA kernel,
-``kernels.flash_attention``; the name is kept from the reference).
-Decode is always the einsum path against the cache.  The RWKV-6
-scan runs by ``ForwardOptions.use_ssm_kernel``: the RWKV-6 CUDA kernel
+``kernels.flash_attention``, or for MLA configs the latent-attention
+kernel, ``kernels.mla_attention``; the name is kept from the reference).
+Decode is always the einsum path against the cache (K/V, or MLA's latent
+``ckv`` and rope key ``kr``).  The RWKV-6 scan runs by
+``ForwardOptions.use_ssm_kernel``: the RWKV-6 CUDA kernel
 (``kernels.ssm_scan``, one launch per layer for the fleet) or the
 reference's one-step scan body, which decode always runs
 (``models/ssm.py``).
 
-The ``moe`` and ``hybrid`` families, MLA and the modality frontends raise
-``NotImplementedError`` (ROADMAP Queue 1 item 10).
+A ``moe`` config runs when it has no MoE layer: deepseek-v2 cut to its
+dense first layer (``n_layers <= first_k_dense``), or one with
+``n_experts = 0``.  The MoE block, the hybrid family and the modality
+frontends raise ``NotImplementedError`` (ROADMAP Queue 1 items 1, 7
+and 8).
 """
 from __future__ import annotations
 
@@ -46,10 +51,14 @@ from repro_torch.models.layers import (
     _qkv,
     _sdpa,
     _sdpa_chunked,
+    _fold,
     additive_mask,
     apply_rope,
     attention_init,
     dense_init_on_device,
+    mla_apply,
+    mla_decode,
+    mla_init,
     mlp_apply,
     mlp_init,
     node_matmul,
@@ -72,18 +81,20 @@ SSM_STATE_LEAVES = ("rwkv_state", "tm_prev", "cm_prev")
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's transformer stack does not run yet."""
-    if cfg.family in ("moe", "hybrid") or cfg.is_moe or cfg.hybrid_ssm:
+    if cfg.family == "hybrid" or cfg.hybrid_ssm:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (MoE and hybrid "
-            f"blocks) is not ported yet (ROADMAP Queue 1 item 10)")
-    if cfg.use_mla:
+            f"{cfg.name}: the hybrid block (Mamba beside attention) is not "
+            f"ported yet (ROADMAP Queue 1 item 7)")
+    if cfg.is_moe and cfg.n_layers > cfg.first_k_dense:
         raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1 "
-            f"item 10, Queue 2 item 6)")
+            f"{cfg.name}: {cfg.n_layers - cfg.first_k_dense} of its "
+            f"{cfg.n_layers} layers are MoE layers, and the MoE block "
+            f"(models/moe.py) is not ported yet (ROADMAP Queue 1 item 1); "
+            f"a cut to its first {cfg.first_k_dense} dense layer(s) runs")
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            f"(ROADMAP Queue 1 item 10)")
+            f"(ROADMAP Queue 1 item 8)")
 
 
 # ======================================================================
@@ -115,7 +126,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
         layers["channel_mix"] = ssm_lib.rwkv_channel_init(generator, cfg,
                                                           dtype, L)
     else:
-        layers["attn"] = attention_init(generator, cfg, dtype, L)
+        layers["attn"] = (mla_init if cfg.use_mla else attention_init)(
+            generator, cfg, dtype, L)
         layers["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
                                  cfg.mlp_kind, dtype, L)
     p["dense_layers"] = layers
@@ -146,7 +158,8 @@ def drop_node_axis(tree):
 class ForwardOptions:
     """attn_impl: ``"einsum"`` — full (S, T) logits;
     ``"chunked"`` — the plain online-softmax scan, O(bq·bkv) memory;
-    ``"pallas"`` — the flash-attention CUDA kernel (``use_flash=True``).
+    ``"pallas"`` — the flash-attention CUDA kernel (``use_flash=True``),
+    or for MLA configs the latent-attention CUDA kernel.
     use_ssm_kernel: the RWKV-6 scan through its CUDA kernel (the ``ssm``
     family's prefill; decode never runs it).
 
@@ -163,13 +176,10 @@ class ForwardOptions:
                              f"{ATTN_IMPLS}")
 
 
-def _fold(t: torch.Tensor) -> torch.Tensor:
-    """``(N, B, ...)`` → ``(N·B, ...)``."""
-    return t.reshape((t.shape[0] * t.shape[1],) + t.shape[2:])
-
-
 def _attn_block(lp, cfg, x, positions, window: int, opts: ForwardOptions):
     h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
+    if cfg.use_mla:
+        return mla_apply(lp["attn"], cfg, h, positions, impl=opts.attn_impl)
     q, k, v = _qkv(lp["attn"], cfg, h, positions)
     n, b, s = q.shape[:3]
     q, k, v = _fold(q), _fold(k), _fold(v)
@@ -268,7 +278,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if "tokens" not in batch:
         raise NotImplementedError(
             "forward: only token inputs; the frontend stubs' embeddings are "
-            "not ported yet (ROADMAP Queue 1 item 10)")
+            "not ported yet (ROADMAP Queue 1 item 8)")
     out, aux = forward_nodes(add_node_axis(params), cfg, batch["tokens"][None],
                              opts, return_hidden)
     return out[0], aux
@@ -286,7 +296,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     all-local pattern caches just the window.  The ``ssm`` family keeps
     instead the RWKV state ``rwkv_state`` ``(L, B, H, hd, hd)`` f32 and
     the token-shift carries ``tm_prev``/``cm_prev`` ``(L, B, D)``: O(1)
-    in the sequence, ``max_seq`` unused."""
+    in the sequence, ``max_seq`` unused.  MLA configs keep the latent
+    ``ckv`` ``(L, B, T, r)`` and the rope key ``kr`` ``(L, B, T, dr)``
+    (T = max_seq) in the activation type."""
     check_supported(cfg)
     dev = resolve_device(device)
     position = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
@@ -298,6 +310,11 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                 "rwkv_state": torch.zeros((L, batch_size, d // hd, hd, hd),
                                           dtype=torch.float32, device=dev),
                 "tm_prev": carry(), "cm_prev": carry()}
+    if cfg.use_mla:
+        latent = lambda w: torch.zeros((cfg.n_layers, batch_size, max_seq, w),
+                                       dtype=cfg.activation_dtype, device=dev)
+        return {"position": position, "ckv": latent(cfg.kv_lora_rank),
+                "kr": latent(cfg.qk_rope_head_dim)}
     kinds = cfg.layer_kinds()
     lens = [cfg.window_size if k == "local" else max_seq for k in kinds]
     t = max(lens) if lens else max_seq
@@ -348,7 +365,8 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, Params]:
     """One decode step of every node: tokens ``(N, B, 1)``, the cache with
     a leading node axis (``position`` ``(N, B)``, K/V ``(N, L, B, T, KV,
-    hd)``, or the ``ssm`` family's state leaves) → (logits
+    hd)``, MLA's ``ckv``/``kr`` ``(N, L, B, T, ·)``, or the ``ssm``
+    family's state leaves) → (logits
     ``(N, B, 1, V)``, new cache).  ``opts`` is accepted for the
     reference's signature; decode attention is always einsum and the
     RWKV scan always the one-step body."""
@@ -369,19 +387,24 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for j, k in enumerate(SSM_STATE_LEAVES):
             new_cache[k] = torch.stack([c[j] for c in carries], 1)
         return unembed_nodes(params, cfg, x), new_cache
-    ks, vs = [], []
+    keys = ("ckv", "kr") if cfg.use_mla else ("k", "v")
+    news = {k: [] for k in keys}
     for i, window in enumerate(_layer_windows(cfg)):
         lp = _layer(params["dense_layers"], i)
         h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
-        a_out, k_new, v_new = _attn_decode(lp["attn"], cfg, h,
-                                           cache["k"][:, i], cache["v"][:, i],
-                                           position, window)
-        ks.append(k_new)
-        vs.append(v_new)
+        layer_cache = [cache[k][:, i] for k in keys]
+        if cfg.use_mla:
+            a_out, *new = mla_decode(lp["attn"], cfg, h, *layer_cache,
+                                     position)
+        else:
+            a_out, *new = _attn_decode(lp["attn"], cfg, h, *layer_cache,
+                                       position, window)
+        for k, t in zip(keys, new):
+            news[k].append(t)
         x = x + a_out
         x = x + _ffn_block(lp, cfg, x)
-    new_cache = {"position": position + 1, "k": torch.stack(ks, 1),
-                 "v": torch.stack(vs, 1)}
+    new_cache = {"position": position + 1,
+                 **{k: torch.stack(v, 1) for k, v in news.items()}}
     return unembed_nodes(params, cfg, x), new_cache
 
 

@@ -14,6 +14,7 @@ from repro_torch.core.mixing import edge_weights
 from repro_torch.core.plane import aligned_plane
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gossip_mix as tk
+from repro_torch.kernels import mla_attention as tmla
 from repro_torch.kernels import ssm_scan as tscan
 
 torch.set_num_threads(2)
@@ -365,5 +366,156 @@ def test_rwkv_fleet_prefill_one_launch_per_layer_on_the_card():
     ref = make_forward_prefill(cfg, tt.ForwardOptions())(stacked,
                                                          {"tokens": toks})
     assert tscan.rwkv_scan.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+# ----------------------------------------------------------------------
+# MLA latent attention
+# ----------------------------------------------------------------------
+# times max|ref| (chip_smoke.py's MLA_F32_TOL, pinned from the card)
+MLA_REL_TOL = 2e-5
+
+
+def _mla_case(b, s, h, r, dr, seed, q_dtype, kv_dtype, t=None):
+    """q_lat, q_rope ~ N(0, 1) · 2/√(r + dr) (logits of a few units) in
+    ``q_dtype``; c_kv, k_rope ~ N(0, 1) in ``kv_dtype``."""
+    rng = np.random.default_rng(seed)
+    t = t or s
+    qs = 2.0 / np.sqrt(r + dr)
+    cuda = lambda shape, scale, dt: torch.as_tensor(
+        (rng.normal(size=shape) * scale).astype(np.float32)).to(dt).cuda()
+    return (cuda((b, s, h, r), qs, q_dtype), cuda((b, s, h, dr), qs, q_dtype),
+            cuda((b, t, r), 1.0, kv_dtype), cuda((b, t, dr), 1.0, kv_dtype))
+
+
+def _mla_gate(got, ref):
+    """f32 out within MLA_REL_TOL·max|ref|; bf16 out within one bf16 ulp
+    beyond that bound."""
+    f32 = got.dtype == torch.float32
+    got, ref = got.float(), ref.float()
+    tol = MLA_REL_TOL * float(ref.abs().max())
+    if f32:
+        return float((got - ref).abs().max()) <= tol
+    return bool(((got - ref).abs() <= _bf16_ulp(ref) + tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("b,s,h,r,dr", [
+    (1, 200, 4, 512, 64),    # deepseek-v2's ranks, ragged S
+    (2, 64, 2, 512, 64),     # whole tiles
+    (2, 256, 4, 32, 16),     # smoke() ranks
+    (1, 100, 3, 32, 8),      # tests/test_serving.py's MLA ranks, ragged
+    (3, 5, 2, 32, 16),       # shorter than a tile
+])
+def test_mla_kernel_matches_plain_version_on_the_card(q_dtype, kv_dtype, b,
+                                                      s, h, r, dr):
+    """The latent-attention kernel against ``mla_attention_ref`` on the
+    same card inputs, every (r, dr) and type pair it is instantiated for:
+    f32 within MLA_REL_TOL·max|ref| (another summation order), bf16 out
+    within one bf16 ulp beyond that; all finite, exactly one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x = _mla_case(b, s, h, r, dr, s + r, q_dtype, kv_dtype)
+    before = tmla.mla_attention.launches
+    got = tmla.mla_attention(*x)
+    torch.cuda.synchronize()
+    assert tmla.mla_attention.launches == before + 1
+    ref = tmla.mla_attention_ref(*x)
+    assert got.dtype == q_dtype and got.shape == (b, s, h, r)
+    assert bool(torch.isfinite(got).all())
+    assert _mla_gate(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [40, 97, 300])
+def test_mla_kernel_with_other_latent_lengths_on_the_card(t):
+    """T != S (S = 128): the kernel masks t <= s over the T real latent
+    rows, as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x = _mla_case(2, 128, 3, 512, 64, t, torch.float32, torch.bfloat16, t=t)
+    assert _mla_gate(tmla.mla_attention(*x), tmla.mla_attention_ref(*x))
+
+
+@pytest.mark.cuda
+def test_mla_kernel_reads_strided_inputs_on_the_card():
+    """c_kv and k_rope read in place as slices of one (B, T, r + dr)
+    tensor, q_lat and q_rope as slices of one (B, S, H, r + dr): the same
+    result as contiguous copies, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor((rng.normal(size=(2, 150, 4, 576)) * 0.08).astype(
+        np.float32)).cuda()
+    kv = torch.as_tensor(rng.normal(size=(2, 150, 576)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    x = (q[..., :512], q[..., 512:], kv[..., :512], kv[..., 512:])
+    got = tmla.mla_attention(*x)
+    assert torch.equal(got, tmla.mla_attention(*(a.contiguous() for a in x)))
+    assert _mla_gate(got, tmla.mla_attention_ref(*x))
+
+
+@pytest.mark.cuda
+def test_mla_kernel_refuses_what_it_cannot_take():
+    """(r, dr) without an instantiation, mixed types it has no case for,
+    a non-contiguous last dimension and latent rows off 16-byte boundaries
+    are refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    before = tmla.mla_attention.launches
+    x = _mla_case(1, 16, 2, 64, 16, 0, torch.float32, torch.float32)
+    with pytest.raises(ValueError, match="instantiation"):
+        tmla.mla_attention(*x)
+    ql, qr, ck, kr = _mla_case(1, 16, 2, 32, 16, 0, torch.bfloat16,
+                               torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        tmla.mla_attention(ql, qr, ck, kr)
+    ql, qr, ck, kr = _mla_case(1, 16, 2, 32, 16, 0, torch.float32,
+                               torch.float32)
+    wide = torch.cat([ck, ck], -1)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tmla.mla_attention(ql, qr, wide, kr)
+    odd = torch.cat([ck[..., :1], ck, kr], -1)   # rows of 49 f32 values
+    with pytest.raises(ValueError, match="16-byte"):
+        tmla.mla_attention(ql, qr, odd[..., 1:33], odd[..., 33:])
+    assert tmla.mla_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_mla_fleet_prefill_one_launch_per_layer_on_the_card():
+    """A fleet of two nodes (their own inits, drawn on the card) of
+    ``tests/test_serving.py``'s MLA config without experts, through
+    ``make_forward_prefill`` with ``attn_impl="pallas"``: one launch per
+    layer, the last-position logits finite and within 1e-4 of the plain
+    chunked prefill's (f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = ModelConfig(name="mla", family="moe", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=64,
+                      use_mla=True, kv_lora_rank=32, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16, n_experts=0,
+                      dtype="float32", param_dtype="float32")
+    stacked = tree_util.tree_map(
+        lambda *xs: torch.stack(xs),
+        *[tt.init_params(torch.Generator(device="cuda").manual_seed(i), cfg)
+          for i in range(2)])
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 3, 64)), device="cuda")
+    before = tmla.mla_attention.launches
+    got = make_forward_prefill(cfg, tt.ForwardOptions(attn_impl="pallas"))(
+        stacked, {"tokens": toks})
+    assert tmla.mla_attention.launches == before + cfg.n_layers
+    ref = make_forward_prefill(cfg, tt.ForwardOptions(attn_impl="chunked"))(
+        stacked, {"tokens": toks})
+    assert tmla.mla_attention.launches == before + cfg.n_layers
     assert bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= 1e-4

@@ -28,7 +28,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_imports_with_jax_and_repro_blocked():
     """Every module of the port imports with ``jax`` and ``repro`` made
-    unimportable (``sys.modules[name] = None``)."""
+    unimportable (``sys.modules[name] = None``), the kernel wrappers and
+    the model layers among them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "repro"):
@@ -38,6 +39,9 @@ def test_imports_with_jax_and_repro_blocked():
             repro_torch.__path__, "repro_torch.")]
         for m in mods:
             importlib.import_module(m)
+        for m in ("kernels.flash_attention", "kernels.ssm_scan",
+                  "kernels.mla_attention", "models.layers"):
+            assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "repro")
                         and sys.modules[k] is not None)
