@@ -14,12 +14,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain version and one library call computing the same function (none
    exists for the robust kernel); the robust kernel for the trimmed mean
    (k = 1) and the median, plus an FFN plane with NaN/±Inf rows, to max
-   abs err 0;
+   abs err 0; the legacy K-way MAC ``gossip_mix`` at VGG-16's largest leaf
+   (K = R = 33, N = 2,359,296; f32 and bf16), the FFN's first leaf, a
+   ragged (5, 513, 129) with R = 1 and a one-value leaf, to max abs err 0
+   (bf16: one ulp), ``torch.matmul`` its yardstick;
 3. Algorithm 1 at the paper's scale with the FFN (the quickstart scenario
    at ``FULL`` scale: BA(33, p=2), OOD on the hub, R = 40): ``unweighted``
    and ``degree`` through the fused-plane kernel, one launch per mix, and
    degree's OOD AUC above unweighted's; then 3 rounds through every mix
-   backend, whose per-node accuracies must agree;
+   backend, whose per-node accuracies must agree; ``"sparse"`` falls back
+   to the einsum on BA(33, 2) (33 ring offsets against a max degree of
+   14): no kernel launched and a history equal to einsum's;
 4. VGG-16 at full width (P = 14,982,479 per node, n = 33): 2 rounds
    through the fused-plane kernel, 1 through the edge-list kernel and 1
    through the robust kernel (trimmed mean);
@@ -72,6 +77,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    wherever the top-2 margin exceeds twice that bound; a long prefill
    (S = 4096 per node); one fleet decode step at position 81 and at 4088;
    ``swap_node`` installs a new row that the next request decodes with;
+12. the mix-cost study (``repro_torch.benchmarks.gossip_cost``, the port
+   of ``benchmarks/gossip_cost.py``): ``run_mix`` at the FFN and VGG-16
+   trees (n = 33) through every backend, each held to the einsum first,
+   the legacy rows mix making exactly one ``gossip_mix`` launch a leaf (6
+   and 35); ``run`` (dense against circulant schedules, with the RCM
+   relabel) at 8 M floats a node on ring16, BA(16, 1), BA(16, 2) and
+   WS(16, 4, 0.5); ``run_scaling`` (fused plane against edge list) at the
+   FFN's width for n = 64, 256, 1024; the trainer with
+   ``mix_impl="sparse"`` on ring(33), where the schedule holds, for
+   ``degree`` and ``metropolis``, within 3 of 512 eval samples per node of
+   the fused plane on the same graph;
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
 
@@ -93,8 +109,8 @@ and a latent shorter than the queries (T = 600 < S = 1024, all bf16),
 with one SDPA call over [q_lat || q_rope] and [c_kv || k_rope] as the
 library yardstick.
 
-Phases 3, 4, 6, 7, 8, 9, 10 and 11 are the main path: every launch counter is
-set to 0 just before each of them and read just after.  The script
+Phases 3, 4, 6, 7, 8, 9, 10, 11 and 12 are the main path: every launch
+counter is set to 0 just before each of them and read just after.  The script
 imports nothing of JAX.
 """
 import dataclasses
@@ -113,8 +129,9 @@ F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 N_NODES = 33
 FFN_P, VGG_P = 118_282, 14_982_479
 KERNELS = ("gossip_plane", "gossip_edges", "gossip_robust",
-           "flash_attention", "rwkv_scan", "mla_attention")
+           "flash_attention", "rwkv_scan", "mla_attention", "gossip_mix")
 SOURCES = {"gossip_plane": "gossip_mix.cu", "gossip_edges": "gossip_mix.cu",
+           "gossip_mix": "gossip_mix.cu",
            "gossip_robust": "gossip_robust.cu",
            "flash_attention": "flash_attention.cu",
            "rwkv_scan": "ssm_scan.cu", "mla_attention": "mla_attention.cu"}
@@ -123,13 +140,15 @@ REPLACES = {"gossip_plane": "src/repro/kernels/gossip_mix.py:164",
             "gossip_robust": "src/repro/kernels/gossip_mix.py:387",
             "flash_attention": "src/repro/kernels/flash_attention.py:86",
             "rwkv_scan": "src/repro/kernels/ssm_scan.py:86",
-            "mla_attention": "src/repro/kernels/mla_attention.py:79"}
+            "mla_attention": "src/repro/kernels/mla_attention.py:79",
+            "gossip_mix": "src/repro/kernels/gossip_mix.py:546"}
 # the wrapper modules under repro_torch.kernels
 MODULES = {"gossip_plane": "gossip_mix", "gossip_edges": "gossip_mix",
-           "gossip_robust": "gossip_mix",
+           "gossip_robust": "gossip_mix", "gossip_mix": "gossip_mix",
            "flash_attention": "flash_attention", "rwkv_scan": "ssm_scan",
            "mla_attention": "mla_attention"}
 ROBUST_CHUNK = 1 << 19          # plain-version columns per chunk
+VGG_LEAVES, FFN_LEAVES = 35, 6
 
 
 def log(*args):
@@ -261,6 +280,82 @@ def check_kernels(dev):
     plane[4, ::3] = float("inf")
     plane[7] = float("-inf")
     cases += check_robust_kernel(gm, plane, w, idx, "ffn_poisoned")
+    return cases
+
+
+GOSSIP_MIX_CASES = (
+    # (label, (K, M, N), R, dtype, main); R None: weights (K,), R = 1
+    ("vgg16_largest_leaf", (N_NODES, 1, 3 * 3 * 512 * 512), N_NODES,
+     "float32", True),
+    ("vgg16_largest_leaf", (N_NODES, 1, 3 * 3 * 512 * 512), N_NODES,
+     "bfloat16", False),
+    ("ffn_l1_w", (N_NODES, 1, 784 * 128), N_NODES, "float32", False),
+    ("ragged_unaligned", (5, 513, 129), None, "float32", False),
+    ("one_value_leaf", (N_NODES, 1, 1), N_NODES, "float32", False),
+)
+
+
+def check_gossip_mix(dev):
+    """``gossip_mix`` against ``gossip_mix_ref``: max abs err 0 in f32,
+    within one bf16 ulp in bf16 (the same unfused f32 arithmetic, so 0 is
+    expected there too); the yardstick is one ``torch.matmul(w,
+    blocks.view(K, -1))``.  Weights: the rows of BA(33, 2)'s ``degree``
+    matrix, or a normalized random vector where K != 33."""
+    import torch
+
+    from repro_torch.core.coeffs import program_for
+    from repro_torch.core.strategies import AggregationStrategy
+    from repro_torch.core.topology import barabasi_albert
+    from repro_torch.kernels import gossip_mix as gm
+
+    program, state = program_for(barabasi_albert(N_NODES, 2, 0),
+                                 AggregationStrategy("degree"))
+    c = program.matrix(state, 0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = []
+    for label, (k, m, n), r, dt, main in GOSSIP_MIX_CASES:
+        dtype = getattr(torch, dt)
+        blocks = torch.randn((k, m, n), generator=gen, device=dev).to(dtype)
+        if k == N_NODES:
+            w = c if r else c[0]
+        else:
+            w = torch.rand((k,) if r is None else (r, k), generator=gen,
+                           device=dev)
+            w = w / w.sum(-1, keepdim=True)
+        rows = 1 if r is None else r
+        run = lambda: gm.gossip_mix(blocks, w)
+        plain = lambda: gm.gossip_mix_ref(blocks, w)
+        wl = w.to(dtype)
+        lib = lambda: torch.matmul(wl, blocks.view(k, -1))
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        err = (out.float() - ref.float()).abs()
+        max_err = float(err.max())
+        if dtype == torch.float32:
+            ok, tol_txt = max_err == 0.0, "== 0"
+        else:
+            ok = bool((err <= bf16_ulp(ref.float())).all())
+            tol_txt = "<= 1 bf16 ulp elementwise"
+        del out, ref, err
+        assert ok, ("gossip_mix", label, dt, max_err, tol_txt)
+        b = blocks.element_size()
+        nbytes = (k + rows) * m * n * b + 4 * rows * k
+        flops = 2 * rows * k * m * n
+        bnd, by = bound_ms(nbytes, flops)
+        case = {
+            "name": "gossip_mix", "case": label, "shape": [k, m, n],
+            "rows": rows, "dtype": dt, "main": main,
+            "max_abs_err": max_err, "tolerance": tol_txt,
+            "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=5),
+            "library_ms": cuda_ms(lib), "library": "torch.matmul",
+            "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
+            "flops": flops,
+        }
+        log("kernel_case " + json.dumps(case))
+        cases.append(case)
+        del blocks
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -427,7 +522,8 @@ def small_device_check():
         test_ood=make_test_batch(backdoored_testset(test), 200))
     worst = 0.0
     for impl, robust in (("einsum", "mean"), ("pallas", "mean"),
-                         ("edges", "mean"), ("edges", "trimmed")):
+                         ("edges", "mean"), ("edges", "trimmed"),
+                         ("sparse", "mean")):
         hists = []
         for device in ("cuda", "cpu"):
             params = stack_params([ffn_init(torch.Generator().manual_seed(0),
@@ -441,7 +537,8 @@ def small_device_check():
         worst = max(worst, max_drift_samples(*hists, 200))
     # card vs CPU differ only in summation order: at most one eval sample
     assert worst <= 1 + 1e-3, worst
-    log(f"small input, card vs CPU, every backend and the robust kernel: "
+    log(f"small input, card vs CPU, every backend (sparse: BA(8, 2) keeps "
+        f"its ring schedule) and the robust kernel: "
         f"max per-node drift "
         f"{worst:.0f} of 200 eval samples (limit 1)")
 
@@ -472,15 +569,16 @@ def run_ffn(sc, gm):
     assert results["degree"]["ood_auc"] > results["unweighted"]["ood_auc"], \
         results
     hists = {}
-    for impl in ("einsum", "pallas", "edges"):
+    counters = (gm.gossip_plane, gm.gossip_edges, gm.gossip_mix)
+    for impl in ("einsum", "pallas", "edges", "sparse"):
         tr = ffn_trainer(sc, "degree", impl, 3, 1)
-        counts = gm.gossip_plane.launches, gm.gossip_edges.launches
+        counts = [c.launches for c in counters]
         _, hists[impl] = tr.run(ffn_params(), sc["batcher"].round_batches,
                                 sc["test_iid"], sc["test_ood"])
-        delta = (gm.gossip_plane.launches - counts[0],
-                 gm.gossip_edges.launches - counts[1])
-        assert delta == {"einsum": (0, 0), "pallas": (3, 0),
-                         "edges": (0, 3)}[impl], (impl, delta)
+        delta = tuple(c.launches - b for c, b in zip(counters, counts))
+        assert delta == {"einsum": (0, 0, 0), "pallas": (3, 0, 0),
+                         "edges": (0, 3, 0), "sparse": (0, 0, 0)}[impl], \
+            (impl, delta)
     drift = max(max_drift_samples(hists["pallas"], hists[i], 512)
                 for i in ("einsum", "edges"))
     # the backends sum in different orders; after 3 rounds of training a
@@ -488,6 +586,19 @@ def run_ffn(sc, gm):
     assert drift <= 3 + 1e-3, drift
     log(f"ffn 3 rounds einsum/pallas/edges: max per-node drift {drift:.0f} "
         f"of 512 eval samples (limit 3)")
+    # BA(33, 2) needs all 33 ring offsets against a max degree of 14: the
+    # sparse schedule falls back to the einsum, so its history is einsum's
+    import numpy as np
+
+    from repro_torch.core.decentralized import sparse_schedule
+
+    topo = sc["topo"]
+    assert sparse_schedule(topo.adjacency + np.eye(topo.n_nodes))[0] is None
+    for a, b in zip(hists["sparse"], hists["einsum"]):
+        for key in ("iid_acc", "ood_acc", "train_loss"):
+            assert np.array_equal(getattr(a, key), getattr(b, key)), key
+    log("ffn 3 rounds sparse on BA(33, 2): the fallback fired (no kernel "
+        "launched, history equal to einsum's)")
     return results
 
 
@@ -2097,6 +2208,106 @@ def run_deepseek(dev, mla_ms=None, cfg=None, n=DEEPSEEK_NODES,
 
 
 # ----------------------------------------------------------------------
+# phase 12: the mix-cost study
+# ----------------------------------------------------------------------
+STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
+
+
+def run_mix_study(sc, gm):
+    """The port of ``benchmarks/gossip_cost.py`` on the card: every mix
+    backend at the FFN and VGG-16 trees (n = 33, BA(33, 2), ``degree``),
+    the legacy rows mix making exactly one ``gossip_mix`` launch a leaf;
+    the schedule study at 8 M floats a node; the n-scaling study at the
+    FFN's width; then the trainer with ``mix_impl="sparse"`` on ring(33),
+    where the schedule holds, against the fused plane on the same graph."""
+    import numpy as np
+    import torch
+
+    from repro_torch.benchmarks import gossip_cost
+    from repro_torch.core import decentralized
+    from repro_torch.core.topology import ring
+
+    out = {}
+    for model, n_leaves, p in (("ffn", FFN_LEAVES, FFN_P),
+                               ("vgg16", VGG_LEAVES, VGG_P)):
+        rec = gossip_cost.run_mix(log=log, n_nodes=N_NODES, model=model,
+                                  reps=5, device="cuda")
+        impls = rec["impls"]
+        assert rec["config"]["n_leaves"] == n_leaves, rec["config"]
+        assert rec["config"]["param_floats_per_node"] == p, rec["config"]
+        launches = {k: v["launches_per_mix"] for k, v in impls.items()}
+        assert launches == {"einsum": 0, "pallas_rows": n_leaves,
+                            "pallas_plane": 1, "pallas_plane_bf16": 1,
+                            "edges": 1, "sparse": 0}, launches
+        rows_ms = impls["pallas_rows"]["wall_s"] * 1e3
+        min_bytes = 2 * N_NODES * p * 4
+        legacy = impls["pallas_rows"]["modeled_hbm_bytes"]
+        summary = {
+            "ms": {k: v["wall_s"] * 1e3 for k, v in impls.items()},
+            "launches_per_mix": launches,
+            "rows_bound_ms": min_bytes / HBM_BYTES_PER_S * 1e3,
+            "rows_legacy_modeled_bytes": legacy,
+            "rows_legacy_modeled_ms": legacy / HBM_BYTES_PER_S * 1e3,
+            "rows_vs_matmul_einsum": rows_ms / (impls["einsum"]["wall_s"]
+                                                * 1e3),
+            "sparse_offsets": impls["sparse"]["n_offsets"],
+            "sparse_fallback": impls["sparse"]["sparse_fallback"],
+        }
+        log(f"mix_study {model} " + json.dumps(summary))
+        out[model] = summary
+        torch.cuda.empty_cache()
+    out["schedule"] = gossip_cost.run(log=log, n_params=STUDY_PARAMS,
+                                      device="cuda")
+    log("schedule_study " + json.dumps(out["schedule"]))
+    torch.cuda.empty_cache()
+    out["scaling"] = gossip_cost.run_scaling(log=log, n_params=FFN_P,
+                                             device="cuda")
+    log("scaling_study " + json.dumps(out["scaling"]))
+    torch.cuda.empty_cache()
+
+    # the trainer's sparse backend where the schedule holds
+    ring_sc = dict(sc, topo=ring(N_NODES))
+    support = ring_sc["topo"].adjacency + np.eye(N_NODES)
+    assert decentralized.sparse_schedule(support)[0] == (0, 1, N_NODES - 1)
+    calls = [0]
+    mix_sparse = decentralized.mix_sparse
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return mix_sparse(*args, **kw)
+
+    decentralized.mix_sparse = counted
+    try:
+        for strategy in ("degree", "metropolis"):
+            hists = {}
+            for impl in ("pallas", "sparse"):
+                before = gm.gossip_plane.launches, calls[0]
+                tr = ffn_trainer(ring_sc, strategy, impl, 3, 1)
+                t0 = time.perf_counter()
+                _, hists[impl] = tr.run(ffn_params(),
+                                        sc["batcher"].round_batches,
+                                        sc["test_iid"], sc["test_ood"])
+                secs = time.perf_counter() - t0
+                delta = (gm.gossip_plane.launches - before[0],
+                         calls[0] - before[1])
+                assert delta == {"pallas": (3, 0), "sparse": (0, 3)}[impl], \
+                    (strategy, impl, delta)
+                for h in hists[impl]:
+                    assert np.all(np.isfinite(h.train_loss))
+                out[f"ring33_{strategy}_{impl}_s_per_round"] = secs / 3
+            drift = max_drift_samples(hists["pallas"], hists["sparse"], 512)
+            # phase 3's limit: 3 of 512 eval samples per node
+            assert drift <= 3 + 1e-3, (strategy, drift)
+            out[f"ring33_{strategy}_drift"] = drift
+            log(f"ffn ring(33) {strategy}, 3 rounds, sparse (offsets 0, 1, "
+                f"32; no fallback) against pallas: max per-node drift "
+                f"{drift:.0f} of 512 eval samples (limit 3)")
+    finally:
+        decentralized.mix_sparse = mix_sparse
+    return out
+
+
+# ----------------------------------------------------------------------
 # phase 5: where one round's time goes
 # ----------------------------------------------------------------------
 def timed(fn):
@@ -2202,7 +2413,7 @@ def main() -> int:
     log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
 
     cases = (check_kernels(dev) + check_flash(dev) + check_rwkv(dev)
-             + check_mla(dev))
+             + check_mla(dev) + check_gossip_mix(dev))
     small_device_check()
 
     ffn_sc = ffn_setup()
@@ -2250,6 +2461,7 @@ def main() -> int:
                     and c["main"])
     assert mla_main["shape"] == [DEEPSEEK_NODES, LONG_PREFILL, 128, 512, 64]
     main_path("serving_deepseek", run_deepseek, dev, mla_main["ms"])
+    main_path("mix_study", run_mix_study, ffn_sc, gm)
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches

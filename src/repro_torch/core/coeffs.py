@@ -78,11 +78,18 @@ def program_for(topo: Topology, strategy: AggregationStrategy,
     """``(program, state)`` for one topology × strategy cell; ``state``
     holds the reference's f32 leaves (adjacency, nominal scores, counts,
     τ, kind index)."""
+    if strategy.kind not in PROGRAM_KINDS:
+        raise NotImplementedError(
+            f"strategy {strategy.kind!r} is no coefficient-program kind: "
+            f"round_coeffs and coeffs_stack build it on the host "
+            f"(core.strategies.mixing_matrix), as the reference does; the "
+            f"program kinds ported are {PORTED_KINDS} (ROADMAP Queue 1 "
+            f"items 3-4 bring the others)")
     if strategy.kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"strategy {strategy.kind!r} has no ported coefficient program; "
-            f"ported: {PORTED_KINDS} (ROADMAP Queue 1: threefry for "
-            f"'random', networkx-free centralities)")
+            f"ported: {PORTED_KINDS} (ROADMAP Queue 1: item 3 for 'random', "
+            f"item 4 for the networkx-free centralities)")
     if reactive or p_fail != 0.0:
         raise NotImplementedError(
             "reactive programs and link failure (p_fail > 0) need the "

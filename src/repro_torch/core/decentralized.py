@@ -12,9 +12,12 @@ Each round:
      strategy's row-stochastic matrix by the backend ``mix_impl`` names:
      ``"einsum"`` (a library matrix product per leaf), ``"pallas"`` (the
      fused flat-plane CUDA kernel, ``kernels.gossip_mix.mix_plane`` — the
-     name is kept from the reference so configs carry over) or ``"edges"``
+     name is kept from the reference so configs carry over), ``"edges"``
      (the padded edge-list CUDA kernel, ``kernels.gossip_mix.
-     mix_edges_kernel``).
+     mix_edges_kernel``) or ``"sparse"`` (the circulant ring-offset
+     schedule, ``core.mixing.mix_sparse``, which falls back to
+     ``"einsum"`` where the support needs more offsets than its max degree
+     plus ``sparse_slack``: :func:`sparse_schedule`).
 
 :meth:`DecentralizedTrainer.run` and :meth:`run_unrolled` are both a
 Python loop over rounds with evaluation only on :func:`eval_round_indices`;
@@ -31,8 +34,12 @@ injects faults into the published plane with an optional quarantine
 screen, and :func:`make_participation_round_fn` lets only a drawn subset
 of nodes train and gossip each round; both draw their per-round masks
 from the port's JAX-compatible threefry (``core.prng``), so the masks
-equal the reference's.  The ``"sparse"`` circulant backend waits for a
-later slice (ROADMAP Queue 1).
+equal the reference's.
+
+Mixing matrices come from the f32 coefficient program for its kinds
+(``core/coeffs.py``) and from the float64 host path
+(``core.strategies.mixing_matrix``, cast to f32) for the others
+(``metropolis``), as the reference's ``round_coeffs`` does.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch import tree as tree_util
 from repro_torch.core.coeffs import (
+    PROGRAM_KINDS,
     participation_renormalize,
     program_for,
     quarantine_renormalize,
@@ -54,10 +62,12 @@ from repro_torch.core.mixing import (
     ROBUST_MODES,
     mix_dense,
     mix_robust_tables,
+    mix_sparse,
     norm_clip_coeffs,
     plane_norms,
+    sparse_offsets,
 )
-from repro_torch.core.strategies import AggregationStrategy
+from repro_torch.core.strategies import AggregationStrategy, mixing_matrix
 from repro_torch.core.topology import Topology, padded_neighbor_tables
 from repro_torch.training.optimizer import Optimizer, apply_updates
 
@@ -70,6 +80,7 @@ __all__ = [
     "round_coeffs",
     "coeffs_stack",
     "make_mix_fn",
+    "sparse_schedule",
     "edges_schedule",
     "make_local_train_fn",
     "make_round_fn",
@@ -80,7 +91,7 @@ __all__ = [
     "eval_round_indices",
 ]
 
-MIX_IMPLS = ("einsum", "pallas", "edges")
+MIX_IMPLS = ("einsum", "pallas", "edges", "sparse")
 
 
 def stack_params(params_list) -> object:
@@ -102,7 +113,10 @@ class DecentralizedConfig:
     # in the native param/plane dtype (the low-precision ablation)
     mix_in_float32: bool = True
     unroll_eval: bool = False  # True → run() delegates to run_unrolled()
-    mix_impl: str = "einsum"   # "einsum" | "pallas" | "edges"
+    mix_impl: str = "einsum"   # "einsum" | "pallas" | "edges" | "sparse"
+    # mix_impl="sparse": einsum instead when the support's nonzero ring
+    # offsets outnumber its max degree + sparse_slack (sparse_schedule)
+    sparse_slack: int = 4
     # Robust aggregation (DESIGN.md §16): "mean" (the paper's Eq. (2)) |
     # "trimmed" (coordinate-wise trimmed mean, robust_trim cut per side) |
     # "median" (coordinate-wise median) | "norm_clip" (each neighbour's
@@ -131,22 +145,51 @@ class RoundMetrics:
 def round_coeffs(topo: Topology, strategy: AggregationStrategy,
                  round_idx: int,
                  data_counts: Optional[np.ndarray] = None) -> np.ndarray:
-    """(n, n) f32 mixing matrix for one round, from the f32 coefficient
-    program as the reference builds it."""
-    program, state = program_for(topo, strategy, data_counts=data_counts)
-    return program.materialize(state, round_indices=np.array([round_idx]))[0]
+    """(n, n) f32 mixing matrix for one round, as the reference builds
+    it: the f32 coefficient program for its kinds, else the float64 host
+    matrix cast to f32 (the reference runs with x64 off, so its matrix
+    reaches the mix as f32)."""
+    if strategy.kind in PROGRAM_KINDS:
+        program, state = program_for(topo, strategy, data_counts=data_counts)
+        return program.materialize(
+            state, round_indices=np.array([round_idx]))[0]
+    return mixing_matrix(topo, strategy, data_counts).astype(np.float32)
 
 
 def coeffs_stack(topo: Topology, strategy: AggregationStrategy, rounds: int,
                  data_counts: Optional[np.ndarray] = None) -> np.ndarray:
     """(R, n, n) f32 stack of per-round mixing matrices."""
-    program, state = program_for(topo, strategy, data_counts=data_counts)
-    return program.materialize(state, rounds)
+    if strategy.kind in PROGRAM_KINDS:
+        program, state = program_for(topo, strategy, data_counts=data_counts)
+        return program.materialize(state, rounds)
+    return np.stack([round_coeffs(topo, strategy, r, data_counts)
+                     for r in range(rounds)])
 
 
 # ----------------------------------------------------------------------
 # round-step factories
 # ----------------------------------------------------------------------
+def sparse_schedule(mix_support, sparse_slack: int = 4):
+    """``(offsets, covered)`` of the circulant schedule for a support
+    mask, or ``(None, None)`` when the dense fallback applies: more
+    nonzero ring offsets than the support's max degree + ``sparse_slack``.
+    ``covered`` is the (n, n) bool mask of the positions the offsets
+    reach."""
+    support = np.asarray(mix_support)
+    n = support.shape[0]
+    offsets = sparse_offsets(support)
+    off_diag = support * (1.0 - np.eye(n))
+    max_degree = int(off_diag.sum(axis=1).max())
+    nonzero_offsets = len(offsets) - (1 if 0 in offsets else 0)
+    if nonzero_offsets > max_degree + sparse_slack:
+        return None, None
+    rows = np.arange(n)
+    covered = np.zeros((n, n), bool)
+    for k in offsets:
+        covered[rows, (rows + k) % n] = True
+    return offsets, covered
+
+
 def edges_schedule(mix_support) -> Tuple[np.ndarray, np.ndarray]:
     """``(nbr_idx, nbr_mask)`` padded-ELL tables for a support mask with
     the diagonal forced in (every node keeps a self-slot)."""
@@ -163,6 +206,7 @@ def _edge_tables(mix_support, device):
 
 def make_mix_fn(mix_impl: str = "einsum",
                 mix_support: Optional[np.ndarray] = None,
+                sparse_slack: int = 4,
                 mix_in_float32: bool = True,
                 robust: str = "mean",
                 robust_trim: int = 1,
@@ -173,6 +217,8 @@ def make_mix_fn(mix_impl: str = "einsum",
     ``"edges"`` needs ``mix_support`` — the (n, n) neighbourhood mask
     (adjacency + self-loops) that fixes the padded-ELL tables, placed on
     ``device``; coefficients outside the tables would be dropped.
+    ``"sparse"`` needs it too, to fix the ring offsets, and returns the
+    einsum backend where :func:`sparse_schedule` falls back.
 
     ``robust`` (as the reference's ``make_mix_fn``): ``"mean"`` returns
     the plain backends; ``"trimmed"``/``"median"`` need ``mix_support``
@@ -207,6 +253,7 @@ def make_mix_fn(mix_impl: str = "einsum",
             mix_in_float32=mix_in_float32)
     if robust == "norm_clip":
         base = make_mix_fn(mix_impl, mix_support=mix_support,
+                           sparse_slack=sparse_slack,
                            mix_in_float32=mix_in_float32, device=device)
         clip = float(robust_clip)
         return lambda params, coeffs: base(
@@ -229,9 +276,16 @@ def make_mix_fn(mix_impl: str = "einsum",
         return lambda params, coeffs: mix_edges_kernel(
             params, coeffs, idx, msk, mix_in_float32=mix_in_float32)
     if mix_impl == "sparse":
-        raise NotImplementedError(
-            "mix_impl='sparse' (the circulant schedule) is not ported yet "
-            "(ROADMAP Queue 1)")
+        if mix_support is None:
+            raise ValueError(
+                "mix_impl='sparse' needs mix_support (the (n, n) "
+                "neighbourhood mask, adjacency + self-loops) to fix the "
+                "ring-offset schedule")
+        offsets, _ = sparse_schedule(mix_support, sparse_slack)
+        if offsets is None:
+            return make_mix_fn("einsum", mix_in_float32=mix_in_float32)
+        return lambda params, coeffs: mix_sparse(
+            params, coeffs, offsets, mix_in_float32=mix_in_float32)
     raise KeyError(f"unknown mix_impl {mix_impl!r}; have {MIX_IMPLS}")
 
 
@@ -276,6 +330,7 @@ def make_round_fn(loss_fn: Callable, optimizer: Optimizer, local_epochs: int,
                   mix_impl: str = "einsum",
                   epoch_shuffle: bool = True,
                   mix_support: Optional[np.ndarray] = None,
+                  sparse_slack: int = 4,
                   mix_in_float32: bool = True,
                   robust: str = "mean",
                   robust_trim: int = 1,
@@ -286,6 +341,7 @@ def make_round_fn(loss_fn: Callable, optimizer: Optimizer, local_epochs: int,
     local_train = make_local_train_fn(loss_fn, optimizer, local_epochs,
                                       epoch_shuffle)
     mix = make_mix_fn(mix_impl, mix_support=mix_support,
+                      sparse_slack=sparse_slack,
                       mix_in_float32=mix_in_float32, robust=robust,
                       robust_trim=robust_trim, robust_clip=robust_clip,
                       device=device)
@@ -344,6 +400,7 @@ def make_participation_round_fn(loss_fn: Callable, optimizer: Optimizer,
                                 mix_impl: str = "einsum",
                                 epoch_shuffle: bool = True,
                                 mix_support: Optional[np.ndarray] = None,
+                                sparse_slack: int = 4,
                                 mix_in_float32: bool = True,
                                 robust: str = "mean",
                                 robust_trim: int = 1,
@@ -363,6 +420,7 @@ def make_participation_round_fn(loss_fn: Callable, optimizer: Optimizer,
     local_train = make_local_train_fn(loss_fn, optimizer, local_epochs,
                                       epoch_shuffle)
     mix = make_mix_fn(mix_impl, mix_support=mix_support,
+                      sparse_slack=sparse_slack,
                       mix_in_float32=mix_in_float32, robust=robust,
                       robust_trim=robust_trim, robust_clip=robust_clip,
                       device=device)
@@ -451,6 +509,7 @@ def make_fault_round_fn(loss_fn: Callable, optimizer: Optimizer,
                         mix_impl: str = "einsum",
                         epoch_shuffle: bool = True,
                         mix_support: Optional[np.ndarray] = None,
+                        sparse_slack: int = 4,
                         mix_in_float32: bool = True,
                         robust: str = "mean",
                         robust_trim: int = 1,
@@ -477,6 +536,7 @@ def make_fault_round_fn(loss_fn: Callable, optimizer: Optimizer,
     local_train = make_local_train_fn(loss_fn, optimizer, local_epochs,
                                       epoch_shuffle)
     mix = make_mix_fn(mix_impl, mix_support=mix_support,
+                      sparse_slack=sparse_slack,
                       mix_in_float32=mix_in_float32, robust=robust,
                       robust_trim=robust_trim, robust_clip=robust_clip,
                       device=device)
@@ -574,7 +634,7 @@ class DecentralizedTrainer:
         self.config = config
         self.data_counts = data_counts
         mix_support = None
-        if (config.mix_impl == "edges"
+        if (config.mix_impl in ("sparse", "edges")
                 or config.robust in ("trimmed", "median")):
             # support = neighbourhoods ∪ the strategy's round-0 support, so
             # kinds with off-neighbourhood weight (fl's dense 1/n) keep
@@ -587,6 +647,7 @@ class DecentralizedTrainer:
         self._round_fn = make_round_fn(
             loss_fn, optimizer, config.local_epochs, config.mix_impl,
             config.epoch_shuffle, mix_support=mix_support,
+            sparse_slack=config.sparse_slack,
             mix_in_float32=config.mix_in_float32, robust=config.robust,
             robust_trim=config.robust_trim, robust_clip=config.robust_clip,
             device=self.device)

@@ -1,5 +1,5 @@
-"""Apply a mixing matrix to a stacked model tree (port of the dense and
-edge-list schedules of ``repro/core/mixing.py``).
+"""Apply a mixing matrix to a stacked model tree (port of
+``repro/core/mixing.py``).
 
 Eq. (2), ``m_i ← Σ_j C[i, j] · m_j``, over trees whose leaves carry a
 leading node axis ``(n, ...)``:
@@ -9,11 +9,19 @@ leading node axis ``(n, ...)``:
   the library as the reference leaves it to XLA);
 * :func:`mix_edges` — the padded-ELL gather-accumulate over static
   neighbour tables with per-edge weights gathered from the live matrix
-  (:func:`edge_weights`).
+  (:func:`edge_weights`);
+* :func:`mix_sparse` — the circulant schedule (``mix_impl="sparse"``): the
+  matrix as a sum of weighted ring shifts ``w_k[i] · leaf[(i + k) % n]``
+  over a static offset set (:func:`sparse_offsets`, from the topology's
+  support) with the weights gathered from the live matrix.  On one card a
+  ring shift is a ``torch.roll``; on the reference's TPU mesh it is one
+  collective permute, so :func:`mixing_collective_bytes` models the bytes
+  it moves there.  :func:`circulant_decomposition` and
+  :func:`mix_sparse_host` are the schedule as host data and its
+  single-host reference.
 
-Both accumulate in f32 by default; ``mix_in_float32=False`` accumulates
-in the leaf dtype (the low-precision-aggregation ablation).  The circulant
-``mix_sparse`` schedule waits for a later slice (ROADMAP Queue 1).
+They accumulate in f32 by default; ``mix_in_float32=False`` accumulates
+in the leaf dtype (the low-precision-aggregation ablation).
 
 Robust aggregation (DESIGN.md §16): :func:`robust_combine` replaces the
 weighted mean by a coordinate-wise trimmed mean or median over each
@@ -27,6 +35,9 @@ bit; against the reference's XLA reduction it differs in the last ulps.
 """
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
@@ -36,6 +47,12 @@ __all__ = [
     "mix_dense",
     "edge_weights",
     "mix_edges",
+    "CirculantSchedule",
+    "circulant_decomposition",
+    "sparse_offsets",
+    "mix_sparse",
+    "mix_sparse_host",
+    "mixing_collective_bytes",
     "ROBUST_MODES",
     "oddeven_sort_pairs",
     "robust_combine",
@@ -67,6 +84,111 @@ def mix_dense(params, coeffs: torch.Tensor, mix_in_float32: bool = True):
     ``(n, n)`` matrix."""
     return tree_util.tree_map(
         lambda leaf: _leaf_mix(coeffs, leaf, mix_in_float32), params)
+
+
+# ----------------------------------------------------------------------
+# circulant (ring-offset) schedule
+# ----------------------------------------------------------------------
+class CirculantSchedule:
+    """An (n, n) matrix as ring offsets: for each offset ``k`` with any
+    nonzero ``C[i, (i + k) % n]``, the per-destination weights
+    ``w_k[i] = C[i, (i + k) % n]``, so that
+    ``(C @ M)[i] = Σ_k w_k[i] · M[(i + k) % n]``."""
+
+    def __init__(self, offsets: Sequence[int], weights: np.ndarray, n: int):
+        self.offsets: Tuple[int, ...] = tuple(int(o) for o in offsets)
+        self.weights = np.asarray(weights, dtype=np.float32)  # (K, n)
+        self.n = n
+        if self.weights.shape != (len(self.offsets), n):
+            raise ValueError(f"weights {self.weights.shape} != "
+                             f"({len(self.offsets)}, {n})")
+
+    def __len__(self) -> int:
+        return len(self.offsets)
+
+    def __repr__(self) -> str:
+        return f"CirculantSchedule(n={self.n}, offsets={self.offsets})"
+
+
+def circulant_decomposition(coeffs: np.ndarray) -> CirculantSchedule:
+    """Exact decomposition of an (n, n) matrix (cast to f32) into its
+    nonzero ring offsets, offset 0 (the self-weight) included."""
+    c = np.asarray(coeffs, dtype=np.float32)
+    n = c.shape[0]
+    offsets: List[int] = []
+    weights: List[np.ndarray] = []
+    for k in range(n):
+        w = c[np.arange(n), (np.arange(n) + k) % n]
+        if np.any(w != 0):
+            offsets.append(k)
+            weights.append(w)
+    return CirculantSchedule(offsets, np.stack(weights), n)
+
+
+def sparse_offsets(support: np.ndarray) -> Tuple[int, ...]:
+    """Distinct ring offsets covering a 0/1 support mask (adjacency plus
+    self-loops): offset k is needed iff any ``support[i, (i+k) % n] > 0``."""
+    s = np.asarray(support)
+    n = s.shape[0]
+    rows = np.arange(n)
+    return tuple(k for k in range(n)
+                 if np.any(s[rows, (rows + k) % n] > 0))
+
+
+def _roll_sum(leaf: torch.Tensor, offsets, weights,
+              acc_dtype) -> torch.Tensor:
+    """``Σ_k w_k[i] · leaf[(i + k) % n]`` in ascending offset order, from
+    0, in ``acc_dtype``; cast back to the leaf's dtype."""
+    n = leaf.shape[0]
+    extra = (1,) * (leaf.ndim - 1)
+    acc = torch.zeros(leaf.shape, dtype=acc_dtype, device=leaf.device)
+    for k, w in zip(offsets, weights):
+        # destination i receives source (i + k) % n: a roll by -k
+        shifted = torch.roll(leaf, -k, 0) if k else leaf
+        acc = acc + w.to(acc_dtype).reshape((n,) + extra) * \
+            shifted.to(acc_dtype)
+    return acc.to(leaf.dtype)
+
+
+def mix_sparse(params, coeffs: torch.Tensor, offsets: Sequence[int],
+               mix_in_float32: bool = True):
+    """Circulant gossip with static ``offsets`` and weights
+    ``w_k[i] = coeffs[i, (i + k) % n]`` gathered from the live matrix, so
+    one schedule serves every round.  Weight outside the offset set is
+    dropped: callers derive the offsets from the nominal support.  f32
+    accumulation, or the leaf dtype with ``mix_in_float32=False``."""
+    c = coeffs.to(torch.float32)
+    n = c.shape[0]
+    rows = torch.arange(n, device=c.device)
+    weights = [c[rows, (rows + k) % n] for k in offsets]
+    return tree_util.tree_map(
+        lambda leaf: _roll_sum(
+            leaf, offsets, weights,
+            torch.float32 if mix_in_float32 else leaf.dtype), params)
+
+
+def mix_sparse_host(params, schedule: CirculantSchedule):
+    """Single-host reference of a :class:`CirculantSchedule`: its f32
+    weights, f32 accumulation."""
+    def leaf_fn(leaf):
+        weights = [torch.as_tensor(w, device=leaf.device)
+                   for w in schedule.weights]
+        return _roll_sum(leaf, schedule.offsets, weights, torch.float32)
+
+    return tree_util.tree_map(leaf_fn, params)
+
+
+def mixing_collective_bytes(n_nodes: int, param_bytes_per_node: int,
+                            schedule: CirculantSchedule = None) -> dict:
+    """Bytes a node receives per mix on a ring of devices: the dense
+    all-gather ``(n - 1)·P``, and with a schedule one permute per nonzero
+    offset, ``K'·P``."""
+    out = {"dense_bytes_per_node": (n_nodes - 1) * param_bytes_per_node}
+    if schedule is not None:
+        nonzero = sum(1 for o in schedule.offsets if o != 0)
+        out["sparse_bytes_per_node"] = nonzero * param_bytes_per_node
+        out["sparse_offsets"] = nonzero
+    return out
 
 
 def edge_weights(coeffs: torch.Tensor, nbr_idx: torch.Tensor,

@@ -1,12 +1,17 @@
 """Communication topologies (port of ``repro/core/topology.py``).
 
 Host-side numpy metadata, as in the reference.  The GPU machine has no
-networkx, so :func:`barabasi_albert` re-implements
-``networkx.barabasi_albert_graph`` (networkx 3.x) in plain Python and
-gives the same graph from the same seed: a ``star_graph(m)`` start, the
-``repeated_nodes`` preferential-attachment list, and ``_random_subset``
-drawing with ``random.Random(seed).choice`` into a ``set`` that is then
-extended in set-iteration order.
+networkx, so the random generators re-implement networkx's (3.x) in plain
+Python and give the same graph from the same seed:
+
+* :func:`barabasi_albert` — ``networkx.barabasi_albert_graph``: a
+  ``star_graph(m)`` start, the ``repeated_nodes`` preferential-attachment
+  list, and ``_random_subset`` drawing with ``random.Random(seed).choice``
+  into a ``set`` that is then extended in set-iteration order;
+* :func:`watts_strogatz` — ``networkx.connected_watts_strogatz_graph``:
+  one ``random.Random(seed)`` shared by up to 100 tries, each a ring
+  lattice rewired by neighbour distance and then by node, until the graph
+  is connected.
 
 Betweenness, eigenvector, pagerank and closeness centralities need
 networkx in the reference and wait for a later slice (ROADMAP Queue 1).
@@ -23,8 +28,10 @@ __all__ = [
     "Topology",
     "padded_neighbor_tables",
     "barabasi_albert",
+    "watts_strogatz",
     "ring",
     "star",
+    "fully_connected",
 ]
 
 
@@ -56,6 +63,10 @@ class Topology:
     @property
     def n_edges(self) -> int:
         return int(self.adjacency.sum()) // 2
+
+    def neighbors(self, i: int) -> np.ndarray:
+        """Indices of i's neighbours (excluding i itself)."""
+        return np.nonzero(self.adjacency[i])[0]
 
     def degree(self) -> np.ndarray:
         """Degree of each node (number of edges)."""
@@ -131,6 +142,66 @@ def barabasi_albert(n: int, p: int, seed: int = 0) -> Topology:
     return Topology(a, name=f"ba_n{n}_p{p}", seed=seed)
 
 
+def _ws_graph(n: int, k: int, p: float, rng: random.Random) -> np.ndarray:
+    """One ``networkx.watts_strogatz_graph(n, k, p, rng)`` draw as an
+    adjacency matrix, drawing from ``rng`` in networkx's order."""
+    if k > n:
+        raise ValueError(f"k>n, choose smaller k or larger n (k={k}, n={n})")
+    if k == n:
+        return np.ones((n, n)) - np.eye(n)
+    nbrs = [set() for _ in range(n)]
+    nodes = list(range(n))
+    for j in range(1, k // 2 + 1):
+        for u in nodes:
+            v = (u + j) % n
+            nbrs[u].add(v)
+            nbrs[v].add(u)
+    # rewire: neighbour distance j outside, nodes in order inside
+    for j in range(1, k // 2 + 1):
+        for u in nodes:
+            v = (u + j) % n
+            if rng.random() < p:
+                w = rng.choice(nodes)
+                # no self-loops or multiple edges
+                while w == u or w in nbrs[u]:
+                    w = rng.choice(nodes)
+                    if len(nbrs[u]) >= n - 1:
+                        break   # no free target: skip this edge
+                else:
+                    nbrs[u].remove(v)
+                    nbrs[v].remove(u)
+                    nbrs[u].add(w)
+                    nbrs[w].add(u)
+    a = np.zeros((n, n))
+    for u in nodes:
+        a[u, sorted(nbrs[u])] = 1.0
+    return a
+
+
+def _is_connected(a: np.ndarray) -> bool:
+    n = a.shape[0]
+    seen = {0}
+    frontier = [0]
+    while frontier:
+        frontier = [int(v) for u in frontier for v in np.nonzero(a[u])[0]
+                    if int(v) not in seen]
+        seen.update(frontier)
+    return len(seen) == n
+
+
+def watts_strogatz(n: int, k: int = 4, u: float = 0.5, seed: int = 0,
+                   tries: int = 100) -> Topology:
+    """WS small-world graph, the connected variant: ring of n nodes, k
+    nearest neighbours, rewiring probability u — the same graph
+    ``networkx.connected_watts_strogatz_graph(n, k, u, seed=seed)`` gives."""
+    rng = random.Random(seed)
+    for _ in range(tries):
+        a = _ws_graph(n, k, u, rng)
+        if _is_connected(a):
+            return Topology(a, name=f"ws_n{n}_k{k}_u{u}", seed=seed)
+    raise ValueError("Maximum number of tries exceeded")
+
+
 def ring(n: int) -> Topology:
     """Deterministic ring."""
     a = np.zeros((n, n))
@@ -146,3 +217,9 @@ def star(n: int) -> Topology:
     a = np.zeros((n, n))
     a[0, 1:] = a[1:, 0] = 1.0
     return Topology(a, name=f"star_n{n}")
+
+
+def fully_connected(n: int) -> Topology:
+    """Complete graph — the FL baseline's implicit topology."""
+    a = np.ones((n, n)) - np.eye(n)
+    return Topology(a, name=f"full_n{n}")

@@ -5,6 +5,9 @@
 // gossip_plane_pallas (body _plane_kernel): out = C @ plane, C (n, n) f32.
 // gossip_edges replaces gossip_edges_pallas (body _edges_kernel):
 // out[i] = sum_d w[i, d] * plane[idx[i, d]] over padded-ELL tables.
+// gossip_mix replaces the legacy K-way MAC gossip_mix_pallas (body
+// _kernel): out[r] = sum_k w[r, k] * blocks[k] over (K, M, N) blocks, one
+// launch per leaf of the mix_dense_pallas fan-out (see rows_kernel below).
 //
 // What bounds them on the card: n is small next to P (n = 33 on the main
 // path, P up to 15e6), so both read the plane once and write it once:
@@ -48,6 +51,8 @@ constexpr int kRPT = 8;              // output rows per thread
 constexpr int kRows = kTY * kRPT;    // output rows per plane block
 constexpr int kJC = 32;              // source rows staged per chunk
 constexpr int kEdgeThreads = 256;    // threads in an edges block
+constexpr int kRowThreads = 256;     // threads in a rows block
+constexpr int kRowsMax = 8;          // output rows per rows block, at most
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -250,6 +255,110 @@ edges_kernel(const float* __restrict__ w, const int* __restrict__ idx,
   store_vec<T, VEC>(out + static_cast<long long>(i) * ld, col, p, acc);
 }
 
+// gossip_mix: out[r, l] = sum_k w[r, k] * blocks[k, l] over the (M, N)
+// positions l of K source slabs, for R output rows.  The TPU kernel is the
+// R = 1 case; mix_dense_pallas vmaps it over the n rows of C for every
+// leaf (K = n, M = 1, N = leaf size), and that vmap is still one
+// pallas_call, so the port makes it one launch a leaf with R = n.
+//
+// What bounds it: (K + R) * M * N * b bytes against 2 * R * K * M * N f32
+// operations.  At K = R = 33 that is ~8 operations a byte in f32, under
+// the card's 20 FLOP/B line: bytes.  The design (a weighted sum of K
+// slabs into R outputs, none of the Pallas (bm, bn) blocks or padding):
+//   * a block owns one column tile (256 threads x one 16-byte vector, or
+//     one element on the scalar path) and up to kRowsMax output rows; the
+//     grid runs the row groups of a tile fastest, so a tile's K source
+//     slabs are read from device memory about once and from L2 by the
+//     other groups (ceil(R / 8) reads in all, not the legacy R + 1);
+//   * 16-byte loads and stores when the slabs are contiguous, the base
+//     and both row strides 16-byte aligned; any other leaf (N = 129,
+//     N = 1, a strided slab) takes the scalar path, chosen inside the
+//     launch, so the wrapper neither refuses nor copies it;
+//   * sums in f32 in ascending k from 0, multiply and add unfused
+//     (__fmul_rn / __fadd_rn), cast to the blocks' type once: equal to
+//     gossip_mix_ref bit for bit.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kRowThreads)
+rows_kernel(const float* __restrict__ w, const T* __restrict__ blocks,
+            T* __restrict__ out, int r_total, int k_total, long long n,
+            long long len, long long sk, long long sm, int rows_per_block,
+            int n_row_groups) {
+  const long long bid = blockIdx.x;
+  const int r0 = static_cast<int>(bid % n_row_groups) * rows_per_block;
+  const int nr = min(rows_per_block, r_total - r0);
+  const long long l = (bid / n_row_groups) * (kRowThreads * VEC) +
+                      static_cast<long long>(threadIdx.x) * VEC;
+  if (l >= len) return;
+  // the scalar path's source offset inside a slab (M rows of stride sm)
+  long long off = l;
+  if (VEC == 1) {
+    const long long mi = l / n;
+    off = mi * sm + (l - mi * n);
+  }
+  float acc[kRowsMax][VEC];
+#pragma unroll
+  for (int r = 0; r < kRowsMax; ++r)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[r][v] = 0.0f;
+  const float* wr = w + static_cast<long long>(r0) * k_total;
+  for (int k = 0; k < k_total; ++k) {
+    const T* src = blocks + static_cast<long long>(k) * sk;
+    float x[VEC];
+    if constexpr (VEC == 1) {
+      if constexpr (sizeof(T) == 4) {
+        x[0] = src[off];
+      } else {
+        x[0] = __bfloat162float(src[off]);
+      }
+    } else {
+      load_vec<T, VEC>(src, l, len, x);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsMax; ++r) {
+      if (r < nr) {
+        const float wv = __ldg(wr + static_cast<long long>(r) * k_total + k);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          acc[r][v] = __fadd_rn(acc[r][v], __fmul_rn(wv, x[v]));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsMax; ++r) {
+    if (r < nr) {
+      T* dst = out + static_cast<long long>(r0 + r) * len;
+      if constexpr (VEC == 1) {
+        if constexpr (sizeof(T) == 4) {
+          dst[l] = acc[r][0];
+        } else {
+          dst[l] = __float2bfloat16_rn(acc[r][0]);
+        }
+      } else {
+        store_vec<T, VEC>(dst, l, len, acc[r]);
+      }
+    }
+  }
+}
+
+template <typename T, int VEC>
+void launch_rows(const void* w, const void* blocks, void* out, int r_total,
+                 int k_total, long long n, long long len, long long sk,
+                 long long sm, cudaStream_t stream) {
+  // balanced row groups of at most kRowsMax rows (33 rows: 5 groups of 7)
+  int groups = (r_total + kRowsMax - 1) / kRowsMax;
+  const int rows_per_block = (r_total + groups - 1) / groups;
+  groups = (r_total + rows_per_block - 1) / rows_per_block;
+  const long long n_tiles =
+      (len + kRowThreads * VEC - 1) / (kRowThreads * VEC);
+  const long long n_blocks = n_tiles * groups;
+  rows_kernel<T, VEC><<<static_cast<unsigned>(n_blocks), kRowThreads, 0,
+                        stream>>>(
+      static_cast<const float*>(w), static_cast<const T*>(blocks),
+      static_cast<T*>(out), r_total, k_total, n, len, sk, sm,
+      rows_per_block, groups);
+}
+
 template <typename T, int VEC, bool LOWP>
 void launch_plane(const void* c, const void* plane, void* out, int n,
                   long long p, long long ld, cudaStream_t stream) {
@@ -312,6 +421,44 @@ extern "C" int gossip_edges_launch(const void* w, const void* idx,
     } else {
       launch_edges<__nv_bfloat16, 8, false>(w, idx, plane, out, n, dmax, p,
                                             ld, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (R, M, N) contiguous = w (R, K) f32 contiguous applied to blocks
+// (K, M, N) whose last dimension is contiguous, with slab stride sk and
+// row stride sm in elements.  dtype: 0 = float32, 1 = bfloat16 (blocks and
+// out).  The 16-byte path needs contiguous slabs (M == 1 or sm == N), a
+// 16-byte aligned base, slab stride and output row; otherwise the scalar
+// path runs.
+extern "C" int gossip_mix_launch(const void* w, const void* blocks,
+                                 void* out, int r_total, int k_total,
+                                 long long m, long long n, long long sk,
+                                 long long sm, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long len = m * n;
+  if (r_total > 0 && len > 0) {
+    const long long b = dtype == 0 ? 4 : 2;
+    const bool vec =
+        (m == 1 || sm == n) &&
+        reinterpret_cast<unsigned long long>(blocks) % 16 == 0 &&
+        reinterpret_cast<unsigned long long>(out) % 16 == 0 &&
+        (sk * b) % 16 == 0 && (len * b) % 16 == 0;
+    if (dtype == 0) {
+      if (vec) {
+        launch_rows<float, 4>(w, blocks, out, r_total, k_total, n, len, sk,
+                              sm, s);
+      } else {
+        launch_rows<float, 1>(w, blocks, out, r_total, k_total, n, len, sk,
+                              sm, s);
+      }
+    } else if (vec) {
+      launch_rows<__nv_bfloat16, 8>(w, blocks, out, r_total, k_total, n,
+                                    len, sk, sm, s);
+    } else {
+      launch_rows<__nv_bfloat16, 1>(w, blocks, out, r_total, k_total, n,
+                                    len, sk, sm, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

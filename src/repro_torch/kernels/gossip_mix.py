@@ -12,27 +12,36 @@ Port of the three TPU kernels on the trainer's path in
 * :func:`gossip_robust` replaces ``gossip_robust_pallas`` (body
   ``_robust_kernel``): the coordinate-wise trimmed mean or median of
   ``core.mixing.robust_combine`` over the same tables
-  (``mix_impl="edges"`` with ``robust="trimmed"`` or ``"median"``).
+  (``mix_impl="edges"`` with ``robust="trimmed"`` or ``"median"``);
+* :func:`gossip_mix` replaces the legacy K-way MAC ``gossip_mix_pallas``
+  (body ``_kernel``): ``out[r] = Σ_k w[r, k] · blocks[k]`` over
+  ``(K, M, N)`` blocks.  :func:`mix_dense_rows` is its per-leaf fan-out,
+  the counterpart of ``mix_dense_pallas``: the mix-cost study's baseline
+  (``benchmarks.gossip_cost.run_mix``), selected by no ``mix_impl``.
 
 They are hand-written CUDA C++ for Hopper in ``csrc/gossip_mix.cu`` and
 ``csrc/gossip_robust.cu`` (what bounds them and what the design does
 about it is noted there), built by ``kernels/build.py`` at first use and
 called through ``ctypes``.  Each wrapper takes its plain PyTorch version
-(``gossip_plane_ref``, ``gossip_edges_ref``, ``gossip_robust_ref``) only
-for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+(``gossip_plane_ref``, ``gossip_edges_ref``, ``gossip_robust_ref``,
+``gossip_mix_ref``) only for tensors on the CPU; a CUDA tensor launches the
+kernel or raises.
 ``<wrapper>.launches`` counts kernel launches (plain ints, reset by the
 caller).
 
 :func:`mix_plane`, :func:`mix_edges_kernel` and :func:`mix_robust_kernel`
 are the tree-level wrappers the trainer calls: pack once → one launch →
-unpack once.
+unpack once.  :func:`mix_modeled_hbm_bytes` is the reference's byte model
+of one mix for every backend.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.core.mixing import edge_weights, robust_combine
 from repro_torch.core.plane import PlaneLayout
 
@@ -46,6 +55,10 @@ __all__ = [
     "mix_plane",
     "mix_edges_kernel",
     "mix_robust_kernel",
+    "gossip_mix",
+    "gossip_mix_ref",
+    "mix_dense_rows",
+    "mix_modeled_hbm_bytes",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,6 +79,9 @@ def _lib(name: str = "gossip_mix") -> ctypes.CDLL:
             lib.gossip_edges_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
                                                 i, p]
             lib.gossip_edges_launch.restype = ctypes.c_int
+            lib.gossip_mix_launch.argtypes = [p, p, p, i, i, ll, ll, ll, ll,
+                                              i, p]
+            lib.gossip_mix_launch.restype = ctypes.c_int
         else:
             lib.gossip_robust_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
                                                  i, i, i, p]
@@ -344,3 +360,135 @@ def mix_robust_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
     mixed = gossip_robust(plane, w, nbr_idx.to(torch.int32), op, trim_k,
                           mix_in_float32)
     return layout.unpack(mixed)
+
+
+# ----------------------------------------------------------------------
+# legacy per-row K-way MAC (the mix-cost study's baseline)
+# ----------------------------------------------------------------------
+def _weight_rows(blocks: torch.Tensor, weights: torch.Tensor):
+    """``(R, K)`` view of ``weights`` ``(K,)`` or ``(R, K)``, checked
+    against ``blocks`` ``(K, M, N)``."""
+    if blocks.ndim != 3:
+        raise ValueError(f"blocks must be (K, M, N), got "
+                         f"{tuple(blocks.shape)}")
+    k = blocks.shape[0]
+    if weights.ndim not in (1, 2) or weights.shape[-1] != k:
+        raise ValueError(f"weights must be ({k},) or (R, {k}), got "
+                         f"{tuple(weights.shape)}")
+    return weights.reshape(-1, k)
+
+
+def gossip_mix_ref(blocks: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gossip_mix`: f32 sums in ascending
+    k from 0, each product and each sum its own rounded f32 op, cast to
+    the blocks' dtype once."""
+    w = _weight_rows(blocks, weights).float()
+    acc = torch.zeros((w.shape[0],) + tuple(blocks.shape[1:]),
+                      dtype=torch.float32, device=blocks.device)
+    for k in range(blocks.shape[0]):
+        acc = acc + w[:, k, None, None] * blocks[k].float()
+    out = acc.to(blocks.dtype)
+    return out[0] if weights.ndim == 1 else out
+
+
+def gossip_mix(blocks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``out = Σ_k weights[k] · blocks[k]``: blocks ``(K, M, N)`` f32 or
+    bf16, weights ``(K,)`` f32 → ``(M, N)``, or ``(R, K)`` → ``(R, M, N)``
+    (one launch for all R rows).  Any N at any alignment: the kernel
+    takes a scalar path where its 16-byte loads do not apply.  On the
+    card the last dimension must be contiguous."""
+    w = _weight_rows(blocks, weights)
+    if blocks.device.type == "cpu":
+        return gossip_mix_ref(blocks, weights)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"gossip_mix runs on cuda or cpu, got "
+                         f"{blocks.device}")
+    if blocks.dtype not in _DTYPE_CODES:
+        raise TypeError(f"blocks dtype must be float32 or bfloat16, got "
+                        f"{blocks.dtype}")
+    if w.device != blocks.device or w.dtype != torch.float32:
+        raise ValueError("weights must be float32 on the blocks' device")
+    k, m, n = blocks.shape
+    if blocks.stride(2) != 1 and n > 1:
+        raise ValueError("gossip_mix: the blocks' last dimension must be "
+                         "contiguous")
+    w = w.contiguous()
+    r = w.shape[0]
+    out = torch.empty((r, m, n), dtype=blocks.dtype, device=blocks.device)
+    if out.numel() and k:
+        with torch.cuda.device(blocks.device):
+            stream = torch.cuda.current_stream(blocks.device).cuda_stream
+            rc = _lib().gossip_mix_launch(
+                w.data_ptr(), blocks.data_ptr(), out.data_ptr(), r, k, m, n,
+                blocks.stride(0), blocks.stride(1),
+                _DTYPE_CODES[blocks.dtype], stream)
+        _raise_on(rc, "gossip_mix")
+        gossip_mix.launches += 1
+    elif out.numel():
+        out.zero_()
+    return out[0] if weights.ndim == 1 else out
+
+
+gossip_mix.launches = 0
+
+
+def mix_dense_rows(params, coeffs: torch.Tensor):
+    """Eq. (2) leaf by leaf through :func:`gossip_mix` — the counterpart
+    of the reference's legacy ``mix_dense_pallas``: each leaf ``(n,
+    ...)`` is ``K = n`` blocks ``(1, numel / n)`` mixed into all n
+    destination rows in one launch (the reference's ``jax.vmap`` over the
+    rows of C, one ``pallas_call`` a leaf); the result takes the leaf's
+    shape and dtype."""
+    c = coeffs.to(torch.float32)
+    n = c.shape[0]
+
+    def leaf_fn(leaf):
+        out = gossip_mix(leaf.reshape(n, 1, -1), c)
+        return out.reshape(leaf.shape).to(leaf.dtype)
+
+    return tree_util.tree_map(leaf_fn, params)
+
+
+def mix_modeled_hbm_bytes(impl: str, n: int, p_floats: int,
+                          itemsize: int = 4, n_leaves: int = 1,
+                          bt: int = 2048, max_neighbors: Optional[int] = None,
+                          n_offsets: Optional[int] = None) -> int:
+    """Modeled device-memory bytes of one mix of an n-node model with
+    ``p_floats`` parameters a node (``itemsize`` bytes each, over
+    ``n_leaves`` leaves): the reference's model, integer for integer.
+
+    * ``"einsum"``: one product per leaf, ``2·n·P·b + n_leaves·n²·4``;
+    * ``"pallas_rows"``: the legacy fan-out, every destination row of
+      every leaf re-reading its slab, ``n·(n+1)·P·b + n_leaves·n²·4``;
+    * ``"pallas_plane"``: the fused plane, ``2·n·P·b + ⌈P/bt⌉·n²·4``, and
+      ``"pallas_plane_e2e"`` with the pack and unpack copies,
+      ``6·n·P·b + ⌈P/bt⌉·n²·4``;
+    * ``"edges"`` / ``"edges_robust"`` (need ``max_neighbors``, the table
+      width dmax): ``2·n·P·b + ⌈P/bt⌉·n·dmax·8``;
+    * ``"sparse"`` (needs ``n_offsets``, the circulant schedule's offset
+      count with 0): ``(K+1)·n·P·b + K·n·4``.
+    """
+    coeff = n * n * 4
+    if impl == "einsum":
+        return 2 * n * p_floats * itemsize + n_leaves * coeff
+    if impl == "pallas_rows":
+        return n * (n + 1) * p_floats * itemsize + n_leaves * n * n * 4
+    if impl == "sparse":
+        if n_offsets is None:
+            raise ValueError("impl='sparse' needs n_offsets (the circulant "
+                             "schedule's static offset count, incl. 0)")
+        return ((n_offsets + 1) * n * p_floats * itemsize
+                + n_offsets * n * 4)
+    tiles = -(-p_floats // bt)
+    if impl in ("edges", "edges_robust"):
+        if max_neighbors is None:
+            raise ValueError(f"impl={impl!r} needs max_neighbors (the "
+                             "padded-ELL table width dmax)")
+        return (2 * n * p_floats * itemsize
+                + tiles * n * max_neighbors * 8)
+    if impl == "pallas_plane":
+        return 2 * n * p_floats * itemsize + tiles * coeff
+    if impl == "pallas_plane_e2e":
+        return 6 * n * p_floats * itemsize + tiles * coeff
+    raise KeyError(f"unknown impl {impl!r}")

@@ -519,3 +519,87 @@ def test_mla_fleet_prefill_one_launch_per_layer_on_the_card():
     assert tmla.mla_attention.launches == before + cfg.n_layers
     assert bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,m,n,r", [
+    (33, 1, 100_352, 33),   # the FFN's first leaf: the 16-byte path
+    (5, 513, 129, None),    # ragged, rows off 16-byte boundaries, R = 1
+    (33, 1, 1, 33),         # a one-value leaf (VGG-16's pool markers)
+    (7, 3, 37, 3),          # odd N, R not a multiple of the row group
+    (4, 2, 1024, 20)])      # 3 row groups of 7 and 6 rows
+def test_gossip_mix_kernel_equals_plain_version_on_the_card(dtype, k, m, n,
+                                                           r):
+    """The K-way MAC against its plain version bit for bit (the same
+    unfused f32 multiply and add in ascending k), on both of the
+    kernel's paths, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(k + m + n)
+    blocks = torch.as_tensor(rng.normal(size=(k, m, n)).astype(np.float32)
+                             ).to(dtype).cuda()
+    w = rng.random((k,) if r is None else (r, k)).astype(np.float32)
+    w = torch.as_tensor(w / w.sum(-1, keepdims=True)).cuda()
+    before = tk.gossip_mix.launches
+    got = tk.gossip_mix(blocks, w)
+    torch.cuda.synchronize()
+    assert tk.gossip_mix.launches == before + 1
+    assert got.dtype == dtype
+    assert tuple(got.shape) == ((m, n) if r is None else (r, m, n))
+    assert torch.equal(got, tk.gossip_mix_ref(blocks, w))
+
+
+@pytest.mark.cuda
+def test_gossip_mix_kernel_reads_strided_and_offset_slabs_on_the_card():
+    """Leaves that are views of a plane (slab stride = the plane's row
+    stride, a column offset off 16 bytes, a strided middle dimension) are
+    read in place, without a copy, and equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(5)
+    plane = torch.as_tensor(rng.normal(size=(9, 1000)).astype(np.float32)
+                            ).cuda()
+    w = torch.as_tensor(rng.random((9, 9)).astype(np.float32)).cuda()
+    for blocks in (plane[:, 4:516].reshape(9, 1, 512),        # aligned view
+                   plane[:, 3:403].reshape(9, 20, 20),        # off 16 bytes
+                   plane[:, :600].reshape(9, 20, 30)[:, :, :25]):  # strided
+        got = tk.gossip_mix(blocks, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.gossip_mix_ref(blocks, w))
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.gossip_mix(plane[:, :600].reshape(9, 20, 30).transpose(1, 2), w)
+
+
+@pytest.mark.cuda
+def test_mix_dense_rows_makes_one_launch_a_leaf_on_the_card():
+    """``mix_dense_rows`` over a ragged 4-leaf tree (N = 128·56, 96·31,
+    129 and 1) and over the FFN's six leaves: exactly n_leaves launches,
+    each leaf equal to the plain fan-out and within 1e-5·max|ref| of the
+    dense einsum (another summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch import tree as tree_util
+    from repro_torch.benchmarks.gossip_cost import model_params
+    from repro_torch.core.mixing import mix_dense
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ragged = {"w_big": torch.randn(8, 56, 128, generator=gen, device="cuda"),
+              "w_mid": torch.randn(8, 31, 96, generator=gen, device="cuda"),
+              "bias": torch.randn(8, 129, generator=gen, device="cuda"),
+              "scale": torch.randn(8, generator=gen, device="cuda")}
+    for params, n in ((ragged, 8), (model_params("ffn", 33, "cuda", gen), 33)):
+        c = torch.softmax(torch.randn(n, n, generator=gen, device="cuda"), 1)
+        before = tk.gossip_mix.launches
+        got = tk.mix_dense_rows(params, c)
+        torch.cuda.synchronize()
+        leaves = tree_util.leaves(params)
+        assert tk.gossip_mix.launches == before + len(leaves)
+        plain = tree_util.tree_map(
+            lambda x: tk.gossip_mix_ref(x.reshape(n, 1, -1), c
+                                        ).reshape(x.shape), params)
+        dense = mix_dense(params, c)
+        for a, b, d in zip(tree_util.leaves(got), tree_util.leaves(plain),
+                           tree_util.leaves(dense)):
+            assert torch.equal(a, b)
+            assert float((a - d).abs().max()) <= 1e-5 * float(d.abs().max())

@@ -40,7 +40,8 @@ def test_imports_with_jax_and_repro_blocked():
         for m in mods:
             importlib.import_module(m)
         for m in ("kernels.flash_attention", "kernels.ssm_scan",
-                  "kernels.mla_attention", "models.layers"):
+                  "kernels.mla_attention", "kernels.gossip_mix",
+                  "models.layers", "benchmarks.gossip_cost"):
             assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "repro")
@@ -74,7 +75,7 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_cpu_on_request():
     assert resolve_device("cpu") == torch.device("cpu")
-    for impl in ("einsum", "pallas", "edges"):
+    for impl in ("einsum", "pallas", "edges", "sparse"):
         tr = _trainer(device="cpu", mix_impl=impl)
         assert tr.device == torch.device("cpu")
         np.testing.assert_allclose(tr.coeffs_for_round(0).sum(1).numpy(), 1.0,
