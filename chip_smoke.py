@@ -91,7 +91,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
 
-Phase 2 also holds the flash-attention kernel against its plain version
+Phase 2 also holds the flash-attention kernels (bf16 on the tensor cores,
+f32 on the CUDA cores) against their plain version
 at the stablelm prefill shape (4, 4096, 32 heads, hd 64; bf16 and f32),
 the gemma2 shapes (1, 8192, 32 over 16 kv heads, hd 128, cap 50, window
 4096 and 0) and a ragged S, with SDPA as the library yardstick where no
@@ -126,6 +127,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12   # bf16 on the tensor cores, dense
 N_NODES = 33
 FFN_P, VGG_P = 118_282, 14_982_479
 KERNELS = ("gossip_plane", "gossip_edges", "gossip_robust",
@@ -182,9 +184,12 @@ def cuda_ms(fn, reps=15):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flops=F32_FLOPS_PER_S):
+    """The larger of bytes over the memory rate and operations over
+    ``peak_flops`` (the f32 CUDA-core rate unless the kernel's work runs
+    on the tensor cores), in ms, and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOPS_PER_S * 1e3
+    t_flops = flops / peak_flops * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                    else "operations")
 
@@ -971,7 +976,10 @@ def check_flash(dev):
     elementwise within one bf16 ulp of the plain version's output beyond
     that same f32 bound (each side rounds its own f32 value once); every
     output finite.  SDPA (``is_causal``) is the library yardstick where
-    no softcap or window applies, ``flex_attention`` where one does."""
+    no softcap or window applies, ``flex_attention`` where one does.  The
+    bound takes bf16 cases (the tensor-core kernel) at the bf16
+    tensor-core peak and f32 cases (the CUDA-core kernel) at the f32 one;
+    ``achieved_tflops`` is the function's flops over the kernel's time."""
     import torch
     import torch.nn.functional as F
 
@@ -1019,17 +1027,21 @@ def check_flash(dev):
         pairs = unmasked_pairs(s, window)
         nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * q.element_size()
         flops = 4 * hd * h * b * pairs
-        bnd, by = bound_ms(nbytes, flops)
+        peak = (BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16
+                else F32_FLOPS_PER_S)
+        bnd, by = bound_ms(nbytes, flops, peak)
+        ms = cuda_ms(run, reps=10)
         case = {
             "name": "flash_attention", "case": label, "shape": [b, s, h, kv, hd],
             "dtype": dt, "window": window, "softcap": cap, "main": main,
             "max_abs_err": max_err, "tolerance": tol_txt,
             "elements_beyond_one_ulp": over_ulp,
             "max_err_over_gate": gate_use,
-            "ms": cuda_ms(run, reps=10), "plain_ms": cuda_ms(plain, reps=3),
+            "ms": ms, "plain_ms": cuda_ms(plain, reps=3),
             "library_ms": library_ms, "library": lib_name,
             "library_rel_err": lib_err, "bound_ms": bnd, "bound_by": by,
             "bytes": nbytes, "flops": flops, "unmasked_pairs": pairs,
+            "peak_flops": peak, "achieved_tflops": flops / ms / 1e9,
         }
         log("kernel_case " + json.dumps(case))
         cases.append(case)

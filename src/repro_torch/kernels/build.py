@@ -7,8 +7,10 @@ shared library with a plain C interface, loaded with ``ctypes``::
          -Xcompiler -fPIC -o _build/<hash>/lib<name>.so csrc/<name>.cu
 
 The output lands in ``kernels/_build/`` (listed in ``.gitignore``), keyed
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  A failed compile raises with nvcc's stderr.
+by a hash of the source, of every ``csrc/`` header it includes (``#include
+"..."``, followed through headers) and of the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  A failed compile
+raises with nvcc's stderr.
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -16,12 +18,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Set
 
 __all__ = ["NVCC_FLAGS", "nvcc_path", "build", "load"]
 
@@ -30,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -53,8 +57,23 @@ def nvcc_path() -> str:
         "first use and need the CUDA toolkit")
 
 
+def _sources(path: Path, seen: Set[Path]) -> None:
+    """``path`` and, depth first, every ``#include "..."`` header it
+    reaches under ``csrc/``, each once, into ``seen``."""
+    seen.add(path)
+    for inc in _INCLUDE.findall(path.read_text()):
+        dep = CSRC / inc
+        if dep.is_file() and dep not in seen:
+            _sources(dep, seen)
+
+
 def _library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    seen: Set[Path] = set()
+    _sources(CSRC / f"{name}.cu", seen)
+    h = hashlib.sha256()
+    for src in sorted(seen):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / h.hexdigest()[:16] / f"lib{name}.so"
 

@@ -1,0 +1,281 @@
+// Hopper (sm_90a) building blocks for bf16 tensor-core kernels: 16-byte
+// cp.async staging into swizzled shared-memory tiles, wgmma shared-memory
+// descriptors, warpgroup matrix products (bf16 in, f32 accumulation) and
+// the split of an f32 matrix operand into bf16 pieces.  Header-only; a
+// source that includes it is rebuilt when it changes (kernels/build.py
+// hashes every header a source includes).
+//
+// Tiles.  A tile is R rows of W bf16 values (a key, query or value row of
+// head dim W), stored as W / (SW / 2) column blocks of R rows x SW bytes,
+// SW = min(128, 2 W), each swizzled as wgmma reads it: 16-byte chunk c of
+// the row at byte offset o moves to chunk c ^ ((o >> 7) & (SW / 16 - 1)).
+// Tiles start on 1024-byte boundaries (the swizzle is a function of the
+// shared address).
+//
+// Fragments.  A warpgroup (four warps) owns a 64-row accumulator: thread
+// (warp w, lane l) holds rows 16 w + l / 4 and that + 8, columns
+// 8 j + 2 (l % 4) + {0, 1}; register 4 j + {0, 1} is the first row,
+// 4 j + {2, 3} the second.  The A operand of the register form (64 x 16
+// bf16, four 32-bit registers) has the same layout, so columns 16 k..
+// 16 k + 15 of an f32 accumulator become register operand k by packing
+// accumulator registers 8 k + 2 i, 8 k + 2 i + 1 into register i.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+// ---- staging ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic-proxy shared writes (cp.async) before the
+// async-proxy reads of later wgmma instructions
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int W>
+struct TileShape {
+  static constexpr int SW = W >= 64 ? 128 : 2 * W;  // bytes a swizzled row
+  static constexpr int COLS = SW / 2;               // values a block row
+  static constexpr int CHUNKS = W / 8;              // 16-byte chunks a row
+};
+
+// byte offset of 16-byte chunk c (of W / 8) of row r in an R-row tile
+template <int W, int R>
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  constexpr int SW = TileShape<W>::SW;
+  constexpr int PER = SW / 16;
+  const uint32_t lin = (c / PER) * R * SW + r * SW + (c % PER) * 16;
+  return lin ^ (((lin >> 7) & (PER - 1)) << 4);
+}
+
+// cp.async of rows row0 .. row0 + R - 1 (row stride `stride` values) into
+// the tile at `dst`; rows at or past `rows` are zero-filled.  Every thread
+// of the block calls it.
+template <int W, int R, int THREADS>
+__device__ __forceinline__ void stage_tile(uint32_t dst,
+                                           const __nv_bfloat16* base,
+                                           long long stride, int row0,
+                                           int rows, int tid) {
+  constexpr int CH = TileShape<W>::CHUNKS;
+  static_assert(R * CH % THREADS == 0, "stage_tile: uneven split");
+#pragma unroll
+  for (int j = 0; j < R * CH / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int r = i / CH;
+    const int c = i % CH;
+    const bool in = row0 + r < rows;
+    const __nv_bfloat16* src = in ? base + (row0 + r) * stride + c * 8 : base;
+    cp_async16(dst + tile_offset<W, R>(r, c), src, in ? 16 : 0);
+  }
+}
+
+// ---- descriptors -----------------------------------------------------
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                             uint32_t sbo, int sw) {
+  const uint64_t layout = sw == 128 ? 1 : sw == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand (A, or B with the reduction dim contiguous): columns
+// 16 k .. 16 k + 15 of an R-row tile of width W
+template <int W, int R>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int k) {
+  constexpr int SW = TileShape<W>::SW;
+  constexpr int COLS = TileShape<W>::COLS;
+  const uint32_t addr = tile + (16 * k / COLS) * R * SW + (16 * k % COLS) * 2;
+  return make_desc(addr, 16, 8 * SW, SW);
+}
+
+// N-major B (the transposed-B form): rows 16 k .. 16 k + 15 of an R-row
+// tile of width W are the reduction dim, its W columns the N dim
+template <int W, int R>
+__device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int k) {
+  constexpr int SW = TileShape<W>::SW;
+  return make_desc(tile + 16 * k * SW, R * SW, 8 * SW, SW);
+}
+
+// ---- warpgroup products ---------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product (call after wgmma_wait_all and before issuing)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64) += A (64 x 16, shared) . B (16 x 64, shared, K-major);
+// scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 32) += A (64 x 16, registers) . B (16 x 32, shared, N-major:
+// the transposed-B form).
+__device__ __forceinline__ void wgmma_rs_m64n32_tb(float (&d)[16],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared, N-major:
+// the transposed-B form).
+__device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// d (64 x 128) += A (64 x 16, registers) . B (16 x 128, shared, N-major:
+// the transposed-B form).
+__device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_rs_m64n32_tb(d, a, desc_b, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_rs_m64n64_tb(d, a, desc_b, scale_d);
+  } else {
+    static_assert(N == 128, "wgmma_rs_tb: N is 32, 64 or 128");
+    wgmma_rs_m64n128_tb(d, a, desc_b, scale_d);
+  }
+}
+
+// ---- split bf16 ------------------------------------------------------
+
+// f32 values (x0, x1) as P bf16 pairs whose sums are x0 and x1 to within
+// about 2^-(9 P) relative: piece i rounds what pieces 0 .. i - 1 left (each
+// subtraction is exact in f32)
+template <int P>
+__device__ __forceinline__ void split_bf16(float x0, float x1,
+                                           uint32_t (&out)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    out[i] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
+  }
+}
+
+}  // namespace sm90

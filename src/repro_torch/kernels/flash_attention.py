@@ -3,14 +3,17 @@
 Port of the TPU kernel ``flash_attention_pallas`` in
 ``repro/kernels/flash_attention.py`` (body ``_kernel``): the prefill
 attention of the dense transformer stack (``ForwardOptions(attn_impl=
-"pallas")``).  :func:`flash_attention` launches the hand-written CUDA C++
-kernel in ``csrc/flash_attention.cu`` (what bounds it and what the design
-does about it is noted there), built by ``kernels/build.py`` at first use
-and called through ``ctypes``.  It takes its plain PyTorch version
-:func:`flash_attention_ref` (the port of ``repro/kernels/ref.py``
+"pallas")``).  :func:`flash_attention` launches one of two hand-written
+CUDA C++ kernels in ``csrc/flash_attention.cu``, chosen by the input type:
+bf16 goes to the tensor cores (``flash_tc_kernel``: wgmma on bf16 tiles
+staged by ``cp.async``, p split into bf16 pieces for P·V), f32 to the
+CUDA cores (``flash_kernel``); what bounds each and what its design does
+about it is noted there.  They are built by ``kernels/build.py`` at first
+use and called through ``ctypes``.  The wrapper takes its plain PyTorch
+version :func:`flash_attention_ref` (the port of ``repro/kernels/ref.py``
 ``flash_attention_ref``) only for tensors on the CPU; a CUDA tensor
-launches the kernel or raises.  ``flash_attention.launches`` counts kernel
-launches (a plain int, reset by the caller).
+launches a kernel or raises.  ``flash_attention.launches`` counts the
+launches of either kernel (a plain int, reset by the caller).
 """
 from __future__ import annotations
 
@@ -92,14 +95,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{v.dtype}")
 
 
+def _check_rows_aligned(*tensors: torch.Tensor) -> None:
+    """The bf16 kernel copies q, k and v rows 16 bytes at a time: each
+    base must be 16-byte aligned and each batch, seq and head stride (of
+    a dimension longer than 1) a multiple of 8 elements."""
+    for name, t in zip("qkv", tensors):
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+            raise ValueError(
+                f"flash_attention: bf16 {name} must have a 16-byte-aligned "
+                f"base and (batch, seq, head) strides that are multiples of "
+                f"8; got base % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride()[:3])}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     logit_softcap: float = 0.0) -> torch.Tensor:
     """Attention of q ``(B, S, H, hd)`` over k, v ``(B, S, KV, hd)``:
     causal (or not), keys within ``window`` of the query when
     ``window > 0``, logits capped at ``logit_softcap`` when it is > 0.
-    f32 or bf16 in, the same type out, f32 arithmetic.  On the card, hd
-    must be 32, 64 or 128 and each tensor's last dimension contiguous."""
+    f32 or bf16 in, the same type out, f32 logits, softmax and sums.  On
+    the card, hd must be 32, 64 or 128 and each tensor's last dimension
+    contiguous; bf16 inputs also need 16-byte-aligned rows
+    (:func:`_check_rows_aligned`)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, window, logit_softcap)
@@ -115,6 +134,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dimension of q, k and v "
                          "must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v)
     if b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: B={b} and H={h} must be "
                          f"<= 65535 (grid limit)")

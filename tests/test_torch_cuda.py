@@ -177,6 +177,14 @@ def _qkv_case(b, s, h, kv, hd, seed, dtype):
     (1, 520, 4, 2, 128, 200, 50.0),  # hd 128 (32-key tiles), gemma2 cap
     (3, 64, 2, 2, 128, 0, 0.0),      # one q tile exactly
     (1, 7, 3, 1, 32, 3, 0.0),        # shorter than a tile
+    # the bf16 kernel's 64-row tile edges: S, hd, window and g around them
+    (1, 1, 4, 4, 64, 0, 0.0),        # one position
+    (2, 15, 4, 2, 32, 1, 0.0),       # window 1: each row sees itself
+    (1, 63, 8, 2, 128, 63, 50.0),    # one short of a tile, g = 4
+    (1, 65, 4, 1, 64, 64, 0.0),      # one past a tile, window = tile
+    (2, 129, 4, 2, 128, 200, 50.0),  # two tiles and one row, window > S
+    (1, 129, 2, 2, 32, 64, 20.0),    # hd 32, window = tile, g = 1
+    (1, 65, 4, 4, 128, 1, 0.0),      # window 1 across a tile edge
 ])
 def test_flash_kernel_matches_plain_version_on_the_card(dtype, b, s, h, kv,
                                                         hd, window, cap):
@@ -206,19 +214,45 @@ def test_flash_kernel_matches_plain_version_on_the_card(dtype, b, s, h, kv,
 
 
 @pytest.mark.cuda
-def test_flash_kernel_reads_strided_inputs_on_the_card():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_inputs_on_the_card(dtype):
     """q, k, v read in place through their strides (slices of one fused
-    qkv tensor, as a model might hand them over)."""
+    qkv tensor, as a model might hand them over; in bf16 their rows stay
+    16-byte aligned, as the tensor-core kernel's copies need), within the
+    gates of ``test_flash_kernel_matches_plain_version_on_the_card``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.default_rng(3)
     qkv = torch.as_tensor(rng.normal(size=(2, 200, 8, 64)).astype(
-        np.float32)).cuda()
+        np.float32)).to(dtype).cuda()
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
-    got = tfa.flash_attention(q, k, v, window=50)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, window=50).float()
+    assert tfa.flash_attention.launches == before + 1
     ref = tfa.flash_attention_ref(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), window=50)
-    assert (got - ref).abs().max() <= 2e-5 * ref.abs().max()
+                                  v.contiguous(), window=50).float()
+    tol = 2e-5 * ref.abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(ref)
+    assert bool(((got - ref).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_refuses_unaligned_rows():
+    """The bf16 kernel copies rows 16 bytes at a time: a head stride that
+    is not a multiple of 8 elements, or a base 8 bytes off, is refused
+    before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    q, k, v = _qkv_case(1, 64, 4, 2, 72, 0, torch.bfloat16)
+    k, v = k[..., :64].contiguous(), v[..., :64].contiguous()
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q[..., 4:68], k, v)     # base 8 bytes off
+    q68 = torch.zeros((1, 64, 4, 68), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q68[..., :64], k, v)    # head stride 68
+    assert tfa.flash_attention.launches == before
 
 
 @pytest.mark.cuda

@@ -2,6 +2,8 @@
 ``flash_attention_ref`` (what ``flash_attention`` runs on CPU tensors)
 against the JAX package's Pallas kernel in interpret mode and its jnp
 oracle, on the same numpy inputs."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,6 +94,99 @@ def test_bf16_matches_reference():
                                 torch.bfloat16, window=64)
     _assert_close(port, pallas, bf16=True)
     _assert_close(port, oracle, bf16=True)
+
+
+def _emulate_tensor_cores(q, k, v, window, logit_softcap, pieces=2,
+                          keys=64):
+    """The bf16 card kernel's arithmetic (``flash_tc_kernel``) in plain
+    PyTorch, for these tests only: f32 logits of the bf16 q·k (the
+    tensor cores multiply bf16 exactly and sum in f32) times 1/√hd, the
+    cap, the −1e30 mask, the online softmax over tiles of ``keys`` keys
+    with p = exp2((x − m)·log2 e) and l summed from the f32 p, and
+    P·V with p split into ``pieces`` bf16 pieces (each the bf16 rounding
+    of what the earlier ones left), each product summed in f32; the
+    output rounded once to bf16.  Causal."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    log2e = 1.4426950408889634
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    kf, vf = (x.repeat_interleave(g, dim=2) for x in (kf, vf))
+    qi = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    for t0 in range(0, s, keys):
+        kt, vt = kf[:, t0:t0 + keys], vf[:, t0:t0 + keys]
+        x = torch.einsum("bshd,bthd->bhst", qf, kt) * (1.0 / math.sqrt(hd))
+        if logit_softcap > 0:
+            x = torch.tanh(x / logit_softcap) * logit_softcap
+        ki = torch.arange(t0, t0 + kt.shape[1])[None, :]
+        ok = (ki <= qi) & (ki > qi - window) if window > 0 else ki <= qi
+        x = x.masked_fill(~ok, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2((x - m_new) * log2e)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        rest = p
+        for _ in range(pieces):
+            piece = rest.to(torch.bfloat16).float()
+            rest = rest - piece
+            acc = acc + torch.einsum("bhst,bthd->bhsd", piece, vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+def _bf16_gate_use(port, other):
+    """max |port − other| / (one bf16 ulp of other + 2e-5·max|other|):
+    the card's bf16 gate holds where this is at most 1."""
+    gate = 2e-5 * np.abs(other).max() + 2.0 ** (np.floor(np.log2(
+        np.maximum(np.abs(other), 2.0 ** -126))) - 7)
+    return float((np.abs(port - other) / gate).max())
+
+
+_TC_CASES = [(1, 512, 4, 2, 64), (1, 300, 4, 4, 128)]
+
+
+def _tc_inputs(b, s, h, kv, hd):
+    """bf16 inputs and the JAX Pallas kernel's (interpret mode) and jnp
+    oracle's outputs as f32 numpy, cap 50 and window 100."""
+    q, k, v = _inputs(b, s, h, kv, hd, s + hd)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    kw = dict(window=100, logit_softcap=50.0)
+    pallas = flash_attention_pallas(jq, jk, jv, bq=128, bkv=128, **kw)
+    oracle = jref.flash_attention_ref(jq, jk, jv, **kw)
+    tq, tk, tv = (torch.as_tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    return ((tq, tk, tv), np.asarray(pallas, np.float32),
+            np.asarray(oracle, np.float32))
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", _TC_CASES)
+def test_tensor_core_arithmetic_matches_reference(b, s, h, kv, hd):
+    """The bf16 card kernel's numerical contract, pinned before the card
+    sees it: bf16 tensor-core logits and p split into two bf16 pieces
+    stay within the card's bf16 gate of the JAX Pallas kernel (interpret
+    mode) and of its oracle.  Measured: at most 0.987 of the gate at
+    (1, 512, 4, 2, 64) and 0.966 at (1, 300, 4, 4, 128), against either
+    (the Pallas kernel and the oracle are 0.948 and 0.966 of it apart):
+    two f32 computations rounded to bf16 each."""
+    (tq, tk, tv), pallas, oracle = _tc_inputs(b, s, h, kv, hd)
+    port = _emulate_tensor_cores(tq, tk, tv, 100, 50.0).float().numpy()
+    assert _bf16_gate_use(port, pallas) <= 1.0
+    assert _bf16_gate_use(port, oracle) <= 1.0
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", _TC_CASES)
+def test_one_bf16_p_exceeds_the_gate(b, s, h, kv, hd):
+    """Why p is split: with one bf16 p (an error of up to 2^-9 of each
+    weight) the same inputs leave the bf16 gate by far (measured: 17.1×
+    and 14.7× the gate, against either)."""
+    (tq, tk, tv), pallas, oracle = _tc_inputs(b, s, h, kv, hd)
+    port = _emulate_tensor_cores(tq, tk, tv, 100, 50.0,
+                                 pieces=1).float().numpy()
+    assert _bf16_gate_use(port, pallas) > 10.0
+    assert _bf16_gate_use(port, oracle) > 10.0
 
 
 def test_cpu_tensors_take_the_plain_version():
