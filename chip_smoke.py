@@ -102,13 +102,15 @@ at the rwkv6-3b prefill shape (2, 4096, 40 heads, hd 64; bf16 from a zero
 and a nonzero state, f32), a ragged (3, 1000, 4, 64) whose r, k, v are
 slices of one fused tensor, and hd 32; no PyTorch call computes the
 recurrence, so it has no library yardstick.  And it holds the MLA
-latent-attention kernel against its plain version at deepseek-v2's
+latent-attention kernels against their plain version at deepseek-v2's
 prefill shape (4, 4096, 128 heads, r 512, dr 64; f32 queries over a bf16
 and an f32 latent), a ragged (3, 1000, 16) whose latent and rope key are
 slices of one (B, S, 576) tensor, the smoke config's ranks (r 32, dr 16)
 and a latent shorter than the queries (T = 600 < S = 1024, all bf16),
 with one SDPA call over [q_lat || q_rope] and [c_kv || k_rope] as the
-library yardstick.
+library yardstick; a bf16 latent runs on the tensor cores
+(``mla_tc_kernel``, bounded at the bf16 tensor-core peak), an f32 one on
+the CUDA cores (``mla_kernel``, at the f32 peak).
 
 Phases 3, 4, 6, 7, 8, 9, 10, 11 and 12 are the main path: every launch
 counter is set to 0 just before each of them and read just after.  The script
@@ -1186,6 +1188,19 @@ def mla_pairs(s, t):
     return m * (m + 1) // 2 + (s - m) * t
 
 
+def mla_modeled_l2_bytes(b, s, t, h, r, dr, rows, keys):
+    """A model, not a measurement: the bf16 latent bytes that
+    ``mla_tc_kernel``'s blocks stage from L2 into shared memory, each
+    block (b, h, ``rows`` query rows) staging every ``keys``-row tile its
+    rows can see (t < T).  ``rows`` and ``keys`` come from the built
+    kernel (``tc_tiles``)."""
+    streamed = 0
+    for q0 in range(0, s, rows):
+        tiles = -(-min(t, q0 + rows) // keys)
+        streamed += min(t, tiles * keys)
+    return b * h * streamed * (r + dr) * 2
+
+
 def sdpa_backend(q, k, v):
     """The first SDPA backend that computes the yardstick on these inputs
     (flash, cuDNN, memory-efficient), or "math"."""
@@ -1261,7 +1276,10 @@ def check_mla(dev):
     path's shapes.  Gates: f32 outputs within MLA_F32_TOL·max|ref|; bf16
     outputs elementwise within one bf16 ulp of the plain version's beyond
     that bound; every output finite; the SDPA yardstick within
-    LIBRARY_REL_TOL of the plain version."""
+    LIBRARY_REL_TOL of the plain version; one launch of the kernel the
+    wrapper's rule names (``kernel_for``: ``mla_tc_kernel`` for a bf16
+    latent, bounded at the bf16 tensor-core peak, ``mla_kernel`` for an
+    f32 one, at the f32 peak)."""
     import torch
 
     from repro_torch.kernels import mla_attention as tm
@@ -1273,8 +1291,13 @@ def check_mla(dev):
                        getattr(torch, kvdt), strided)
         run = lambda: tm.mla_attention(*x)
         plain = lambda: tm.mla_attention_ref(*x)
+        kernel = tm.kernel_for(x[2])
+        before = dict(tm.mla_attention.kernel_launches)
         out, ref = run().float(), plain().float()
         torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in
+                tm.mla_attention.kernel_launches.items()} == {
+            k: int(k == kernel) for k in before}, (label, kernel)
         assert out.shape == (b, s, h, r) and bool(torch.isfinite(out).all())
         err = (out - ref).abs()
         max_err = float(err.max())
@@ -1305,20 +1328,29 @@ def check_mla(dev):
         nbytes = (b * s * h * (2 * r + dr) * q_bytes
                   + b * t * (r + dr) * x[2].element_size())
         flops = 2 * (2 * r + dr) * h * pairs
-        bnd, by = bound_ms(nbytes, flops)
+        # mla_tc_kernel's products run on the bf16 tensor cores
+        peak = (BF16_TC_FLOPS_PER_S if kernel == "mla_tc_kernel"
+                else F32_FLOPS_PER_S)
+        bnd, by = bound_ms(nbytes, flops, peak)
+        ms = cuda_ms(run, reps=3 if main_shape else 10)
         case = {
             "name": "mla_attention", "case": label, "shape": [b, s, h, r, dr],
             "latent_rows": t, "dtype": f"{qdt}/{kvdt}", "strided": strided,
-            "main": main, "max_abs_err": max_err, "tolerance": tol_txt,
-            "elements_beyond_one_ulp": over_ulp,
-            "max_err_over_gate": gate_use,
-            "ms": cuda_ms(run, reps=3 if main_shape else 10),
+            "main": main, "kernel": kernel, "max_abs_err": max_err,
+            "tolerance": tol_txt, "elements_beyond_one_ulp": over_ulp,
+            "max_err_over_gate": gate_use, "ms": ms,
             "plain_ms": cuda_ms(plain, reps=2 if main_shape else 5),
             "library_ms": library_ms, "library": lib_name,
             "library_rel_err": lib_err, "bound_ms": bnd, "bound_by": by,
             "bytes": nbytes, "flops": flops, "unmasked_pairs": pairs,
+            "peak_flops": peak, "achieved_tflops": flops / ms / 1e9,
         }
         log("kernel_case " + json.dumps(case))
+        if kernel == "mla_tc_kernel":
+            log("kernel_model " + json.dumps({
+                "name": "mla_attention", "case": label, "kernel": kernel,
+                "modeled_l2_bytes": mla_modeled_l2_bytes(
+                    b, s, t, h, r, dr, *tm.tc_tiles())}))
         cases.append(case)
         del x
         torch.cuda.empty_cache()
@@ -2134,10 +2166,15 @@ def run_deepseek(dev, mla_ms=None, cfg=None, n=DEEPSEEK_NODES,
     kern_prefill = make_forward_prefill(cfg, ForwardOptions(
         attn_impl="pallas"))
     before = tm.mla_attention.launches
+    tc_before = tm.mla_attention.kernel_launches["mla_tc_kernel"]
     kern = kern_prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
     launches = tm.mla_attention.launches - before
     assert launches == cfg.n_layers, launches   # one per layer, whole fleet
+    # a bf16 model's latent is bf16: the tensor-core kernel
+    tc = tm.mla_attention.kernel_launches["mla_tc_kernel"] - tc_before
+    assert tc == (launches if cfg.activation_dtype == torch.bfloat16
+                  else 0), tc
     plain = make_forward_prefill(cfg, ForwardOptions(attn_impl="chunked"))(
         params, {"tokens": toks})
     assert tm.mla_attention.launches - before == launches
@@ -2145,6 +2182,7 @@ def run_deepseek(dev, mla_ms=None, cfg=None, n=DEEPSEEK_NODES,
         n, SERVE_SLOTS, cfg.vocab_size)
     vs_plain = float((kern - plain).abs().max())
     res.update({"prefill_launches": launches,
+                "prefill_tc_kernel_launches": tc,
                 "kernel_vs_plain_max_abs": vs_plain,
                 "max_abs_logit": float(kern.abs().max())})
     log(f"{cfg.name} prefill: {launches} mla_attention launch(es); kernel "
@@ -2439,6 +2477,8 @@ def main() -> int:
         after."""
         for c in counters.values():
             c.launches = 0
+            for k in getattr(c, "kernel_launches", ()):
+                c.kernel_launches[k] = 0   # mla_attention's count by kernel
         t = time.perf_counter()
         res = fn(*args)
         paths[name] = {k: c.launches for k, c in counters.items()}

@@ -9,14 +9,19 @@ an MLA config).  Keys and values are the same compressed latent
     logits = q_lat · c_kvᵀ + q_rope · k_ropeᵀ     (the caller pre-scales q)
     ctx    = softmax(logits masked to t <= s) · c_kv
 
-:func:`mla_attention` launches the hand-written CUDA C++ kernel in
-``csrc/mla_attention.cu`` (what bounds it and what the design does about
-it is noted there), built by ``kernels/build.py`` at first use and called
-through ``ctypes``.  It takes its plain PyTorch version
-:func:`mla_attention_ref` (the port of ``repro/kernels/ref.py``
+:func:`mla_attention` launches one of two hand-written CUDA C++ kernels
+in ``csrc/mla_attention.cu`` (what bounds each and what its design does
+about it is noted there), built by ``kernels/build.py`` at first use and
+called through ``ctypes``.  A bf16 latent goes to the tensor cores
+(``mla_tc_kernel``: wgmma on bf16 tiles, an f32 q and p each split into
+two bf16 pieces), an f32 one to the CUDA cores (``mla_kernel``).  It takes its plain PyTorch
+version :func:`mla_attention_ref` (the port of ``repro/kernels/ref.py``
 ``mla_attention_ref``) only for tensors on the CPU; a CUDA tensor launches
-the kernel or raises.  ``mla_attention.launches`` counts kernel launches
-(a plain int, reset by the caller).
+its kernel or raises, and never falls back to the other kernel.
+``mla_attention.launches`` counts the launches of either kernel (a plain
+int); ``mla_attention.kernel_launches`` counts them by kernel name.  Both
+are bumped at the one launch site, and a caller that resets one resets
+the other.
 
 Mask: latent row t is seen by query s where ``t <= s`` and ``t < T``, as
 ``mla_attention_ref`` has it.  The Pallas kernel masks ``t < S`` over its
@@ -31,9 +36,9 @@ import torch
 
 from repro_torch.models.layers import NEG_INF
 
-__all__ = ["mla_attention", "mla_attention_ref", "RANKS"]
+__all__ = ["mla_attention", "mla_attention_ref", "kernel_for", "RANKS"]
 
-RANKS = ((512, 64), (32, 16), (32, 8))   # the kernel's (r, dr) instantiations
+RANKS = ((512, 64), (32, 16), (32, 8))   # the kernels' (r, dr) instantiations
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib_cache = []
 
@@ -46,8 +51,14 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mla_attention_launch.argtypes = [
             p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i,
-            i, i, i, p]
+            i, p]
         lib.mla_attention_launch.restype = ctypes.c_int
+        lib.mla_tc_launch.argtypes = [
+            p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i,
+            i, i, p]
+        lib.mla_tc_launch.restype = ctypes.c_int
+        lib.mla_tc_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.mla_tc_tiles.restype = None
         _lib_cache.append(lib)
     return _lib_cache[0]
 
@@ -106,15 +117,32 @@ def _check(q_lat, q_rope, c_kv, k_rope) -> None:
             f"{k_rope.dtype}")
 
 
+def tc_tiles() -> tuple[int, int]:
+    """``mla_tc_kernel``'s tiling, read from the built library: the query
+    rows a block owns and the latent rows of a staged tile."""
+    rows, keys = ctypes.c_int(), ctypes.c_int()
+    _lib().mla_tc_tiles(ctypes.byref(rows), ctypes.byref(keys))
+    return rows.value, keys.value
+
+
+def kernel_for(c_kv: torch.Tensor) -> str:
+    """The kernel a card call launches: ``"mla_tc_kernel"`` for a bf16
+    latent, ``"mla_kernel"`` for an f32 one."""
+    return "mla_tc_kernel" if c_kv.dtype == torch.bfloat16 else "mla_kernel"
+
+
 def mla_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                   c_kv: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
     """Latent context ``(B, S, H, r)`` in q_lat's type, causal, of q_lat
     ``(B, S, H, r)`` and q_rope ``(B, S, H, dr)`` (pre-scaled by the
-    caller) over c_kv ``(B, T, r)`` and k_rope ``(B, T, dr)``.  f32
-    arithmetic.  On the card: (r, dr) one of :data:`RANKS`, c_kv and
-    k_rope f32 or bf16, q f32 or their type, each tensor's last dimension
-    contiguous (the rest is read through the strides), every latent row on
-    a 16-byte boundary."""
+    caller) over c_kv ``(B, T, r)`` and k_rope ``(B, T, dr)``.  On the
+    card: (r, dr) one of :data:`RANKS`, c_kv and k_rope f32 or bf16, q
+    f32 or their type, each tensor's last dimension contiguous (the rest
+    is read through the strides), every latent row on a 16-byte boundary.
+    The rule (:func:`kernel_for`): a bf16 latent launches
+    ``mla_tc_kernel`` (bf16 tensor-core products with f32 sums, an f32 q
+    and p each as two bf16 pieces), an f32 one ``mla_kernel`` (f32
+    arithmetic)."""
     _check(q_lat, q_rope, c_kv, k_rope)
     if q_lat.device.type == "cpu":
         return mla_attention_ref(q_lat, q_rope, c_kv, k_rope)
@@ -144,18 +172,24 @@ def mla_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     strides = (ctypes.c_longlong * 13)(
         *(st for x in (q_lat, q_rope, out) for st in x.stride()[:3]),
         *(st for x in (c_kv, k_rope) for st in x.stride()[:2]))
+    kernel = kernel_for(c_kv)
+    ptrs = (q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+            k_rope.data_ptr(), out.data_ptr(), strides)
     with torch.cuda.device(q_lat.device):
         stream = torch.cuda.current_stream(q_lat.device).cuda_stream
-        rc = _lib().mla_attention_launch(
-            q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
-            k_rope.data_ptr(), out.data_ptr(), strides,
-            _DTYPE_CODES[q_lat.dtype], _DTYPE_CODES[c_kv.dtype], b, s, t, h,
-            r, dr, stream)
+        if kernel == "mla_tc_kernel":
+            rc = _lib().mla_tc_launch(*ptrs, _DTYPE_CODES[q_lat.dtype], b, s,
+                                      t, h, r, dr, stream)
+        else:
+            rc = _lib().mla_attention_launch(*ptrs, b, s, t, h, r, dr,
+                                             stream)
     if rc != 0:
-        raise RuntimeError(f"mla_attention kernel launch failed: "
+        raise RuntimeError(f"mla_attention: {kernel} launch failed: "
                            f"cudaError {rc}")
     mla_attention.launches += 1
+    mla_attention.kernel_launches[kernel] += 1
     return out
 
 
 mla_attention.launches = 0
+mla_attention.kernel_launches = {"mla_tc_kernel": 0, "mla_kernel": 0}

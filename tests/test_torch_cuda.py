@@ -438,26 +438,38 @@ def _mla_gate(got, ref):
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("b,s,h,r,dr", [
-    (1, 200, 4, 512, 64),    # deepseek-v2's ranks, ragged S
-    (2, 64, 2, 512, 64),     # whole tiles
-    (2, 256, 4, 32, 16),     # smoke() ranks
-    (1, 100, 3, 32, 8),      # tests/test_serving.py's MLA ranks, ragged
-    (3, 5, 2, 32, 16),       # shorter than a tile
+@pytest.mark.parametrize("b,s,t,h,r,dr", [
+    (1, 200, 200, 4, 512, 64),    # deepseek-v2's ranks, ragged S
+    (2, 64, 64, 2, 512, 64),      # whole tiles
+    (2, 256, 100, 2, 512, 64),    # T < S, T not a multiple of 32
+    (1, 100, 300, 2, 512, 64),    # T > S
+    (1, 1024, 1024, 8, 512, 64),  # 16 query tiles of 64, 32 latent tiles
+    (2, 256, 256, 4, 32, 16),     # smoke() ranks
+    (1, 100, 100, 3, 32, 8),      # tests/test_serving.py's MLA ranks, ragged
+    (3, 5, 5, 2, 32, 16),         # shorter than a tile
 ])
 def test_mla_kernel_matches_plain_version_on_the_card(q_dtype, kv_dtype, b,
-                                                      s, h, r, dr):
+                                                      s, t, h, r, dr):
     """The latent-attention kernel against ``mla_attention_ref`` on the
     same card inputs, every (r, dr) and type pair it is instantiated for:
     f32 within MLA_REL_TOL·max|ref| (another summation order), bf16 out
-    within one bf16 ulp beyond that; all finite, exactly one launch."""
+    within one bf16 ulp beyond that; all finite, exactly one launch, of
+    the kernel the rule names (``kernel_for``: ``mla_tc_kernel`` for a
+    bf16 latent, ``mla_kernel`` for an f32 one) and none of the other."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    x = _mla_case(b, s, h, r, dr, s + r, q_dtype, kv_dtype)
-    before = tmla.mla_attention.launches
+    x = _mla_case(b, s, h, r, dr, s + r, q_dtype, kv_dtype, t=t)
+    kernel = tmla.kernel_for(x[2])
+    assert kernel == ("mla_tc_kernel" if kv_dtype == torch.bfloat16
+                      else "mla_kernel")
+    before = dict(tmla.mla_attention.kernel_launches)
+    total = tmla.mla_attention.launches
     got = tmla.mla_attention(*x)
     torch.cuda.synchronize()
-    assert tmla.mla_attention.launches == before + 1
+    after = tmla.mla_attention.kernel_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kernel) for k in after}
+    assert tmla.mla_attention.launches == total + 1
     ref = tmla.mla_attention_ref(*x)
     assert got.dtype == q_dtype and got.shape == (b, s, h, r)
     assert bool(torch.isfinite(got).all())
@@ -517,6 +529,49 @@ def test_mla_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="16-byte"):
         tmla.mla_attention(ql, qr, odd[..., 1:33], odd[..., 33:])
     assert tmla.mla_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_mla_tc_kernel_reads_strided_inputs_on_the_card(q_dtype):
+    """c_kv and k_rope sliced from one (B, T, 576) bf16 tensor and q_lat,
+    q_rope from one (B, S, H, 576), T != S: read in place by the
+    tensor-core kernel, bit for bit the result of contiguous copies, and
+    within the gate of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor((rng.normal(size=(2, 190, 4, 576)) * 0.08).astype(
+        np.float32)).to(q_dtype).cuda()
+    kv = torch.as_tensor(rng.normal(size=(2, 170, 576)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    x = (q[..., :512], q[..., 512:], kv[..., :512], kv[..., 512:])
+    tc = tmla.mla_attention.kernel_launches["mla_tc_kernel"]
+    got = tmla.mla_attention(*x)
+    assert torch.equal(got, tmla.mla_attention(*(a.contiguous() for a in x)))
+    assert tmla.mla_attention.kernel_launches["mla_tc_kernel"] == tc + 2
+    assert _mla_gate(got, tmla.mla_attention_ref(*x))
+
+
+@pytest.mark.cuda
+def test_mla_tc_kernel_refuses_before_any_launch_on_the_card():
+    """A bf16 latent whose rows are off 16-byte boundaries, ranks without
+    an instantiation and a q type the kernel has no case for are refused
+    before any launch of either kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    before = dict(tmla.mla_attention.kernel_launches)
+    ql, qr, ck, kr = _mla_case(1, 64, 2, 512, 64, 1, torch.float32,
+                               torch.bfloat16)
+    odd = torch.cat([ck[..., :1], ck, kr], -1)   # rows of 577 bf16 values
+    with pytest.raises(ValueError, match="16-byte"):
+        tmla.mla_attention(ql, qr, odd[..., 1:513], odd[..., 513:])
+    with pytest.raises(ValueError, match="instantiation"):
+        tmla.mla_attention(*_mla_case(1, 64, 2, 256, 64, 2, torch.float32,
+                                      torch.bfloat16))
+    with pytest.raises(TypeError, match="dtype"):
+        tmla.mla_attention(ql.double(), qr.double(), ck, kr)
+    assert tmla.mla_attention.kernel_launches == before
 
 
 @pytest.mark.cuda

@@ -169,6 +169,141 @@ def test_bf16_latent_and_refusals():
 
 
 # ----------------------------------------------------------------------
+# the tensor-core kernel's arithmetic, emulated
+# ----------------------------------------------------------------------
+def _split(x, pieces):
+    """x as ``pieces`` bf16 pieces (f32 tensors), each the bf16 rounding
+    of what the earlier ones left (``sm90::split_bf16``)."""
+    out = []
+    for _ in range(pieces):
+        piece = x.to(torch.bfloat16).float()
+        x = x - piece
+        out.append(piece)
+    return out
+
+
+def _emulate_tensor_cores(q_lat, q_rope, c_kv, k_rope, q_pieces=2,
+                          p_pieces=2, keys=32):
+    """The card's ``mla_tc_kernel`` arithmetic in plain PyTorch, for these
+    tests only: f32 logits of [q_lat ‖ q_rope], split into ``q_pieces``
+    bf16 pieces, against the bf16 [c_kv ‖ k_rope] (the tensor cores
+    multiply bf16 exactly and sum in f32), the −1e30 causal mask, the
+    online softmax over tiles of ``keys`` latent rows with
+    p = exp2((x − m)·log2 e) and l summed from the f32 p, and p·c_kv with
+    p split into ``p_pieces`` bf16 pieces, each product summed in f32;
+    the output rounded once to q's type.  (The card visits only the tiles
+    a block's rows can see; a later tile adds p = 0 here.)"""
+    b, s, h, r = q_lat.shape
+    t = c_kv.shape[1]
+    log2e = 1.4426950408889634
+    qs = _split(torch.cat([q_lat, q_rope], -1).float(), q_pieces)
+    kv = torch.cat([c_kv, k_rope], -1).float()
+    ck = c_kv.float()
+    qi = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, r))
+    for t0 in range(0, t, keys):
+        x = sum(torch.einsum("bshw,btw->bhst", q, kv[:, t0:t0 + keys])
+                for q in qs)
+        ki = torch.arange(t0, min(t, t0 + keys))[None, :]
+        x = x.masked_fill(~(ki <= qi), -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2((x - m_new) * log2e)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        for piece in _split(p, p_pieces):
+            acc = acc + torch.einsum("bhst,btr->bhsr", piece,
+                                     ck[:, t0:t0 + keys])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).to(q_lat.dtype)
+
+
+_TC_CASES = [(1, 256, 2), (2, 96, 3)]
+_TC_EMULATED = {}
+
+
+def _tc_case(b, s, h):
+    """``chip_smoke.py``'s MLA inputs at r 512, dr 64: q ~ N(0, 1)·2/√576
+    in f32, the latent ~ N(0, 1) in bf16 (numpy, seeded); the JAX Pallas
+    kernel's (interpret mode) and jnp reference's outputs on the same
+    values, f32 numpy."""
+    if (b, s, h) not in _TC_EMULATED:
+        rng = np.random.default_rng(s + h)
+        qs = 2.0 / np.sqrt(576)
+        ql, qr = (torch.as_tensor((rng.normal(size=(b, s, h, w)) * qs).astype(
+            np.float32)) for w in (512, 64))
+        ck, kr = (torch.as_tensor(rng.normal(size=(b, s, w)).astype(
+            np.float32)).to(torch.bfloat16) for w in (512, 64))
+        jx = [jnp.asarray(a.float().numpy()) for a in (ql, qr, ck, kr)]
+        jx[2:] = [a.astype(jnp.bfloat16) for a in jx[2:]]
+        pallas = np.asarray(mla_attention_pallas(*jx, bq=128, bkv=128))
+        oracle = np.asarray(jref(*jx))
+        _TC_EMULATED[(b, s, h)] = ((ql, qr, ck, kr), pallas, oracle)
+    return _TC_EMULATED[(b, s, h)]
+
+
+def _f32_gate_use(port, other):
+    """max |port − other| / (2e-5·max|other|), the card's f32 gate
+    (``chip_smoke.py`` MLA_F32_TOL): it holds where this is at most 1."""
+    return float(np.abs(port - other).max() / (2e-5 * np.abs(other).max()))
+
+
+@pytest.mark.parametrize("b,s,h", _TC_CASES)
+def test_tensor_core_arithmetic_matches_reference(b, s, h):
+    """The card's tensor-core numerical contract, pinned before the card
+    sees it: q and p each in two bf16 pieces, 32-row latent tiles, exp2,
+    l from the f32 p, stay within the card's f32 gate of the JAX Pallas
+    kernel (interpret mode) and of its jnp reference, at deepseek-v2's
+    ranks.  Measured: 0.280 of the gate at (1, 256, 2) and 0.227 at
+    (2, 96, 3), against either (the Pallas kernel and the reference are
+    0.045 and 0.025 of it apart; three pieces of q would give 0.10)."""
+    x, pallas, oracle = _tc_case(b, s, h)
+    port = _emulate_tensor_cores(*x).numpy()
+    assert port.shape == (b, s, h, 512)
+    assert _f32_gate_use(port, pallas) <= 1.0
+    assert _f32_gate_use(port, oracle) <= 1.0
+
+
+@pytest.mark.parametrize("q_pieces,p_pieces", [(1, 2), (2, 1)])
+@pytest.mark.parametrize("b,s,h", _TC_CASES)
+def test_one_bf16_piece_of_q_or_p_exceeds_the_gate(b, s, h, q_pieces,
+                                                   p_pieces):
+    """Why both are split: one bf16 piece of q (logits off by up to 2^-9
+    of each |q_i·k_i|) or of p (each weight off by up to 2^-9) leaves the
+    f32 gate by far.  Measured against either reference: one piece of q
+    152× and 185× the gate, one of p 43.3× and 51.0×, at (1, 256, 2) and
+    (2, 96, 3)."""
+    x, pallas, oracle = _tc_case(b, s, h)
+    port = _emulate_tensor_cores(*x, q_pieces=q_pieces,
+                                 p_pieces=p_pieces).numpy()
+    assert _f32_gate_use(port, pallas) > 10.0
+    assert _f32_gate_use(port, oracle) > 10.0
+
+
+@pytest.mark.parametrize("kv_dtype,r,dr,kernel", [
+    (torch.bfloat16, 512, 64, "mla_tc_kernel"),
+    (torch.bfloat16, 32, 8, "mla_tc_kernel"),
+    (torch.float32, 512, 64, "mla_kernel"),
+    (torch.float32, 32, 16, "mla_kernel"),
+])
+def test_kernel_rule_and_cpu_calls_launch_nothing(kv_dtype, r, dr, kernel):
+    """The wrapper's rule (``kernel_for``): a bf16 latent goes to
+    ``mla_tc_kernel`` on the card, an f32 one to ``mla_kernel``.  CPU
+    tensors take the plain version whatever the rule says and count no
+    launch of either kernel."""
+    x = [torch.as_tensor(a) for a in _attn_inputs(1, 20, 2, r, dr)]
+    x[2:] = [a.to(kv_dtype) for a in x[2:]]
+    assert tk.kernel_for(x[2]) == kernel
+    before = dict(tk.mla_attention.kernel_launches)
+    got = tk.mla_attention(*x)
+    assert torch.equal(got, tk.mla_attention_ref(*x))
+    assert tk.mla_attention.kernel_launches == before
+
+
+# ----------------------------------------------------------------------
 # the MLA layer
 # ----------------------------------------------------------------------
 def _layer_params(q_lora):
