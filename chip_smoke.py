@@ -17,7 +17,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    abs err 0; the legacy K-way MAC ``gossip_mix`` at VGG-16's largest leaf
    (K = R = 33, N = 2,359,296; f32 and bf16), the FFN's first leaf, a
    ragged (5, 513, 129) with R = 1 and a one-value leaf, to max abs err 0
-   (bf16: one ulp), ``torch.matmul`` its yardstick;
+   (bf16: one ulp), ``torch.matmul`` its yardstick.  Beside the dense
+   mixes' library call, ``copy_ms`` times one device-to-device copy of
+   the kernel's input bytes (the rate a streaming kernel can reach), and
+   ``kernel_model`` lines give the arithmetic's modeled issue floor (f32
+   lanes at the SM clock's maximum; not a measurement);
 3. Algorithm 1 at the paper's scale with the FFN (the quickstart scenario
    at ``FULL`` scale: BA(33, p=2), OOD on the hub, R = 40): ``unweighted``
    and ``degree`` through the fused-plane kernel, one launch per mix, and
@@ -196,6 +200,36 @@ def bound_ms(nbytes, flops, peak_flops=F32_FLOPS_PER_S):
                                    else "operations")
 
 
+def copy_ms(x):
+    """Device time of one device-to-device ``copy_`` of ``x``'s bytes (its
+    rows with their padding, as one flat tensor): the rate a streaming
+    kernel that reads ``x`` once and writes as many bytes can reach on
+    this card, the yardstick beside ``library_ms``."""
+    flat = x.as_strided((x.shape[0] * x.stride(0),), (1,))
+    dst = flat.new_empty(flat.shape)
+    ms = cuda_ms(lambda: dst.copy_(flat))
+    del dst
+    return ms
+
+
+def issue_floor(name, case, lane_ops, ops):
+    """A ``kernel_model`` line: ``lane_ops`` f32 lane instructions
+    (``ops`` names them) over the card's CUDA cores, 128 lanes an SM at the
+    SM clock's maximum (``nvidia-smi clocks.max.sm``).  A model of the
+    arithmetic's issue time, not a measurement."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("kernel_model " + json.dumps({
+        "name": name, "case": case, "modeled": True, "ops": ops,
+        "lane_instructions": lane_ops, "sms": sms, "sm_clock_mhz": mhz,
+        "issue_floor_ms": lane_ops / (sms * 128 * mhz * 1e6) * 1e3}))
+
+
 def bf16_ulp(x):
     import torch
 
@@ -237,6 +271,7 @@ def check_kernels(dev):
             c_dt = c.to(dtype)
             # the library yardstick for both kernels: one dense product
             lib = lambda: torch.matmul(c_dt, plane)
+            plane_copy_ms = copy_ms(plane)
             for name in ("gossip_plane", "gossip_edges"):
                 if name == "gossip_plane":
                     run = lambda: gm.gossip_plane(plane, c)
@@ -271,11 +306,14 @@ def check_kernels(dev):
                     "main": shape_name == "vgg16" and dtype == torch.float32,
                     "max_abs_err": max_err, "tolerance": tol_txt,
                     "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=5),
-                    "library_ms": cuda_ms(lib),
+                    "library_ms": cuda_ms(lib), "copy_ms": plane_copy_ms,
                     "bound_ms": bnd, "bound_by": by,
                     "bytes": nbytes, "flops": flops,
                 }
                 log("kernel_case " + json.dumps(case))
+                if name == "gossip_plane":
+                    issue_floor(name, f"{shape_name} {case['dtype']}",
+                                N_NODES * N_NODES * p, "fma")
                 cases.append(case)
             cases += check_robust_kernel(gm, plane, w, idx, shape_name)
             del plane
@@ -356,10 +394,14 @@ def check_gossip_mix(dev):
             "max_abs_err": max_err, "tolerance": tol_txt,
             "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=5),
             "library_ms": cuda_ms(lib), "library": "torch.matmul",
+            "copy_ms": copy_ms(blocks),
             "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
             "flops": flops,
         }
         log("kernel_case " + json.dumps(case))
+        # the unfused multiply and add: two lane instructions a MAC
+        issue_floor("gossip_mix", f"{label} {dt}", 2 * rows * k * m * n,
+                    "fmul+fadd")
         cases.append(case)
         del blocks
         torch.cuda.empty_cache()

@@ -22,10 +22,12 @@ Port of the three TPU kernels on the trainer's path in
 They are hand-written CUDA C++ for Hopper in ``csrc/gossip_mix.cu`` and
 ``csrc/gossip_robust.cu`` (what bounds them and what the design does
 about it is noted there), built by ``kernels/build.py`` at first use and
-called through ``ctypes``.  Each wrapper takes its plain PyTorch version
-(``gossip_plane_ref``, ``gossip_edges_ref``, ``gossip_robust_ref``,
-``gossip_mix_ref``) only for tensors on the CPU; a CUDA tensor launches the
-kernel or raises.
+called through ``ctypes``.  :func:`gossip_plane` and the 16-byte path of
+:func:`gossip_mix` run one streaming kernel, ``out (R, L) = W (R, K) · X
+(K, L)``, whose launch :func:`mix_plan` lays out.  Each wrapper takes its
+plain PyTorch version (``gossip_plane_ref``, ``gossip_edges_ref``,
+``gossip_robust_ref``, ``gossip_mix_ref``) only for tensors on the CPU; a
+CUDA tensor launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches (plain ints, reset by the
 caller).
 
@@ -37,6 +39,8 @@ of one mix for every backend.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -59,6 +63,8 @@ __all__ = [
     "gossip_mix_ref",
     "mix_dense_rows",
     "mix_modeled_hbm_bytes",
+    "MixPlan",
+    "mix_plan",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,13 +80,15 @@ def _lib(name: str = "gossip_mix") -> ctypes.CDLL:
         lib = load(name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "gossip_mix":
-            lib.gossip_plane_launch.argtypes = [p, p, p, i, ll, ll, i, i, p]
+            plan = ctypes.POINTER(ll)
+            lib.gossip_plane_launch.argtypes = [p, p, p, i, ll, ll, i, i, p,
+                                                plan]
             lib.gossip_plane_launch.restype = ctypes.c_int
             lib.gossip_edges_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
                                                 i, p]
             lib.gossip_edges_launch.restype = ctypes.c_int
             lib.gossip_mix_launch.argtypes = [p, p, p, i, i, ll, ll, ll, ll,
-                                              i, p]
+                                              i, p, plan]
             lib.gossip_mix_launch.restype = ctypes.c_int
         else:
             lib.gossip_robust_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
@@ -132,6 +140,176 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 # ----------------------------------------------------------------------
+# the streaming kernel's launch plan (csrc/gossip_mix.cu stream_kernel)
+# ----------------------------------------------------------------------
+VEC_BYTES = 16           # one copy, one load: a thread's 16-byte vector
+ROWS_PER_THREAD = 11     # output rows a thread (kRpt): n = 33 is 3 groups
+GROUP_THREADS = 64       # threads a row group, 1 or 2 vectors each
+MAX_GROUPS = 6           # row groups a block (kMaxGroups)
+MAX_BLOCK_ROWS = 64      # output rows a block; more rows take row blocks
+MAX_CHUNK = 48           # source rows a ring stage
+MAX_STAGE_ROW_BYTES = 64 * 1024   # a stage's source-row bytes
+MAX_STAGES = 8           # ring stages (kMaxStages)
+W_RESIDENT_BYTES = 64 * 1024   # C's bytes a block keeps for its whole life
+# Hopper: shared bytes an SM and a block, the runtime's share of each block
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233_472, 232_448, 1024
+REGS_PER_SM, THREADS_PER_SM, BLOCKS_PER_SM = 65_536, 2048, 32
+# registers a thread at most: __launch_bounds__(384, 1) lets ptxas use
+# 65,536 / 384 rounded down to 8
+MAX_REGS = 168
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class MixPlan:
+    """How ``stream_kernel`` runs ``out (R, L) = W (R, K) · X (K, L)``.
+
+    Block ``b`` owns output rows ``(b % row_blocks) · rows_per_block`` on
+    (``rows_per_block`` of them, fewer in the last row block) and walks
+    the column tiles ``b // row_blocks``, ``+ lanes``, … (``lanes = grid /
+    row_blocks``), ``tile_cols`` columns (``vecs`` KB a row) each.  Its
+    ``groups · 64`` threads hold ``ROWS_PER_THREAD`` rows each of
+    ``vecs`` 16-byte column vectors.  Source rows come in ``chunks`` of
+    ``chunk`` (the last may be shorter), one ring stage each, ``stages``
+    stages.  C's rows of the block stay in shared memory when
+    ``w_resident``, else each stage carries its chunk's slice."""
+
+    itemsize: int
+    rows_per_block: int
+    row_blocks: int
+    groups: int
+    chunk: int
+    chunks: int
+    stages: int
+    w_resident: bool
+    grid: int
+    smem_bytes: int
+    vecs: int
+    blocks_per_sm: int
+
+    @property
+    def row_bytes(self) -> int:
+        """A tile's bytes of one source row."""
+        return self.vecs * GROUP_THREADS * VEC_BYTES
+
+    @property
+    def tile_cols(self) -> int:
+        return self.row_bytes // self.itemsize
+
+    @property
+    def threads(self) -> int:
+        return self.groups * GROUP_THREADS
+
+    @property
+    def slots(self) -> int:
+        """Output rows a block computes; those past its rows are dropped."""
+        return self.groups * ROWS_PER_THREAD
+
+    @property
+    def x_stage_bytes(self) -> int:
+        return self.chunk * self.row_bytes
+
+    @property
+    def w_stage_bytes(self) -> int:
+        return 0 if self.w_resident else self.slots * _round4(self.chunk) * 4
+
+    def w_bytes(self, n_src: int) -> int:
+        return self.slots * _round4(n_src) * 4 if self.w_resident else 0
+
+    def c_args(self):
+        """The plan as the C entries take it (``StreamPlan``'s order)."""
+        return (ctypes.c_longlong * 10)(
+            self.rows_per_block, self.row_blocks, self.groups, self.chunk,
+            self.chunks, self.stages, int(self.w_resident), self.grid,
+            self.smem_bytes, self.vecs)
+
+
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _blocks_per_sm(threads: int, smem: int) -> int:
+    warp_regs = MAX_REGS * 32
+    return min(BLOCKS_PER_SM, THREADS_PER_SM // threads,
+               REGS_PER_SM // (threads // 32 * warp_regs),
+               SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+def mix_plan(n_rows: int, n_src: int, p: int, dtype: torch.dtype,
+             sms: int) -> MixPlan:
+    """The launch plan of ``stream_kernel`` for ``n_rows`` output rows
+    (R), ``n_src`` source rows (K) and ``p`` columns (L) of ``dtype``
+    (f32 or bf16) on a card with ``sms`` SMs.
+
+    Output rows: one row block for R ≤ 64, else balanced blocks of ≤ 64;
+    ⌈rows / 11⌉ row groups (n = 33: 3 groups of 11, no idle warp).  A
+    thread takes one 16-byte column vector, or two in f32 when R > 64,
+    where the mix is bound by operations and a thread's 8 columns halve
+    the shared-memory reads a multiply-add.  Source rows: one chunk for
+    K ≤ 48 and ≤ 64 KB a stage, else balanced chunks of a multiple of 4.
+    C stays resident when the block's rows of it fit 64 KB.  Stages: of
+    the counts in 3…8, those that let the most blocks share an SM (their
+    warps hide each other's arithmetic and barriers), and of those the one
+    that keeps the most source bytes in flight on it (blocks × ``stages −
+    1`` stages), the fewest on a tie.  Grid: the SM count times those
+    blocks, a multiple of the row blocks, and no more lanes than column
+    tiles."""
+    if n_rows < 1 or n_src < 1 or p < 0:
+        raise ValueError(f"mix_plan needs R, K >= 1 and L >= 0, got "
+                         f"{n_rows}, {n_src}, {p}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"mix_plan takes float32 or bfloat16, got {dtype}")
+    itemsize = 4 if dtype == torch.float32 else 2
+    row_blocks = _cdiv(n_rows, MAX_BLOCK_ROWS)
+    rows_per_block = _cdiv(n_rows, row_blocks)
+    groups = _cdiv(rows_per_block, ROWS_PER_THREAD)
+    vecs = 2 if itemsize == 4 and n_rows > MAX_BLOCK_ROWS else 1
+    row_bytes = vecs * GROUP_THREADS * VEC_BYTES
+    chunks = _cdiv(n_src, min(MAX_CHUNK, MAX_STAGE_ROW_BYTES // row_bytes))
+    chunk = n_src if chunks == 1 else _round4(_cdiv(n_src, chunks))
+    chunks = _cdiv(n_src, chunk)
+    slots = groups * ROWS_PER_THREAD
+    w_resident = slots * _round4(n_src) * 4 <= W_RESIDENT_BYTES
+    w_bytes = slots * _round4(n_src) * 4 if w_resident else 0
+    stage = chunk * row_bytes + (0 if w_resident
+                                 else slots * _round4(chunk) * 4)
+    threads = groups * GROUP_THREADS
+    best = None
+    for stages in range(3, MAX_STAGES + 1):
+        smem = w_bytes + stages * stage
+        if smem > SMEM_PER_BLOCK:
+            break
+        bps = _blocks_per_sm(threads, smem)
+        key = (bps, bps * (stages - 1) * stage)
+        if bps and (best is None or key > best[0]):
+            best = (key, stages, smem)
+    if best is None:
+        raise ValueError(f"mix_plan: no ring fits shared memory for R="
+                         f"{n_rows}, K={n_src}")
+    (bps, _), stages, smem = best
+    n_tiles = _cdiv(p, row_bytes // itemsize)
+    lanes = max(1, min(n_tiles, sms * bps // row_blocks))
+    return MixPlan(itemsize, rows_per_block, row_blocks, groups, chunk,
+                   chunks, stages, w_resident, lanes * row_blocks, smem,
+                   vecs, bps)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_args(n_rows: int, n_src: int, p: int, t: torch.Tensor):
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return mix_plan(n_rows, n_src, p, t.dtype, _sm_count(index)).c_args()
+
+
+# ----------------------------------------------------------------------
 # fused flat-plane mix
 # ----------------------------------------------------------------------
 def gossip_plane_ref(plane: torch.Tensor, coeffs: torch.Tensor,
@@ -175,7 +353,8 @@ def gossip_plane(plane: torch.Tensor, coeffs: torch.Tensor,
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = _lib().gossip_plane_launch(
             coeffs.data_ptr(), plane.data_ptr(), out.data_ptr(), n, p, ld,
-            _DTYPE_CODES[plane.dtype], lowp, stream)
+            _DTYPE_CODES[plane.dtype], lowp, stream,
+            _plan_args(n, n, p, plane))
     _raise_on(rc, "gossip_plane")
     gossip_plane.launches += 1
     return out
@@ -422,7 +601,8 @@ def gossip_mix(blocks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
             rc = _lib().gossip_mix_launch(
                 w.data_ptr(), blocks.data_ptr(), out.data_ptr(), r, k, m, n,
                 blocks.stride(0), blocks.stride(1),
-                _DTYPE_CODES[blocks.dtype], stream)
+                _DTYPE_CODES[blocks.dtype], stream,
+                _plan_args(r, k, m * n, blocks))
         _raise_on(rc, "gossip_mix")
         gossip_mix.launches += 1
     elif out.numel():

@@ -45,10 +45,16 @@ def test_kernels_match_plain_versions_on_the_card(dtype, aligned, f32):
     the card: f32 within 1e-5·max|ref| (another summation order), bf16
     within one bf16 ulp, the bf16-accumulation ablation and every edges
     case bit for bit (same arithmetic, op for op).  A plane whose rows are
-    not 16-byte aligned is refused before any launch."""
+    not 16-byte aligned is refused before any launch.  The plane sizes
+    take every shape of the streaming kernel's plan: P under one tile,
+    P off the vector width, two row blocks and two source chunks (n = 65,
+    70), one full row block (64), sixteen with 22 chunks and the
+    coefficients staged a slice a stage (1024), and more column tiles
+    than resident blocks, so the persistent walk wraps (33, 200,003)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    for n, p in ((5, 37), (33, 1001), (70, 515)):
+    for n, p in ((5, 37), (33, 1001), (70, 515), (64, 515), (65, 1001),
+                 (1024, 301), (33, 200_003)):
         plane, c, idx, msk = _inputs(n, p, n)
         ct = torch.as_tensor(c).cuda()
         it, mt = torch.as_tensor(idx).cuda(), torch.as_tensor(msk).cuda()
@@ -79,6 +85,36 @@ def test_kernels_match_plain_versions_on_the_card(dtype, aligned, f32):
             assert bool(((got_p - ref_p).abs() <= _bf16_ulp(ref_p)).all())
         else:
             assert torch.equal(got_p, ref_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plane_kernel_stays_inside_a_one_row_plane_on_the_card(dtype):
+    """A contiguous (1, 37) plane passes the wrappers' checks (one row, a
+    16-byte aligned base) though its row holds 37 values, not a 16-byte
+    multiple.  Its last vector is copied with the bytes left in the row
+    and zero-filled past them (``tests/test_torch_gossip_plan.py`` pins
+    the highest column read at P - 1), so in a buffer whose next values
+    are NaN the mix is finite, within its gate of the plain version, and
+    the buffer past the row is unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    buf = torch.full((64,), float("nan"), dtype=dtype, device="cuda")
+    plane = buf[:37].view(1, 37)
+    plane.copy_(torch.as_tensor(np.random.default_rng(0).normal(
+        size=(1, 37)).astype(np.float32)))
+    c = torch.full((1, 1), 0.75, device="cuda")
+    before = tk.gossip_plane.launches
+    got = tk.gossip_plane(plane, c).float()
+    torch.cuda.synchronize()
+    assert tk.gossip_plane.launches == before + 1
+    ref = tk.gossip_plane_ref(plane, c).float()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    else:
+        assert bool(((got - ref).abs() <= _bf16_ulp(ref)).all())
+    assert bool(buf[37:].isnan().all())
 
 
 def _robust_case(n, p, seed, star=False):
@@ -617,12 +653,16 @@ def test_mla_fleet_prefill_one_launch_per_layer_on_the_card():
     (5, 513, 129, None),    # ragged, rows off 16-byte boundaries, R = 1
     (33, 1, 1, 33),         # a one-value leaf (VGG-16's pool markers)
     (7, 3, 37, 3),          # odd N, R not a multiple of the row group
-    (4, 2, 1024, 20)])      # 3 row groups of 7 and 6 rows
+    (4, 2, 1024, 20),       # R = 20 over K = 4 on the streaming kernel
+    (33, 1, 4096, None),    # R = 1 on the streaming kernel
+    (33, 1, 2048, 64),      # R = 64: one row block of 6 groups
+    (400, 1, 1000, 70)])    # two row blocks, 9 chunks, C a slice a stage
 def test_gossip_mix_kernel_equals_plain_version_on_the_card(dtype, k, m, n,
                                                            r):
     """The K-way MAC against its plain version bit for bit (the same
-    unfused f32 multiply and add in ascending k), on both of the
-    kernel's paths, one launch a call."""
+    unfused f32 multiply and add in ascending k), on both of its paths
+    (the streaming kernel for contiguous 16-byte slabs, ``rows_kernel``
+    for the rest), one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.default_rng(k + m + n)
