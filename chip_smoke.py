@@ -18,10 +18,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    (K = R = 33, N = 2,359,296; f32 and bf16), the FFN's first leaf, a
    ragged (5, 513, 129) with R = 1 and a one-value leaf, to max abs err 0
    (bf16: one ulp), ``torch.matmul`` its yardstick.  Beside the dense
-   mixes' library call, ``copy_ms`` times one device-to-device copy of
-   the kernel's input bytes (the rate a streaming kernel can reach), and
-   ``kernel_model`` lines give the arithmetic's modeled issue floor (f32
-   lanes at the SM clock's maximum; not a measurement);
+   mixes' library call, and for the robust kernel, which has none,
+   ``copy_ms`` times one device-to-device copy of the kernel's input bytes
+   (the rate a streaming kernel can reach), and ``kernel_model`` lines
+   give the arithmetic's modeled issue floor of the dense mixes, the
+   robust kernel and the RWKV-6 scan (f32 lanes at the SM clock's
+   maximum; not a measurement);
 3. Algorithm 1 at the paper's scale with the FFN (the quickstart scenario
    at ``FULL`` scale: BA(33, p=2), OOD on the hub, R = 40): ``unweighted``
    and ``degree`` through the fused-plane kernel, one launch per mix, and
@@ -117,7 +119,8 @@ library yardstick; a bf16 latent runs on the tensor cores
 the CUDA cores (``mla_kernel``, at the f32 peak).
 
 Phases 3, 4, 6, 7, 8, 9, 10, 11 and 12 are the main path: every launch
-counter is set to 0 just before each of them and read just after.  The script
+counter is set to 0 just before each of them and read just after, and
+each prints its launches by kernel and by operand shape.  The script
 imports nothing of JAX.
 """
 import dataclasses
@@ -315,7 +318,8 @@ def check_kernels(dev):
                     issue_floor(name, f"{shape_name} {case['dtype']}",
                                 N_NODES * N_NODES * p, "fma")
                 cases.append(case)
-            cases += check_robust_kernel(gm, plane, w, idx, shape_name)
+            cases += check_robust_kernel(gm, plane, w, idx, shape_name,
+                                         plane_copy_ms)
             del plane
             torch.cuda.empty_cache()
     # the poisoned case: 3 rows of NaN / +Inf / -Inf on the FFN plane
@@ -324,7 +328,8 @@ def check_kernels(dev):
     plane[1] = float("nan")
     plane[4, ::3] = float("inf")
     plane[7] = float("-inf")
-    cases += check_robust_kernel(gm, plane, w, idx, "ffn_poisoned")
+    cases += check_robust_kernel(gm, plane, w, idx, "ffn_poisoned",
+                                 copy_ms(plane))
     return cases
 
 
@@ -419,6 +424,23 @@ def exact_err(a, b) -> float:
     return float(torch.where(same, torch.zeros_like(a), (a - b).abs()).max())
 
 
+def robust_lane_instructions(w, p, op, trim_k):
+    """The robust kernel's lane instructions on these inputs, from its
+    design (csrc/gossip_robust.cu): for each column, 5 a compare-select
+    step of the stable insertion (a compare, two key and two weight
+    selects; cnt_i (cnt_i - 1) / 2 steps for row i's cnt_i occupied
+    slots), 5 a gathered value (its table offset and weight, the read,
+    two clamps), and 3 a kept value's unfused sum (trimmed) or 2 a row
+    (median)."""
+    k = (w > 0).sum(1)
+    per_col = 5 * int((k * (k - 1) // 2).sum()) + 5 * int(k.sum())
+    if op == "trimmed":
+        per_col += 3 * int((k - 2 * trim_k).clamp_min(0).sum())
+    else:
+        per_col += 2 * w.shape[0]
+    return per_col * p
+
+
 def robust_operations(w, p, op, trim_k):
     """Operations the robust rule needs on these inputs: for each column,
     the compare-exchanges that sort each row's k_i occupied values
@@ -434,12 +456,14 @@ def robust_operations(w, p, op, trim_k):
     return per_col * p
 
 
-def check_robust_kernel(gm, plane, w, idx, shape_name):
+def check_robust_kernel(gm, plane, w, idx, shape_name, plane_copy_ms):
     """``gossip_robust`` against ``gossip_robust_ref`` on one plane, for
     the trimmed mean (k = 1) and the median, to max abs err 0.  The plain
     version gathers a (dmax, n, columns) tensor (29.7 GB at the VGG-16
     plane), so it runs over column chunks — columns are independent, so
-    chunking is exact — and plain_ms is the sum of the chunk times."""
+    chunking is exact — and plain_ms is the sum of the chunk times.
+    ``copy_ms``: one ``copy_`` of the plane (no PyTorch call computes the
+    rule, so the streaming rate is the yardstick)."""
     import torch
 
     n, p = plane.shape
@@ -480,10 +504,13 @@ def check_robust_kernel(gm, plane, w, idx, shape_name):
             "max_abs_err": max_err,
             "tolerance": "== 0 (NaN where the plain version has NaN)",
             "ms": cuda_ms(run), "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
-            "operations": ops,
+            "copy_ms": plane_copy_ms, "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes, "operations": ops,
         }
         log("kernel_case " + json.dumps(case))
+        issue_floor("gossip_robust", f"{shape_name} {case['dtype']} {op}",
+                    robust_lane_instructions(w, p, op, trim_k),
+                    "5 a sort step, 5 a gather, 3 a kept sum")
         cases.append(case)
     return cases
 
@@ -1194,6 +1221,10 @@ def check_rwkv(dev):
             "bound_ms": bnd, "bound_by": by, "bytes": nbytes, "flops": flops,
         }
         log("kernel_case " + json.dumps(case))
+        # k * v, the y FMA and the state FMA: 3 lane instructions an
+        # element and step (the bonus a_t is formed once a step and head)
+        issue_floor("rwkv_scan", f"{label} {dt}", 3 * b * s * h * hd * hd,
+                    "fmul+2 fma an element-step")
         cases.append(case)
         del x
         torch.cuda.empty_cache()
@@ -1798,6 +1829,7 @@ def rwkv_layer_errors(cfg, params, toks):
                              / b.float().norm())
     kernel = tt.ForwardOptions(use_ssm_kernel=True)
     launches = ts.rwkv_scan.launches
+    shapes = dict(getattr(ts.rwkv_scan, "shapes", {}))
     x = xk = tt._embed_inputs(params, cfg, toks)
     local, carried = [], []
     for i in range(cfg.n_layers):
@@ -1812,6 +1844,9 @@ def rwkv_layer_errors(cfg, params, toks):
         carried.append(rel(xk, x))
     assert ts.rwkv_scan.launches - launches == 2 * cfg.n_layers
     ts.rwkv_scan.launches = launches
+    if hasattr(ts.rwkv_scan, "shapes"):
+        ts.rwkv_scan.shapes.clear()
+        ts.rwkv_scan.shapes.update(shapes)
     return local, carried
 
 
@@ -2521,14 +2556,20 @@ def main() -> int:
             c.launches = 0
             for k in getattr(c, "kernel_launches", ()):
                 c.kernel_launches[k] = 0   # mla_attention's count by kernel
+            if hasattr(c, "shapes"):
+                c.shapes.clear()
         t = time.perf_counter()
         res = fn(*args)
         paths[name] = {k: c.launches for k, c in counters.items()}
+        by_shape = {k: {" ".join(map(str, sh)): m
+                        for sh, m in sorted(c.shapes.items())}
+                    for k, c in counters.items() if getattr(c, "shapes", None)}
         gc.collect()
         torch.cuda.empty_cache()
         log(f"main path {name}: {time.perf_counter() - t:.1f} s, launches "
             f"{json.dumps(paths[name])}, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+        log(f"main path {name} launches by shape {json.dumps(by_shape)}")
         return res
 
     ffn_res = main_path("ffn_mean", run_ffn, ffn_sc, gm)

@@ -84,12 +84,12 @@ def program_for(topo: Topology, strategy: AggregationStrategy,
             f"round_coeffs and coeffs_stack build it on the host "
             f"(core.strategies.mixing_matrix), as the reference does; the "
             f"program kinds ported are {PORTED_KINDS} (ROADMAP Queue 1 "
-            f"items 3-4 bring the others)")
+            f"[links] and [graphs] bring the others)")
     if strategy.kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"strategy {strategy.kind!r} has no ported coefficient program; "
-            f"ported: {PORTED_KINDS} (ROADMAP Queue 1: item 3 for 'random', "
-            f"item 4 for the networkx-free centralities)")
+            f"ported: {PORTED_KINDS} (ROADMAP Queue 1: [links] for "
+            f"'random', [graphs] for the networkx-free centralities)")
     if reactive or p_fail != 0.0:
         raise NotImplementedError(
             "reactive programs and link failure (p_fail > 0) need the "

@@ -14,7 +14,7 @@ rate 1.0 activates every node and fault rate 0.0 marks none, exactly.
 
 Link failure (``edge_mask``, ``drop_edges``, ``link_failure_schedule``)
 and the ``"noise"`` fault mode, which needs ``jax.random.normal``'s
-stream, wait for ROADMAP Queue 1 items 7 and 8.
+stream, wait for ROADMAP Queue 1 [links].
 """
 from __future__ import annotations
 
@@ -101,7 +101,7 @@ class FaultSpec:
             raise NotImplementedError(
                 "fault mode 'noise' needs jax.random.normal's stream, which "
                 "the port's threefry does not draw yet (ROADMAP Queue 1 "
-                "item 8)")
+                "[links])")
         if self.quarantine and self.probation < 1:
             raise ValueError("quarantine needs probation >= 1")
 

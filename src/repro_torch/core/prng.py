@@ -15,7 +15,8 @@ threefry2x32 stream here, matching jax 0.9.0 with
 
 Masks are ``(n,)`` per round and depend only on seeds and the round
 index, so drawing them on the host costs no device synchronisation.
-``bernoulli`` and ``normal`` are not ported yet (ROADMAP Queue 1 item 2).
+``normal`` (the ``"noise"`` fault mode) is not ported yet (ROADMAP Queue 1
+[links]), nor ``categorical`` (temperature sampling, [serving]).
 """
 from __future__ import annotations
 

@@ -14,8 +14,9 @@ Two paths, as in the reference:
 :func:`masked_softmax` and :func:`masked_normalize` take either tensors
 or numpy arrays and compute in their dtype.  Only the ``degree`` score is
 ported: betweenness, eigenvector, pagerank and closeness need networkx in
-the reference (ROADMAP Queue 1 item 4), and the ``random`` scores come
-from JAX's threefry stream (Queue 1 item 3).
+the reference (ROADMAP Queue 1 [graphs]), and the ``random`` scores,
+which the reference's host path draws from numpy's ``default_rng(seed)``,
+wait for Queue 1 [links].
 """
 from __future__ import annotations
 
@@ -120,7 +121,7 @@ def strategy_scores(topo: Topology,
     raise NotImplementedError(
         f"strategy {strategy.kind!r} has no ported score vector; of the "
         f"softmax-scored kinds the port has 'degree' (ROADMAP Queue 1: "
-        f"item 3 for 'random', item 4 for the networkx-free "
+        f"[links] for 'random', [graphs] for the networkx-free "
         f"centralities)")
 
 
@@ -195,8 +196,8 @@ def mixing_matrix(topo: Topology, strategy: AggregationStrategy,
     if strategy.kind in _UNPORTED:
         raise NotImplementedError(
             f"strategy {strategy.kind!r} is not ported; host kinds: "
-            f"{sorted(STRATEGIES)} (ROADMAP Queue 1: item 3 for 'random', "
-            f"item 4 for the networkx-free centralities)")
+            f"{sorted(STRATEGIES)} (ROADMAP Queue 1: [links] for 'random', "
+            f"[graphs] for the networkx-free centralities)")
     if strategy.kind not in STRATEGIES:
         raise KeyError(f"unknown strategy {strategy.kind!r}; have "
                        f"{sorted(STRATEGIES)}")

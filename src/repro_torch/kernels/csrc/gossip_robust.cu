@@ -13,53 +13,99 @@
 //   median:  out = 0.5 * (key[(cnt - 1) / 2] + key[cnt / 2]) over the cnt
 //            occupied pairs, or the row's own raw value if cnt = 0.
 //
-// Design.  One thread owns one (destination row, column).  A block is one
-// destination row x kRobustThreads columns; its first thread reads the
-// row's dmax weights and indices, keeps the occupied slots in slot order
-// in shared memory, and traps on an index outside [0, n).  The 1-D grid
-// runs destination rows fastest, as edges_kernel in gossip_mix.cu does,
-// so the rows that gather one column tile run together and share it in L2.
-// Each thread inserts its occupied values one at a time into a sorted
-// array held in registers: the array is sized by the template DPAD (the
-// padded slot count, 8 to 64) and every insertion is a fully unrolled
-// pass of selects over it, so no index is dynamic and nothing spills to
-// local memory (ptxas: 45 registers for the f32 trimmed mean at 16
-// slots, 146 at 64, no spills).  Insertion after equal keys is a stable
-// sort, and a stable sort's output is unique, so it equals the
-// reference's odd-even transposition network; padding slots there sort
-// after every real key (2e30 > 1e30), so sorting only the occupied slots
-// gives the same first cnt pairs.
+// Design.  A block owns a tile of W plane columns (W = 32 to 256, from
+// the launch plan, kernels/gossip_mix.py robust_plan, which the entry
+// checks) and every destination row of it:
+//   * it stages the tile's n plane rows into shared memory once, with
+//     16-byte cp.async copies (the wrappers make every row 16-byte
+//     aligned; the ragged last tile reads only up to P and zero-fills the
+//     rest), so each neighbour value is a shared-memory read and each
+//     plane byte crosses HBM once.  The plan picks the widest tile with
+//     which two blocks fit an SM; where none fits (n above some 880 rows
+//     in f32), the same kernel (STAGED = false) gathers the neighbours
+//     from global memory instead;
+//   * the tile is cut into units of (destination row, 32 COLS columns),
+//     COLS columns a lane (two for the median over tables of at most 16
+//     slots, so that a unit's table reads, branches and address
+//     arithmetic serve twice the columns; cols_for), and each of the 8
+//     warps takes an even run of units, row by row.  When its run reaches
+//     a row, the warp reads the row's dmax (weight, index) pairs a lane a
+//     slot, traps on an index outside [0, n), and compacts the occupied
+//     slots in slot order into its shared table (the ballot of w > 0 and
+//     the population count of the lower lanes give each slot its place;
+//     a staged table holds the slot's offset in the tile), so the table
+//     costs a few instructions a row, not a serial loop while 255 threads
+//     wait;
+//   * the occupied count cnt is the same across the warp, so the unit
+//     dispatches to a compile-time bucket CNT in {4, 8, ..., SLOTS} (SLOTS
+//     = 8 to 64, the instantiation for the table width) and every loop
+//     stops at cnt: a lane reads all its values first (their latency
+//     overlaps), sanitises each in two instructions (fminf with 1e30
+//     turns NaN into 1e30, then fmaxf with -1e30), then sorts them in
+//     place in registers by stable insertion, slot s moving down past the
+//     keys greater than it, which costs cnt (cnt - 1) / 2 compare-select
+//     steps, not cnt * SLOTS; padding slots sort after every real key in
+//     the reference (2e30 > 1e30), so sorting only the occupied slots
+//     gives its first cnt pairs.
 //
-// What bounds it on the card: its least time is that of gossip_edges's
-// bytes (each plane row read once, the output written once: 2 * n * P * b,
-// 1.18 ms for the VGG-16 f32 plane at 3.35 TB/s); the compare-exchanges
-// the data needs (sum_i k_i (k_i - 1) / 2 per column, k_i = row i's
-// occupied slots) come to less.  As written, though, each insertion is a
-// pass over all DPAD slots, some 2,500 selects per column at BA(33, 2)
-// (157 occupied slots, DPAD = 16), and the block's first thread reads the
-// row's table serially, so the kernel runs far above its bound (19.2 ms
-// at the VGG-16 f32 plane on an H100 SXM at 700 W).  A parallel table
-// read, a sort sized to each row's own degree and a warp-cooperative
-// sort are later work.
+// What bounds it on the card: its least time is that of its bytes (each
+// plane row read once, the output written once: 2 * n * P * b, 1.18 ms
+// for the VGG-16 f32 plane at 3.35 TB/s); the compare-selects the data
+// needs (sum_i cnt_i (cnt_i - 1) / 2 per column, 439 at BA(33, 2), 5
+// instructions each with the weights carried along) come to about 1.2 ms
+// of issue at that plane, so the sort and the bytes are of one size; the
+// reads, the sanitising and the sums add about as much again.  The
+// measured times and their split are in PERF.md section 6.
 //
 // Bit identity with the plain version (kernels/gossip_mix.py
-// gossip_robust_ref).  Sums run in ascending sorted order over the kept
-// pairs, multiplies and adds unfused (__fmul_rn / __fadd_rn), and the
-// division is IEEE (__fdiv_rn); the library is built without fast math.
-// With lowp = 1 on a bf16 plane (mix_in_float32=False) the weight, the
-// key, every product, every partial sum and the quotient are rounded to
-// bf16 in that same order, as the plain version's bf16 tensors are.
+// gossip_robust_ref).  The insertion is stable, and a stable sort's
+// output is unique, so it equals the reference's odd-even transposition
+// network.  Sums run in ascending sorted order over the kept pairs,
+// multiplies and adds unfused (__fmul_rn / __fadd_rn), and the division is
+// IEEE (__fdiv_rn); the library is built without fast math.  With lowp =
+// 1 on a bf16 plane (mix_in_float32=False) the weight, the key, every
+// product, every partial sum and the quotient are rounded to bf16 in that
+// same order, as the plain version's bf16 tensors are.
 //
 // The entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90_bf16.cuh"
 
 namespace {
 
-constexpr int kRobustThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kRobustThreads = 32 * kWarps;
 constexpr int kMaxSlots = 64;         // the widest instantiation
+constexpr int kPlanFields = 5;
+
+// The launch plan, field for field as kernels/gossip_mix.py
+// RobustPlan.c_args passes it: tile columns, whether the tile is staged
+// in shared memory, slots of the instantiation, grid, dynamic shared
+// bytes.
+struct RobustPlan {
+  int tile_cols, staged, slots, grid, smem;
+};
+
+// columns a lane takes in a unit: two for the median over tables of at
+// most 16 slots, so a unit's table reads, branches and address arithmetic
+// serve twice the columns; one elsewhere, where the weights the trimmed
+// mean sorts along would double the registers and halve the blocks an SM
+// holds (benchmarks/kernel_split.py times both)
+__host__ __device__ constexpr int cols_for(int slots, bool median) {
+  return median && slots <= 16 ? 2 : 1;
+}
+
+__host__ __device__ __forceinline__ long long plan_smem(const RobustPlan& pl,
+                                                        int n, int itemsize) {
+  return (pl.staged ? static_cast<long long>(n) * pl.tile_cols * itemsize
+                    : 0) +
+         static_cast<long long>(kWarps) * pl.slots * 8;
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -93,166 +139,352 @@ __device__ __forceinline__ float mul(float a, float b) {
   return LOWP ? bf16_round(__fmul_rn(a, b)) : __fmul_rn(a, b);
 }
 
-template <typename T, int DPAD, bool LOWP, bool MEDIAN>
-__global__ void __launch_bounds__(kRobustThreads)
-robust_kernel(const float* __restrict__ w, const int* __restrict__ idx,
-              const T* __restrict__ plane, T* __restrict__ out, int n,
-              int dmax, long long p, long long ld, int trim_k) {
-  __shared__ float ws[DPAD];
-  __shared__ int is[DPAD];
-  __shared__ int s_cnt;
-  const long long bid = blockIdx.x;
-  const int i = static_cast<int>(bid % n);
-  const long long col = (bid / n) * kRobustThreads + threadIdx.x;
-  if (threadIdx.x == 0) {
-    int c = 0;
-    for (int d = 0; d < dmax; ++d) {
-      const long long e = static_cast<long long>(i) * dmax + d;
-      const int j = idx[e];
-      if (j < 0 || j >= n) __trap();  // a table index outside the plane
-      const float wv = LOWP ? bf16_round(w[e]) : w[e];
-      if (wv > 0.0f) {
-        ws[c] = wv;
-        is[c] = j;
-        ++c;
-      }
-    }
-    s_cnt = c;
-  }
-  __syncthreads();
-  if (col >= p) return;
-  const int cnt = s_cnt;
+// A lane's COLS columns of a unit (c at src + 32 c): the row's cnt
+// occupied values (slot s at src[to[s]] in the staged tile, src[to[s] *
+// ld] in the plane), sorted with their weights and reduced into r.
+template <typename T, int CNT, int COLS, bool LOWP, bool MEDIAN, bool STAGED>
+__device__ __forceinline__ void reduce_columns(
+    const T* src, long long ld, const float* tw, const int* to, int cnt,
+    int trim_k, const bool (&live)[COLS], const float (&self)[COLS],
+    float (&r)[COLS]) {
   // the sanitising bound in the accumulation dtype
   const float big = LOWP ? bf16_round(1e30f) : 1e30f;
-
-  float key[DPAD];
-  float wt[DPAD];
+  float key[COLS][CNT];
+  float wt[COLS][CNT];
 #pragma unroll
-  for (int j = 0; j < DPAD; ++j) {
-    key[j] = 0.0f;
-    wt[j] = 0.0f;
+  for (int s = 0; s < CNT; ++s) {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      key[c][s] = 0.0f;
+      wt[c][s] = 0.0f;
+    }
   }
-  for (int s = 0; s < cnt; ++s) {
-    float x = load_one(plane + static_cast<long long>(is[s]) * ld + col);
-    x = isnan(x) ? big : fminf(fmaxf(x, -big), big);
-    const float wx = ws[s];
-    // stable insertion of (x, wx) into key[0..s): positions below the
-    // insertion point keep their pair, the point takes (x, wx), the
-    // positions above it up to s take their left neighbour's pair
+  // every value read first, predicated rather than branched on s < cnt so
+  // that the reads issue together; NaN -> +big (fminf keeps the number),
+  // then the clamp to +-big
 #pragma unroll
-    for (int j = DPAD - 1; j >= 0; --j) {
-      if (j <= s && !(j < s && key[j] <= x)) {
-        const int left = j > 0 ? j - 1 : 0;
-        const bool here = j == 0 || key[left] <= x;
-        key[j] = here ? x : key[left];
-        wt[j] = here ? wx : wt[left];
+  for (int s = 0; s < CNT; ++s) {
+    if (s < cnt) {
+      const int off = to[s];
+      const float ws = tw[s];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        float x = 0.0f;
+        if (STAGED) {
+          x = load_one(src + off + 32 * c);
+        } else if (live[c]) {
+          x = load_one(src + off * ld + 32 * c);
+        }
+        key[c][s] = fmaxf(fminf(x, big), -big);
+        wt[c][s] = ws;
       }
     }
   }
+  // stable insertion in place: slot s moves down past the greater keys
+  // of the sorted key[0 .. s)
+#pragma unroll
+  for (int s = 1; s < CNT; ++s) {
+    if (s >= cnt) break;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const float x = key[c][s];
+      const float wx = wt[c][s];
+      bool gt_above = true;   // key[j] > x for the position above
+#pragma unroll
+      for (int j = s; j >= 1; --j) {
+        const bool gt = key[c][j - 1] > x;
+        const float kj = gt ? key[c][j - 1] : (gt_above ? x : key[c][j]);
+        const float wj = gt ? wt[c][j - 1] : (gt_above ? wx : wt[c][j]);
+        key[c][j] = kj;
+        wt[c][j] = wj;
+        gt_above = gt;
+      }
+      key[c][0] = gt_above ? x : key[c][0];
+      wt[c][0] = gt_above ? wx : wt[c][0];
+    }
+  }
 
-  const long long o = static_cast<long long>(i) * ld + col;
-  const float self = load_one(plane + o);
-  float r;
   if (MEDIAN) {
     const int lo = (cnt - 1) / 2;
     const int hi = cnt / 2;
-    float a = 0.0f, b = 0.0f;
 #pragma unroll
-    for (int j = 0; j < DPAD; ++j) {
-      if (j == lo) a = key[j];
-      if (j == hi) b = key[j];
+    for (int c = 0; c < COLS; ++c) {
+      float a = 0.0f, b = 0.0f;
+#pragma unroll
+      for (int j = 0; j < CNT; ++j) {
+        if (j >= cnt) break;
+        if (j == lo) a = key[c][j];
+        if (j == hi) b = key[c][j];
+      }
+      r[c] = cnt > 0 ? mul<LOWP>(0.5f, add<LOWP>(a, b)) : self[c];
     }
-    r = cnt > 0 ? mul<LOWP>(0.5f, add<LOWP>(a, b)) : self;
-  } else {
-    float mass = 0.0f, num = 0.0f;
+    return;
+  }
+  float mass[COLS], num[COLS];
 #pragma unroll
-    for (int j = 0; j < DPAD; ++j) {
-      if (j >= trim_k && j < cnt - trim_k) {
-        mass = add<LOWP>(mass, wt[j]);
-        num = add<LOWP>(num, mul<LOWP>(wt[j], key[j]));
+  for (int c = 0; c < COLS; ++c) mass[c] = num[c] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < CNT; ++j) {
+    if (j >= cnt - trim_k) break;
+    if (j >= trim_k) {
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        mass[c] = add<LOWP>(mass[c], wt[c][j]);
+        num[c] = add<LOWP>(num[c], mul<LOWP>(wt[c][j], key[c][j]));
       }
     }
-    if (mass > 0.0f) {
-      r = __fdiv_rn(num, mass);
-      if (LOWP) r = bf16_round(r);
+  }
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    if (mass[c] > 0.0f) {
+      const float q = __fdiv_rn(num[c], mass[c]);
+      r[c] = LOWP ? bf16_round(q) : q;
     } else {
-      r = self;
+      r[c] = self[c];
     }
   }
-  store_one(out + o, r);
 }
 
-template <typename T, int DPAD, bool LOWP>
-void launch_robust(int median, const void* w, const void* idx,
-                   const void* plane, void* out, int n, int dmax,
-                   long long p, long long ld, int trim_k,
-                   cudaStream_t stream) {
-  const long long blocks =
-      (p + kRobustThreads - 1) / kRobustThreads * static_cast<long long>(n);
-  const float* wp = static_cast<const float*>(w);
-  const int* ip = static_cast<const int*>(idx);
-  const T* pp = static_cast<const T*>(plane);
-  T* op = static_cast<T*>(out);
-  if (median) {
-    robust_kernel<T, DPAD, LOWP, true>
-        <<<static_cast<unsigned>(blocks), kRobustThreads, 0, stream>>>(
-            wp, ip, pp, op, n, dmax, p, ld, trim_k);
-  } else {
-    robust_kernel<T, DPAD, LOWP, false>
-        <<<static_cast<unsigned>(blocks), kRobustThreads, 0, stream>>>(
-            wp, ip, pp, op, n, dmax, p, ld, trim_k);
+// the smallest bucket CNT >= cnt, from 4 up to SLOTS
+template <typename T, int CNT, int SLOTS, int COLS, bool LOWP, bool MEDIAN,
+          bool STAGED>
+__device__ __forceinline__ void dispatch(
+    const T* src, long long ld, const float* tw, const int* to, int cnt,
+    int trim_k, const bool (&live)[COLS], const float (&self)[COLS],
+    float (&r)[COLS]) {
+  if constexpr (CNT < SLOTS) {
+    if (cnt > CNT) {
+      dispatch<T, 2 * CNT, SLOTS, COLS, LOWP, MEDIAN, STAGED>(
+          src, ld, tw, to, cnt, trim_k, live, self, r);
+      return;
+    }
   }
+  reduce_columns<T, CNT, COLS, LOWP, MEDIAN, STAGED>(src, ld, tw, to, cnt,
+                                                     trim_k, live, self, r);
+}
+
+template <typename T, int SLOTS, bool LOWP, bool MEDIAN, bool STAGED>
+__global__ void __launch_bounds__(kRobustThreads)
+robust_kernel(const float* __restrict__ w, const int* __restrict__ idx,
+              const T* __restrict__ plane, T* __restrict__ out, int n,
+              int dmax, long long p, long long ld, int trim_k, int width) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long c0 = static_cast<long long>(blockIdx.x) * width;
+  const long long tile_bytes =
+      STAGED ? static_cast<long long>(n) * width * sizeof(T) : 0;
+  T* const tile = reinterpret_cast<T*>(smem);
+  float* const tw =
+      reinterpret_cast<float*>(smem + tile_bytes) + warp * SLOTS;
+  int* const to = reinterpret_cast<int*>(smem + tile_bytes) +
+                  kWarps * SLOTS + warp * SLOTS;
+
+  if constexpr (STAGED) {
+    constexpr int E = 16 / static_cast<int>(sizeof(T));   // values a copy
+    const int per_row = width / E;
+    const uint32_t dst = sm90::smem_addr(tile);
+    for (int q = threadIdx.x; q < n * per_row; q += kRobustThreads) {
+      const int row = q / per_row;
+      const long long col = c0 + static_cast<long long>(q % per_row) * E;
+      const long long left = p - col;
+      const int bytes = left <= 0 ? 0
+                        : left >= E ? 16
+                                    : static_cast<int>(left * sizeof(T));
+      sm90::cp_async16(dst + q * 16, bytes ? plane + row * ld + col : plane,
+                       bytes);
+    }
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // a warp takes a run of units, row by row, and reads a row's table when
+  // its run reaches the row
+  constexpr int COLS = cols_for(SLOTS, MEDIAN);
+  const int groups = width / (32 * COLS);
+  const int units = n * groups;
+  const int per_warp = (units + kWarps - 1) / kWarps;
+  const int u_begin = warp * per_warp;
+  const int u_end = min(units, u_begin + per_warp);
+  int i = u_begin / groups;
+  int g = u_begin - i * groups;
+  int row = -1;
+  int cnt = 0;
+  for (int unit = u_begin; unit < u_end; ++unit) {
+    if (i != row) {
+      // the row's occupied slots, in slot order, into the warp's table
+      __syncwarp();
+      cnt = 0;
+      for (int d0 = 0; d0 < dmax; d0 += 32) {
+        const int d = d0 + lane;
+        float wv = 0.0f;
+        int j = 0;
+        if (d < dmax) {
+          const long long e = static_cast<long long>(i) * dmax + d;
+          j = idx[e];
+          if (j < 0 || j >= n) __trap();  // a table index outside the plane
+          wv = LOWP ? bf16_round(w[e]) : w[e];
+        }
+        const bool occupied = d < dmax && wv > 0.0f;
+        const unsigned mask = __ballot_sync(0xffffffffu, occupied);
+        if (occupied) {
+          const int at = cnt + __popc(mask & ((1u << lane) - 1u));
+          tw[at] = wv;
+          to[at] = STAGED ? j * width : j;
+        }
+        cnt += __popc(mask);
+      }
+      __syncwarp();
+      row = i;
+    }
+    const int cl = g * 32 * COLS + lane;
+    bool live[COLS];
+    float self[COLS];
+    float r[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      live[c] = c0 + cl + 32 * c < p;
+      if constexpr (STAGED) {
+        self[c] = load_one(tile + i * width + cl + 32 * c);
+      } else {
+        self[c] =
+            live[c] ? load_one(plane + i * ld + c0 + cl + 32 * c) : 0.0f;
+      }
+    }
+    if constexpr (STAGED) {
+      dispatch<T, 4, SLOTS, COLS, LOWP, MEDIAN, true>(
+          tile + cl, 0, tw, to, cnt, trim_k, live, self, r);
+    } else {
+      dispatch<T, 4, SLOTS, COLS, LOWP, MEDIAN, false>(
+          plane + c0 + cl, ld, tw, to, cnt, trim_k, live, self, r);
+    }
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      if (live[c]) store_one(out + i * ld + c0 + cl + 32 * c, r[c]);
+    }
+    if (++g == groups) {
+      g = 0;
+      ++i;
+    }
+  }
+}
+
+template <typename T, int SLOTS, bool LOWP, bool MEDIAN, bool STAGED>
+cudaError_t launch_robust(const RobustPlan& pl, const void* w,
+                          const void* idx, const void* plane, void* out,
+                          int n, int dmax, long long p, long long ld,
+                          int trim_k, cudaStream_t stream) {
+  auto kernel = robust_kernel<T, SLOTS, LOWP, MEDIAN, STAGED>;
+  if (pl.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();   // returned here; not left for a later launch
+      return err;
+    }
+  }
+  kernel<<<pl.grid, kRobustThreads, pl.smem, stream>>>(
+      static_cast<const float*>(w), static_cast<const int*>(idx),
+      static_cast<const T*>(plane), static_cast<T*>(out), n, dmax, p, ld,
+      trim_k, pl.tile_cols);
+  return cudaGetLastError();
+}
+
+template <typename T, int SLOTS, bool LOWP>
+cudaError_t launch_rule(const RobustPlan& pl, int median, const void* w,
+                        const void* idx, const void* plane, void* out, int n,
+                        int dmax, long long p, long long ld, int trim_k,
+                        cudaStream_t s) {
+  if (median) {
+    return pl.staged ? launch_robust<T, SLOTS, LOWP, true, true>(
+                           pl, w, idx, plane, out, n, dmax, p, ld, trim_k, s)
+                     : launch_robust<T, SLOTS, LOWP, true, false>(
+                           pl, w, idx, plane, out, n, dmax, p, ld, trim_k, s);
+  }
+  return pl.staged ? launch_robust<T, SLOTS, LOWP, false, true>(
+                         pl, w, idx, plane, out, n, dmax, p, ld, trim_k, s)
+                   : launch_robust<T, SLOTS, LOWP, false, false>(
+                         pl, w, idx, plane, out, n, dmax, p, ld, trim_k, s);
 }
 
 template <typename T, bool LOWP>
-void dispatch_width(int median, const void* w, const void* idx,
-                    const void* plane, void* out, int n, int dmax,
-                    long long p, long long ld, int trim_k,
-                    cudaStream_t s) {
-  if (dmax <= 8) {
-    launch_robust<T, 8, LOWP>(median, w, idx, plane, out, n, dmax, p, ld,
-                              trim_k, s);
-  } else if (dmax <= 16) {
-    launch_robust<T, 16, LOWP>(median, w, idx, plane, out, n, dmax, p, ld,
-                               trim_k, s);
-  } else if (dmax <= 32) {
-    launch_robust<T, 32, LOWP>(median, w, idx, plane, out, n, dmax, p, ld,
-                               trim_k, s);
-  } else {
-    launch_robust<T, kMaxSlots, LOWP>(median, w, idx, plane, out, n, dmax,
-                                      p, ld, trim_k, s);
+cudaError_t launch_slots(const RobustPlan& pl, int median, const void* w,
+                         const void* idx, const void* plane, void* out,
+                         int n, int dmax, long long p, long long ld,
+                         int trim_k, cudaStream_t s) {
+  switch (pl.slots) {
+    case 8:
+      return launch_rule<T, 8, LOWP>(pl, median, w, idx, plane, out, n,
+                                     dmax, p, ld, trim_k, s);
+    case 16:
+      return launch_rule<T, 16, LOWP>(pl, median, w, idx, plane, out, n,
+                                      dmax, p, ld, trim_k, s);
+    case 32:
+      return launch_rule<T, 32, LOWP>(pl, median, w, idx, plane, out, n,
+                                      dmax, p, ld, trim_k, s);
+    default:
+      return launch_rule<T, kMaxSlots, LOWP>(pl, median, w, idx, plane, out,
+                                             n, dmax, p, ld, trim_k, s);
   }
 }
 
 }  // namespace
 
-extern "C" int gossip_robust_max_slots() { return kMaxSlots; }
-
 // dtype: 0 = float32, 1 = bfloat16.  lowp: accumulate in the plane dtype.
 // median: 1 = median, 0 = trimmed mean dropping trim_k per side.
-// ld: row stride of both plane and out, in elements.  dmax must be at
-// most gossip_robust_max_slots() (the wrapper checks; wider tables return
-// cudaErrorInvalidValue without a launch).
+// ld: row stride of both plane and out, in elements; plane, out and
+// ld * element size 16-byte aligned (the wrapper checks).  plan:
+// kPlanFields int64 values of robust_plan(n, p, dmax, dtype), host memory;
+// a plan that does not fit the operands (a table wider than its slots, a
+// grid that leaves columns out, other shared bytes) returns
+// cudaErrorInvalidValue without a launch.
 extern "C" int gossip_robust_launch(const void* w, const void* idx,
                                     const void* plane, void* out, int n,
                                     int dmax, long long p, long long ld,
                                     int dtype, int lowp, int median,
-                                    int trim_k, void* stream) {
-  if (dmax > kMaxSlots || trim_k < 0) {
+                                    int trim_k, const long long* plan,
+                                    void* stream) {
+  if (dmax > kMaxSlots || dmax < 0 || trim_k < 0 || plan == nullptr ||
+      dtype < 0 || dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0 && p > 0 && dmax > 0) {
-    if (dtype == 0) {
-      dispatch_width<float, false>(median, w, idx, plane, out, n, dmax, p,
-                                   ld, trim_k, s);
-    } else if (lowp) {
-      dispatch_width<__nv_bfloat16, true>(median, w, idx, plane, out, n,
-                                          dmax, p, ld, trim_k, s);
-    } else {
-      dispatch_width<__nv_bfloat16, false>(median, w, idx, plane, out, n,
-                                           dmax, p, ld, trim_k, s);
+  for (int i = 0; i < kPlanFields; ++i) {
+    if (plan[i] < 0 || plan[i] > (1LL << 31) - 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
+  }
+  RobustPlan pl;
+  pl.tile_cols = static_cast<int>(plan[0]);
+  pl.staged = static_cast<int>(plan[1]);
+  pl.slots = static_cast<int>(plan[2]);
+  pl.grid = static_cast<int>(plan[3]);
+  pl.smem = static_cast<int>(plan[4]);
+  const int itemsize = dtype == 0 ? 4 : 2;
+  const bool ok =
+      (pl.tile_cols == 32 || pl.tile_cols == 64 || pl.tile_cols == 128 ||
+       pl.tile_cols == 256) &&
+      pl.tile_cols % (32 * cols_for(pl.slots, median != 0)) == 0 &&
+      (pl.staged == 0 || pl.staged == 1) &&
+      (pl.slots == 8 || pl.slots == 16 || pl.slots == 32 ||
+       pl.slots == kMaxSlots) &&
+      dmax <= pl.slots && (pl.slots == 8 || 2 * dmax > pl.slots) &&
+      pl.grid == (p + pl.tile_cols - 1) / pl.tile_cols &&
+      pl.smem == plan_smem(pl, n, itemsize) && pl.smem <= 232448;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0 && p > 0) {
+    if (dtype == 0) {
+      return static_cast<int>(launch_slots<float, false>(
+          pl, median, w, idx, plane, out, n, dmax, p, ld, trim_k, s));
+    }
+    return static_cast<int>(
+        lowp ? launch_slots<__nv_bfloat16, true>(pl, median, w, idx, plane,
+                                                 out, n, dmax, p, ld, trim_k,
+                                                 s)
+             : launch_slots<__nv_bfloat16, false>(pl, median, w, idx, plane,
+                                                  out, n, dmax, p, ld, trim_k,
+                                                  s));
   }
   return static_cast<int>(cudaGetLastError());
 }

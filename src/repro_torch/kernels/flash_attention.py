@@ -13,10 +13,12 @@ use and called through ``ctypes``.  The wrapper takes its plain PyTorch
 version :func:`flash_attention_ref` (the port of ``repro/kernels/ref.py``
 ``flash_attention_ref``) only for tensors on the CPU; a CUDA tensor
 launches a kernel or raises.  ``flash_attention.launches`` counts the
-launches of either kernel (a plain int, reset by the caller).
+launches of either kernel (a plain int, reset by the caller),
+``flash_attention.shapes`` the same launches by shape and dtype.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -153,7 +155,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc}")
     flash_attention.launches += 1
+    flash_attention.shapes[(b, s, h, k.shape[2], hd, str(q.dtype)[6:])] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.shapes = collections.Counter()

@@ -29,7 +29,8 @@ plain PyTorch version (``gossip_plane_ref``, ``gossip_edges_ref``,
 ``gossip_robust_ref``, ``gossip_mix_ref``) only for tensors on the CPU; a
 CUDA tensor launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches (plain ints, reset by the
-caller).
+caller), ``<wrapper>.shapes`` the same launches by operand shape and
+dtype.
 
 :func:`mix_plane`, :func:`mix_edges_kernel` and :func:`mix_robust_kernel`
 are the tree-level wrappers the trainer calls: pack once → one launch →
@@ -38,6 +39,7 @@ of one mix for every backend.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -65,6 +67,8 @@ __all__ = [
     "mix_modeled_hbm_bytes",
     "MixPlan",
     "mix_plan",
+    "RobustPlan",
+    "robust_plan",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,10 +96,9 @@ def _lib(name: str = "gossip_mix") -> ctypes.CDLL:
             lib.gossip_mix_launch.restype = ctypes.c_int
         else:
             lib.gossip_robust_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
-                                                 i, i, i, p]
+                                                 i, i, i, ctypes.POINTER(ll),
+                                                 p]
             lib.gossip_robust_launch.restype = ctypes.c_int
-            lib.gossip_robust_max_slots.argtypes = []
-            lib.gossip_robust_max_slots.restype = ctypes.c_int
         _bound[name] = lib
     return lib
 
@@ -357,10 +360,12 @@ def gossip_plane(plane: torch.Tensor, coeffs: torch.Tensor,
             _plan_args(n, n, p, plane))
     _raise_on(rc, "gossip_plane")
     gossip_plane.launches += 1
+    gossip_plane.shapes[(n, p, str(plane.dtype)[6:])] += 1
     return out
 
 
 gossip_plane.launches = 0
+gossip_plane.shapes = collections.Counter()
 
 
 def mix_plane(params, coeffs: torch.Tensor, mix_in_float32: bool = True):
@@ -437,10 +442,12 @@ def gossip_edges(plane: torch.Tensor, weights: torch.Tensor,
             _DTYPE_CODES[plane.dtype], lowp, stream)
     _raise_on(rc, "gossip_edges")
     gossip_edges.launches += 1
+    gossip_edges.shapes[(n, p, str(plane.dtype)[6:])] += 1
     return out
 
 
 gossip_edges.launches = 0
+gossip_edges.shapes = collections.Counter()
 
 
 def mix_edges_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
@@ -459,6 +466,84 @@ def mix_edges_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
 # robust edge-list mix
 # ----------------------------------------------------------------------
 ROBUST_OPS = ("trimmed", "median")
+# csrc/gossip_robust.cu's constants: warps a block, the slot counts of
+# its instantiations, the tile widths a block may own
+ROBUST_WARPS = 8
+ROBUST_SLOTS = (8, 16, 32, 64)
+ROBUST_TILES = (256, 128, 64, 32)
+
+
+def robust_cols(slots: int, op: str) -> int:
+    """Columns a lane takes in a unit of ``robust_kernel`` (csrc
+    ``cols_for``): two for the median over tables of at most 16 slots,
+    else one."""
+    return 2 if op == "median" and slots <= 16 else 1
+
+
+@dataclass(frozen=True)
+class RobustPlan:
+    """How ``robust_kernel`` runs: block ``b`` owns plane columns ``b ·
+    tile_cols`` on (``tile_cols`` of them) for every destination row,
+    ``grid`` blocks in all; its warps take runs of (row, ``32 ·
+    robust_cols(slots, op)`` columns) units.  ``staged``: the tile's n plane rows sit in
+    shared memory, else the neighbours are gathered from global memory.
+    ``slots``: the instantiation's table width (the table's dmax rounded
+    up to 8, 16, 32 or 64), whose compile-time buckets 4, 8, … ``slots``
+    size the sort.  ``smem_bytes``: the tile (when staged) and each
+    warp's compacted table."""
+
+    tile_cols: int
+    staged: bool
+    slots: int
+    grid: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+    def c_args(self):
+        """The plan as the C entry takes it (``RobustPlan``'s order)."""
+        return (ctypes.c_longlong * 5)(self.tile_cols, int(self.staged),
+                                       self.slots, self.grid,
+                                       self.smem_bytes)
+
+
+def robust_plan(n: int, p: int, dmax: int, dtype: torch.dtype,
+                op: str = "trimmed") -> RobustPlan:
+    """The launch plan of ``robust_kernel`` for an ``(n, p)`` plane of
+    ``dtype``, tables ``dmax`` slots wide and the rule ``op``.
+
+    The widest tile of 256, 128, 64 or 32 columns (a multiple of a unit's
+    ``32 · robust_cols(slots, op)``) whose n rows let two blocks share an
+    SM's shared memory (with each warp's 8-byte-a-slot table beside
+    them); where none fits (n above some 880 rows in f32, 1,760 in bf16,
+    half that for a two-column median), 256 columns a block gathered from
+    global memory.  The VGG-16 and FFN planes (n = 33): 256 columns, staged,
+    33.8 KB a tile in f32."""
+    if n < 1 or p < 0 or dmax < 0:
+        raise ValueError(f"robust_plan needs n >= 1, P >= 0, dmax >= 0, "
+                         f"got {n}, {p}, {dmax}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"robust_plan takes float32 or bfloat16, got {dtype}")
+    slots = next((s for s in ROBUST_SLOTS if dmax <= s), None)
+    if slots is None:
+        raise ValueError(
+            f"gossip_robust: table width dmax={dmax} is wider than the "
+            f"widest kernel instantiation ({ROBUST_SLOTS[-1]} slots); a node "
+            f"with that many neighbours needs a wider instantiation in "
+            f"csrc/gossip_robust.cu")
+    itemsize = 4 if dtype == torch.float32 else 2
+    table = ROBUST_WARPS * slots * 8
+    for tile in ROBUST_TILES:
+        if tile % (32 * robust_cols(slots, op)):
+            continue
+        smem = n * tile * itemsize + table
+        if 2 * (smem + SMEM_RESERVED) <= SMEM_PER_SM:
+            staged = True
+            break
+    else:
+        tile, smem, staged = ROBUST_TILES[0], table, False
+    bps = min(BLOCKS_PER_SM, THREADS_PER_SM // (32 * ROBUST_WARPS),
+              SMEM_PER_SM // (smem + SMEM_RESERVED))
+    return RobustPlan(tile, staged, slots, _cdiv(p, tile), smem, bps)
 
 
 def gossip_robust_ref(plane: torch.Tensor, weights: torch.Tensor,
@@ -501,14 +586,9 @@ def gossip_robust(plane: torch.Tensor, weights: torch.Tensor,
         return gossip_robust_ref(plane, weights, nbr_idx, op, trim_k,
                                  mix_in_float32)
     _check_cuda_tables(plane, weights, nbr_idx, "gossip_robust")
-    lib = _lib("gossip_robust")
     dmax = weights.shape[1]
-    if dmax > lib.gossip_robust_max_slots():
-        raise ValueError(
-            f"gossip_robust: table width dmax={dmax} is wider than the "
-            f"widest kernel instantiation ({lib.gossip_robust_max_slots()} "
-            f"slots); a node with that many neighbours needs a wider "
-            f"instantiation in csrc/gossip_robust.cu")
+    plan = robust_plan(n, p, dmax, plane.dtype, op)
+    lib = _lib("gossip_robust")
     weights, nbr_idx = weights.contiguous(), nbr_idx.contiguous()
     ld = _check_cuda_plane(plane, "gossip_robust")
     out = _out_like(plane, ld)
@@ -518,13 +598,15 @@ def gossip_robust(plane: torch.Tensor, weights: torch.Tensor,
         rc = lib.gossip_robust_launch(
             weights.data_ptr(), nbr_idx.data_ptr(), plane.data_ptr(),
             out.data_ptr(), n, dmax, p, ld, _DTYPE_CODES[plane.dtype], lowp,
-            int(op == "median"), trim_k, stream)
+            int(op == "median"), trim_k, plan.c_args(), stream)
     _raise_on(rc, "gossip_robust")
     gossip_robust.launches += 1
+    gossip_robust.shapes[(n, p, str(plane.dtype)[6:], op)] += 1
     return out
 
 
 gossip_robust.launches = 0
+gossip_robust.shapes = collections.Counter()
 
 
 def mix_robust_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
@@ -605,12 +687,14 @@ def gossip_mix(blocks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                 _plan_args(r, k, m * n, blocks))
         _raise_on(rc, "gossip_mix")
         gossip_mix.launches += 1
+        gossip_mix.shapes[(r, k, m, n, str(blocks.dtype)[6:])] += 1
     elif out.numel():
         out.zero_()
     return out[0] if weights.ndim == 1 else out
 
 
 gossip_mix.launches = 0
+gossip_mix.shapes = collections.Counter()
 
 
 def mix_dense_rows(params, coeffs: torch.Tensor):

@@ -19,9 +19,9 @@ version :func:`mla_attention_ref` (the port of ``repro/kernels/ref.py``
 ``mla_attention_ref``) only for tensors on the CPU; a CUDA tensor launches
 its kernel or raises, and never falls back to the other kernel.
 ``mla_attention.launches`` counts the launches of either kernel (a plain
-int); ``mla_attention.kernel_launches`` counts them by kernel name.  Both
-are bumped at the one launch site, and a caller that resets one resets
-the other.
+int); ``mla_attention.kernel_launches`` counts them by kernel name and
+``mla_attention.shapes`` by shape and kernel.  All are bumped at the one
+launch site, and a caller that resets one resets the others.
 
 Mask: latent row t is seen by query s where ``t <= s`` and ``t < T``, as
 ``mla_attention_ref`` has it.  The Pallas kernel masks ``t < S`` over its
@@ -30,6 +30,7 @@ caller (prefill).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -188,8 +189,10 @@ def mla_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                            f"cudaError {rc}")
     mla_attention.launches += 1
     mla_attention.kernel_launches[kernel] += 1
+    mla_attention.shapes[(b, s, t, h, r, dr, kernel)] += 1
     return out
 
 
 mla_attention.launches = 0
 mla_attention.kernel_launches = {"mla_tc_kernel": 0, "mla_kernel": 0}
+mla_attention.shapes = collections.Counter()

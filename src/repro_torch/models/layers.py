@@ -20,7 +20,7 @@ Weight layouts are the reference's, behind the node axis:
 
 The RWKV-6 blocks live in ``models/ssm.py``.  The MoE and Mamba blocks,
 ``attention_apply`` and ``attention_decode`` are on no path of the port
-yet (ROADMAP Queue 1 items 1, 7 and 8).
+yet (ROADMAP Queue 1 [moe], [mamba] and [frontends]).
 """
 from __future__ import annotations
 

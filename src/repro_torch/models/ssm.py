@@ -14,7 +14,7 @@ carries a leading node axis N (stacked layers ``(N, L, ...)``, one layer
 with the node axis folded into the batch, one launch for the fleet; or
 the reference's own one-step scan body in a Python loop over time, which
 is what decode runs.  The Mamba half of the reference module is not
-ported yet (ROADMAP Queue 1 item 10).
+ported yet (ROADMAP Queue 1 [mamba]).
 """
 from __future__ import annotations
 

@@ -30,8 +30,8 @@ reference's one-step scan body, which decode always runs
 A ``moe`` config runs when it has no MoE layer: deepseek-v2 cut to its
 dense first layer (``n_layers <= first_k_dense``), or one with
 ``n_experts = 0``.  The MoE block, the hybrid family and the modality
-frontends raise ``NotImplementedError`` (ROADMAP Queue 1 items 1, 7
-and 8).
+frontends raise ``NotImplementedError`` (ROADMAP Queue 1 [moe], [mamba]
+and [frontends]).
 """
 from __future__ import annotations
 
@@ -84,17 +84,17 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "hybrid" or cfg.hybrid_ssm:
         raise NotImplementedError(
             f"{cfg.name}: the hybrid block (Mamba beside attention) is not "
-            f"ported yet (ROADMAP Queue 1 item 7)")
+            f"ported yet (ROADMAP Queue 1 [mamba])")
     if cfg.is_moe and cfg.n_layers > cfg.first_k_dense:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_layers - cfg.first_k_dense} of its "
             f"{cfg.n_layers} layers are MoE layers, and the MoE block "
-            f"(models/moe.py) is not ported yet (ROADMAP Queue 1 item 1); "
+            f"(models/moe.py) is not ported yet (ROADMAP Queue 1 [moe]); "
             f"a cut to its first {cfg.first_k_dense} dense layer(s) runs")
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            f"(ROADMAP Queue 1 item 8)")
+            f"(ROADMAP Queue 1 [frontends])")
 
 
 # ======================================================================
@@ -278,7 +278,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if "tokens" not in batch:
         raise NotImplementedError(
             "forward: only token inputs; the frontend stubs' embeddings are "
-            "not ported yet (ROADMAP Queue 1 item 8)")
+            "not ported yet (ROADMAP Queue 1 [frontends])")
     out, aux = forward_nodes(add_node_axis(params), cfg, batch["tokens"][None],
                              opts, return_hidden)
     return out[0], aux

@@ -209,7 +209,7 @@ def greedy_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
         raise NotImplementedError(
             "greedy_generate: temperature sampling draws from "
             "jax.random.categorical, whose stream the port does not "
-            "reproduce (ROADMAP Queue 1 item 11)")
+            "reproduce (ROADMAP Queue 1 [serving])")
     b, s0 = prompt.shape
     max_seq = max_seq or (s0 + n_new)
     cache = init_cache(cfg, b, max_seq, device=prompt.device)

@@ -4,6 +4,8 @@ build).  This file imports no JAX, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -191,6 +193,116 @@ def test_robust_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="widest kernel instantiation"):
         tk.gossip_robust(pt, w.cuda(), idx.cuda())
     assert tk.gossip_robust.launches == before
+
+
+def _counts_case(counts, dmax, n, p, seed):
+    """(plane, w, idx): row i with ``counts[i % len(counts)]`` occupied
+    slots scattered over ``dmax`` slots whose indices repeat source rows
+    (ties with other weights); rows 1, 2, 3 NaN, +Inf, -Inf in part."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, size=(n, dmax)).astype(np.int32)
+    w = np.zeros((n, dmax), np.float32)
+    for i in range(n):
+        cnt = counts[i % len(counts)]
+        w[i, rng.choice(dmax, size=cnt, replace=False)] = (
+            rng.random(cnt).astype(np.float32) + 0.05)
+    plane = rng.standard_normal((n, p)).astype(np.float32)
+    plane[1] = np.nan
+    plane[2, ::2] = np.inf
+    plane[3, 1::3] = -np.inf
+    return plane, torch.as_tensor(w), torch.as_tensor(idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,f32", [(torch.float32, True),
+                                       (torch.bfloat16, True),
+                                       (torch.bfloat16, False)])
+@pytest.mark.parametrize("op,trim_k", [("trimmed", 1), ("trimmed", 2),
+                                       ("median", 0)])
+@pytest.mark.parametrize("n,p,dmax", [
+    (40, 1003, 64),   # every count bucket's edges; P not a tile or vector
+    (12, 37, 16),     # buckets up to 16, one ragged tile
+    (1000, 515, 8),   # 32 columns of 1000 f32 rows do not fit: gathers
+])
+def test_robust_kernel_at_count_buckets_on_the_card(dtype, f32, op, trim_k,
+                                                    n, p, dmax):
+    """Rows with 0, 1, 4, 5, 8, 9, 16, 17 and 64 occupied slots (as far as
+    the table width allows) on planes with NaN/±Inf rows, a P that is no
+    multiple of the tile or of the 16-byte vector, and an n whose tile
+    does not fit shared memory in f32 (the kernel gathers from global
+    memory there): bit for bit the plain version, one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    counts = [c for c in (0, 1, 4, 5, 8, 9, 16, 17, 64) if c <= dmax]
+    plane, w, idx = _counts_case(counts, dmax, n, p, n + p)
+    pt = aligned_plane(n, p, dtype, "cuda")
+    pt.copy_(torch.as_tensor(plane))
+    plan = tk.robust_plan(n, p, dmax, dtype, op)
+    if n == 1000 and dtype == torch.float32:
+        assert not plan.staged
+    w, idx = w.cuda(), idx.cuda()
+    before = tk.gossip_robust.launches
+    got = tk.gossip_robust(pt, w, idx, op, trim_k, f32)
+    torch.cuda.synchronize()
+    assert tk.gossip_robust.launches == before + 1
+    ref = tk.gossip_robust_ref(pt, w, idx, op, trim_k, f32)
+    assert got.dtype == dtype and _same(got.float(), ref.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tk.ROBUST_TILES)
+def test_robust_kernel_under_every_tile_width_on_the_card(tile):
+    """The C entry under each tile width the plan may choose (a staged
+    tile of 33 rows), the trimmed mean: bit for bit the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    plane, w, idx = _robust_case(33, 1001, 2)
+    pt = aligned_plane(33, 1001, torch.float32, "cuda")
+    pt.copy_(torch.as_tensor(plane))
+    w, idx = w.cuda(), idx.cuda()
+    best = tk.robust_plan(33, 1001, idx.shape[1], torch.float32)
+    assert tk.robust_cols(best.slots, "trimmed") == 1
+    plan = tk.RobustPlan(tile, True, best.slots, -(-1001 // tile),
+                         33 * tile * 4 + tk.ROBUST_WARPS * best.slots * 8, 0)
+    out = tk._out_like(pt, pt.stride(0))
+    rc = tk._lib("gossip_robust").gossip_robust_launch(
+        w.data_ptr(), idx.data_ptr(), pt.data_ptr(), out.data_ptr(), 33,
+        idx.shape[1], 1001, pt.stride(0), 0, 0, 0, 1, plan.c_args(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert _same(out, tk.gossip_robust_ref(pt, w, idx, "trimmed", 1))
+
+
+@pytest.mark.cuda
+def test_robust_kernel_refuses_a_plan_for_other_operands_on_the_card():
+    """A plan whose grid leaves columns out, whose slots are narrower than
+    the table, whose shared bytes are not the layout's, or whose tile the
+    median's unit of two 32-column halves does not divide, is refused
+    before any launch (cudaErrorInvalidValue)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    plane, w, idx = _robust_case(33, 1001, 2)
+    pt = aligned_plane(33, 1001, torch.float32, "cuda")
+    pt.copy_(torch.as_tensor(plane))
+    w, idx = w.cuda(), idx.cuda()
+    good = tk.robust_plan(33, 1001, idx.shape[1], torch.float32)
+    out = tk._out_like(pt, pt.stride(0))
+    fields = ("tile_cols", "staged", "slots", "grid", "smem_bytes",
+              "blocks_per_sm")
+    narrow = {"tile_cols": 32, "grid": -(-1001 // 32),
+              "smem_bytes": 33 * 32 * 4 + tk.ROBUST_WARPS * good.slots * 8}
+    assert tk.robust_cols(good.slots, "median") == 2
+    for change, median in (({"grid": good.grid - 1}, 0), ({"slots": 8}, 0),
+                           ({"smem_bytes": good.smem_bytes + 16}, 0),
+                           (narrow, 1)):
+        bad = tk.RobustPlan(**{f: change.get(f, getattr(good, f))
+                               for f in fields})
+        rc = tk._lib("gossip_robust").gossip_robust_launch(
+            w.data_ptr(), idx.data_ptr(), pt.data_ptr(), out.data_ptr(), 33,
+            idx.shape[1], 1001, pt.stride(0), 0, 0, median, 1 - median,
+            bad.c_args(), torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, change
 
 
 # ----------------------------------------------------------------------
@@ -406,6 +518,95 @@ def test_rwkv_kernel_refuses_what_it_cannot_take():
     wide = torch.cat([r, r], -1)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tscan.rwkv_scan(wide, k, v, w, u, st)
+    assert tscan.rwkv_scan.launches == before
+
+
+def _rwkv_gate(y, sf, yr, sr):
+    y_tol = RWKV_REL_TOL * float(yr.float().abs().max())
+    if y.dtype == torch.float32:
+        ok = float((y - yr).abs().max()) <= y_tol
+    else:
+        ok = bool(((y.float() - yr.float()).abs()
+                   <= _bf16_ulp(yr.float()) + y_tol).all())
+    return ok and float((sf - sr).abs().max()) <= RWKV_REL_TOL * float(
+        sr.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hd", [
+    (1, 40, 2, 64),     # B * H far below 132
+    (4, 33, 40, 64),    # B * H = 160, above 132
+    (3, 200, 70, 32),   # hd 32, B * H = 210
+    (2, 15, 3, 32),     # shorter than a 16-step chunk
+    (1, 16, 1, 64),     # exactly one chunk
+])
+def test_rwkv_kernel_under_every_column_block_on_the_card(dtype, b, s, h,
+                                                          hd):
+    """The C entry under each column block the kernel has (8, 16 and 32
+    columns a block where they make whole warps, so a head's columns split
+    at every edge the plan may choose) and the plan's own choice through
+    the wrapper: within the gates of
+    ``test_rwkv_kernel_matches_plain_version_on_the_card``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    r, k, v, w, u, st = _rwkv_case(b, s, h, hd, s + h, dtype)
+    yr, sr = tscan.rwkv_scan_ref(r, k, v, w, u, st)
+    y, sf = tscan.rwkv_scan(r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    assert _rwkv_gate(y, sf, yr, sr)
+    strides = (ctypes.c_longlong * 17)(
+        *(x for t in (r, k, v, w, y) for x in t.stride()[:3]), 0,
+        u.stride(0))
+    for cb in tscan.COL_BLOCKS:
+        threads = tscan._threads(hd, cb)
+        if threads is None:
+            continue   # no such block for this head dim
+        plan = tscan.ScanPlan(cb, threads,
+                              tscan._smem_bytes(hd, cb, r.element_size()),
+                              hd // cb, 0)
+        y2, s2 = torch.empty_like(y), torch.empty_like(sf)
+        rc = tscan._lib().rwkv_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), st.data_ptr(), y2.data_ptr(), s2.data_ptr(),
+            strides, 0 if dtype == torch.float32 else 1, b, s, h, hd,
+            plan.c_args(), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0, cb
+        assert _rwkv_gate(y2, s2, yr, sr), cb
+
+
+@pytest.mark.cuda
+def test_rwkv_kernel_refuses_a_plan_for_other_operands_on_the_card():
+    """A plan whose threads, shared bytes or column groups do not match
+    its column block and head dim, or whose column block the kernel has
+    no instantiation for, is refused before any launch; rows of r that do
+    not start on 16-byte boundaries are refused by the wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    r, k, v, w, u, st = _rwkv_case(1, 20, 2, 64, 1, torch.float32)
+    y, sf = torch.empty_like(r), torch.empty_like(st)
+    strides = (ctypes.c_longlong * 17)(
+        *(x for t in (r, k, v, w, y) for x in t.stride()[:3]), 0,
+        u.stride(0))
+    good = tscan.scan_plan(1, 2, 64, torch.float32, 132)
+    for fields in ((good.col_block, good.threads + 32, good.smem_bytes,
+                    good.groups),
+                   (good.col_block, good.threads, good.smem_bytes + 16,
+                    good.groups),
+                   (good.col_block, good.threads, good.smem_bytes, 1),
+                   (4, 32, good.smem_bytes, 16)):
+        rc = tscan._lib().rwkv_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), st.data_ptr(), y.data_ptr(), sf.data_ptr(),
+            strides, 0, 1, 20, 2, 64, (ctypes.c_longlong * 4)(*fields),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, fields
+    before = tscan.rwkv_scan.launches
+    odd = torch.empty((1, 20, 2, 65), device="cuda")[..., 1:]
+    odd.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        tscan.rwkv_scan(odd, k, v, w, u, st)
     assert tscan.rwkv_scan.launches == before
 
 
