@@ -94,6 +94,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``mix_impl="sparse"`` on ring(33), where the schedule holds, for
    ``degree`` and ``metropolis``, within 3 of 512 eval samples per node of
    the fused plane on the same graph;
+13. (between 7 and 8) every strategy and link failure at the phase-3
+   scale, on the card batches of phases 6-7: Fig. 4's ``fl``,
+   ``weighted``, ``random`` and ``betweenness`` through the fused plane
+   (exactly R launches each; ``random``'s R matrices row-stochastic on
+   adj + I and not all equal; betweenness's OOD AUC above phase 3's
+   unweighted), one line with all six OOD AUCs; ``degree`` at p_fail 0.3,
+   nominal and reactive, its coefficient program's matrices through
+   ``coeffs_fn`` and the edge-list kernel (exactly R launches, every
+   round row-stochastic with its support inside that round's survivors +
+   I, edges dropped), the reactive program 3 rounds through both kernels
+   within 3 of 512 eval samples; then Fig. 6's SB(33, 3, 0.5, p_out)
+   graphs for p_out 0.009, 0.05, 0.9 (modularity, connected) and, on the
+   most modular, ``unweighted`` and ``degree`` with the OOD data on its
+   highest-degree node (its own batches on the card);
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
 
@@ -116,9 +130,12 @@ and a latent shorter than the queries (T = 600 < S = 1024, all bf16),
 with one SDPA call over [q_lat || q_rope] and [c_kv || k_rope] as the
 library yardstick; a bf16 latent runs on the tensor cores
 (``mla_tc_kernel``, bounded at the bf16 tensor-core peak), an f32 one on
-the CUDA cores (``mla_kernel``, at the f32 peak).
+the CUDA cores (``mla_kernel``, at the f32 peak).  The small card-vs-CPU
+check before phase 3 (n = 8, R = 2) runs ``degree`` through every backend
+and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
+through the fused plane and the edge list.
 
-Phases 3, 4, 6, 7, 8, 9, 10, 11 and 12 are the main path: every launch
+Phases 3, 4, 6, 7, 13, 8, 9, 10, 11 and 12 are the main path: every launch
 counter is set to 0 just before each of them and read just after, and
 each prints its launches by kernel and by operand shape.  The script
 imports nothing of JAX.
@@ -518,14 +535,16 @@ def check_robust_kernel(gm, plane, w, idx, shape_name, plane_copy_ms):
 # ----------------------------------------------------------------------
 # phase 3: Algorithm 1 at paper scale, FFN
 # ----------------------------------------------------------------------
-def ffn_setup():
+def ffn_setup(topo=None):
+    """The quickstart scenario on BA(33, 2), or on ``topo``: OOD data on
+    the highest-degree node."""
     from repro_torch.core.topology import barabasi_albert
     from repro_torch.data.backdoor import backdoored_testset
     from repro_torch.data.distribution import node_datasets
     from repro_torch.data.pipeline import NodeBatcher, make_test_batch
     from repro_torch.data.synthetic import make_dataset
 
-    topo = barabasi_albert(N_NODES, 2, 0)
+    topo = barabasi_albert(N_NODES, 2, 0) if topo is None else topo
     ood = topo.kth_highest_degree_node(1)
     train = make_dataset("mnist", 20000, seed=0)
     test = make_dataset("mnist", 2000, seed=123)
@@ -538,7 +557,7 @@ def ffn_setup():
 
 
 def ffn_trainer(sc, strategy, mix_impl, rounds, eval_every, device="cuda",
-                **cfg):
+                coeffs_fn=None, **cfg):
     from repro_torch.core.decentralized import (
         DecentralizedConfig,
         DecentralizedTrainer,
@@ -556,7 +575,8 @@ def ffn_trainer(sc, strategy, mix_impl, rounds, eval_every, device="cuda",
         classifier_loss(ffn_apply), classifier_accuracy(ffn_apply),
         DecentralizedConfig(rounds=rounds, local_epochs=5,
                             eval_every=eval_every, mix_impl=mix_impl, **cfg),
-        data_counts=sc["batcher"].data_counts(), device=device)
+        data_counts=sc["batcher"].data_counts(), coeffs_fn=coeffs_fn,
+        device=device)
 
 
 def ffn_params(device="cuda"):
@@ -597,15 +617,23 @@ def small_device_check():
         test_iid=make_test_batch(test, 200),
         test_ood=make_test_batch(backdoored_testset(test), 200))
     worst = 0.0
-    for impl, robust in (("einsum", "mean"), ("pallas", "mean"),
-                         ("edges", "mean"), ("edges", "trimmed"),
-                         ("sparse", "mean")):
+    cases = [("degree", impl, robust, 0.0)
+             for impl, robust in (("einsum", "mean"), ("pallas", "mean"),
+                                  ("edges", "mean"), ("edges", "trimmed"),
+                                  ("sparse", "mean"))]
+    cases += [(kind, impl, "mean", p_fail)
+              for kind, p_fail in (("betweenness", 0.0), ("random", 0.0),
+                                   ("degree", 0.3))
+              for impl in ("pallas", "edges")]
+    for strategy, impl, robust, p_fail in cases:
         hists = []
         for device in ("cuda", "cpu"):
             params = stack_params([ffn_init(torch.Generator().manual_seed(0),
                                             device=device)] * 8)
-            tr = ffn_trainer(sc, "degree", impl, 2, 1, device=device,
-                             robust=robust)
+            coeffs_fn = (linkfail_coeffs_fn(sc, strategy, p_fail, True, 2)
+                         if p_fail else None)
+            tr = ffn_trainer(sc, strategy, impl, 2, 1, device=device,
+                             coeffs_fn=coeffs_fn, robust=robust)
             hists.append(tr.run(params, sc["batcher"].round_batches,
                                 sc["test_iid"], sc["test_ood"])[1])
         for h in hists[0]:
@@ -614,9 +642,26 @@ def small_device_check():
     # card vs CPU differ only in summation order: at most one eval sample
     assert worst <= 1 + 1e-3, worst
     log(f"small input, card vs CPU, every backend (sparse: BA(8, 2) keeps "
-        f"its ring schedule) and the robust kernel: "
+        f"its ring schedule), the robust kernel, and betweenness, random "
+        f"and reactive degree at p_fail 0.3 through pallas and edges: "
         f"max per-node drift "
         f"{worst:.0f} of 200 eval samples (limit 1)")
+
+
+def linkfail_coeffs_fn(sc, strategy, p_fail, reactive, rounds):
+    """The legacy loop of ``ablations.run_link_failure``: a coefficient
+    program with ``p_fail`` (reactive: centralities recomputed on each
+    round's survivor), its rounds materialized once and handed to the
+    trainer as ``coeffs_fn``."""
+    from repro_torch.core.coeffs import program_for
+    from repro_torch.core.strategies import AggregationStrategy
+
+    program, state = program_for(
+        sc["topo"], AggregationStrategy(strategy, tau=0.1),
+        data_counts=sc["batcher"].data_counts(), p_fail=p_fail,
+        reactive=reactive)
+    stack = program.materialize(state, rounds)
+    return stack.__getitem__
 
 
 def run_ffn(sc, gm):
@@ -969,6 +1014,143 @@ def run_faults(sc, gm, batches):
         rate, fseed, {r: (round(out[f"signflip_{r}"]["iid_auc"], 4),
                           round(out[f"signflip_{r}"]["ood_auc"], 4))
                       for r in ("mean", "median", "trimmed")}))
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 13: every strategy, link failure, the modular graphs (FFN)
+# ----------------------------------------------------------------------
+SB_P_OUTS = (0.009, 0.05, 0.9)
+
+
+def ffn_run(sc, strategy, mix_impl, batches, counter, rounds=ROUNDS,
+            eval_every=4, coeffs_fn=None):
+    """One trainer run from the phase-3 init on the card's batches:
+    ``(trainer, history, result)``, exactly one ``counter`` launch a
+    round."""
+    import torch
+
+    from repro_torch.core.propagation import accuracy_auc
+
+    tr = ffn_trainer(sc, strategy, mix_impl, rounds, eval_every,
+                     coeffs_fn=coeffs_fn)
+    before = counter.launches
+    t0 = time.perf_counter()
+    _, hist = tr.run(ffn_params(), batches.__getitem__, sc["test_iid"],
+                     sc["test_ood"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counter.launches - before
+    assert launches == rounds, (strategy, mix_impl, launches)
+    return tr, hist, {"mix_impl": mix_impl,
+                      "iid_auc": accuracy_auc(hist, "iid"),
+                      "ood_auc": accuracy_auc(hist, "ood"),
+                      "s_per_round": secs / rounds, "launches": launches}
+
+
+def run_strategies(sc, gm, batches, ffn_res):
+    """Phase 13 (a): Fig. 4's other four strategies at paper scale through
+    the fused plane, beside phase 3's ``unweighted`` and ``degree``."""
+    import numpy as np
+
+    out = {}
+    for strategy in ("fl", "weighted", "random", "betweenness"):
+        tr, _, res = ffn_run(sc, strategy, "pallas", batches, gm.gossip_plane)
+        log(f"ffn {strategy} " + json.dumps(res))
+        out[strategy] = res
+        if strategy == "random":
+            c = tr.coeffs_stack()
+            support = sc["topo"].adjacency + np.eye(N_NODES) > 0
+            assert c.shape == (ROUNDS, N_NODES, N_NODES)
+            assert np.allclose(c.sum(-1), 1.0, atol=1e-6)
+            assert bool((c >= 0).all()) and not bool((c[:, ~support] > 0).any())
+            assert any(not np.array_equal(c[0], c[r]) for r in range(1, ROUNDS))
+            log(f"ffn random: {ROUNDS} row-stochastic matrices on adj + I, "
+                f"{len({c[r].tobytes() for r in range(ROUNDS)})} distinct")
+    # the paper's claim for its second topology-aware kind (phase 3 holds
+    # degree to the same gate)
+    assert out["betweenness"]["ood_auc"] > ffn_res["unweighted"]["ood_auc"], \
+        (out["betweenness"], ffn_res["unweighted"])
+    aucs = {k: round(v["ood_auc"], 4) for k, v in
+            list(ffn_res.items()) + list(out.items())}
+    log(f"fig4 OOD AUC, six strategies (BA(33, 2), OOD on the hub, R = "
+        f"{ROUNDS}): {json.dumps(aucs)}")
+    return out
+
+
+def run_linkfail(sc, gm, batches, ffn_res, rounds=ROUNDS):
+    """Phase 13 (b): ``degree`` at p_fail 0.3, nominal and reactive, its
+    program's matrices through ``coeffs_fn`` and the edge-list kernel."""
+    import numpy as np
+
+    from repro_torch.core import prng
+    from repro_torch.core.dynamic import edge_mask
+
+    adj = sc["topo"].adjacency
+    p_fail = 0.3
+    out = {}
+    for reactive in (False, True):
+        fn = linkfail_coeffs_fn(sc, "degree", p_fail, reactive, rounds)
+        tr, _, res = ffn_run(sc, "degree", "edges", batches, gm.gossip_edges,
+                             rounds=rounds, coeffs_fn=fn)
+        dropped = 0
+        for r in range(rounds):
+            c = fn(r)
+            keep = edge_mask(prng.fold_in(prng.fold_in(prng.key(0), r), 0),
+                             N_NODES, p_fail)
+            surv = adj * keep
+            dropped += int((adj - surv).sum()) // 2
+            assert np.allclose(c.sum(-1), 1.0, atol=1e-6), r
+            assert not bool((c[surv + np.eye(N_NODES) == 0] > 0).any()), r
+        assert dropped > 0
+        res.update(p_fail=p_fail, reactive=reactive,
+                   edges_dropped_per_round=dropped / rounds)
+        label = "reactive" if reactive else "nominal"
+        log(f"ffn degree p_fail={p_fail} {label} " + json.dumps(res))
+        out[label] = res
+    # the reactive program through the fused plane against the edge list
+    fn = linkfail_coeffs_fn(sc, "degree", p_fail, True, 3)
+    hists = [ffn_run(sc, "degree", impl, batches, counter, rounds=3,
+                     eval_every=1, coeffs_fn=fn)[1]
+             for impl, counter in (("edges", gm.gossip_edges),
+                                   ("pallas", gm.gossip_plane))]
+    drift = max_drift_samples(*hists, 512)
+    assert drift <= 3 + 1e-3, drift
+    log(f"ffn degree p_fail={p_fail} reactive, 3 rounds edges/pallas: max "
+        f"per-node drift {drift:.0f} of 512 eval samples (limit 3)")
+    log("ffn degree OOD AUC under link failure: p_fail 0 (phase 3) "
+        f"{ffn_res['degree']['ood_auc']:.4f}, p_fail {p_fail} nominal "
+        f"{out['nominal']['ood_auc']:.4f}, reactive "
+        f"{out['reactive']['ood_auc']:.4f}")
+    return out
+
+
+def run_sb(gm, rounds=ROUNDS):
+    """Phase 13 (c): Fig. 6's SB(33, 3, 0.5, p_out) graphs; on the most
+    modular one, ``unweighted`` and ``degree`` with the OOD data on its
+    highest-degree node."""
+    from repro_torch.core.topology import stochastic_block
+
+    out = {}
+    for p_out in SB_P_OUTS:
+        topo = stochastic_block(N_NODES, 3, 0.5, p_out, 0)
+        assert topo.is_connected(), p_out
+        out[f"pout{p_out}"] = {"modularity": topo.modularity(),
+                               "connected": topo.is_connected(),
+                               "edges": topo.n_edges}
+    log(f"sb(33, 3, 0.5, p_out) seed 0: {json.dumps(out)}")
+    sc = ffn_setup(stochastic_block(N_NODES, 3, 0.5, SB_P_OUTS[0], 0))
+    batches = device_batches(sc, rounds)
+    for strategy in ("unweighted", "degree"):
+        _, _, res = ffn_run(sc, strategy, "pallas", batches, gm.gossip_plane,
+                            rounds=rounds)
+        res["ood_node"] = sc["ood"]
+        log(f"sb pout{SB_P_OUTS[0]} ffn {strategy} " + json.dumps(res))
+        out[strategy] = res
+    del batches
+    log(f"sb pout{SB_P_OUTS[0]} OOD AUC: unweighted "
+        f"{out['unweighted']['ood_auc']:.4f}, degree "
+        f"{out['degree']['ood_auc']:.4f} (no gate on the order)")
     return out
 
 
@@ -2581,8 +2763,14 @@ def main() -> int:
     main_path("ffn_robust", run_robust_ffn, ffn_sc, gm, batches,
               ffn_res["degree"])
     main_path("ffn_faults", run_faults, ffn_sc, gm, batches)
+    t13 = time.perf_counter()
+    main_path("ffn_strategies", run_strategies, ffn_sc, gm, batches, ffn_res)
+    main_path("ffn_linkfail", run_linkfail, ffn_sc, gm, batches, ffn_res)
     del batches
     torch.cuda.empty_cache()
+    main_path("sb_modularity", run_sb, gm)
+    log(f"phase 13 (strategies, link failure, SB graphs): "
+        f"{time.perf_counter() - t13:.1f} s")
     flash_main = next(c for c in cases
                       if c["name"] == "flash_attention" and c["main"])
     assert flash_main["shape"] == [SERVE_NODES, LONG_PREFILL, 32, 32, 64]

@@ -39,7 +39,9 @@ equal the reference's.
 Mixing matrices come from the f32 coefficient program for its kinds
 (``core/coeffs.py``) and from the float64 host path
 (``core.strategies.mixing_matrix``, cast to f32) for the others
-(``metropolis``), as the reference's ``round_coeffs`` does.
+(``metropolis``), as the reference's ``round_coeffs`` does; a
+``coeffs_fn(round) -> matrix`` given to the trainer (link-failure
+schedules, a program with ``p_fail > 0``) overrides both.
 """
 from __future__ import annotations
 
@@ -109,6 +111,7 @@ class DecentralizedConfig:
     rounds: int = 40           # R in the paper
     local_epochs: int = 5      # E in the paper
     eval_every: int = 1
+    resample_random_each_round: bool = True   # the Random baseline redraws
     # True: Eq. (2) accumulates in f32 whatever the param dtype; False:
     # in the native param/plane dtype (the low-precision ablation)
     mix_in_float32: bool = True
@@ -143,26 +146,36 @@ class RoundMetrics:
 # mixing-matrix schedules
 # ----------------------------------------------------------------------
 def round_coeffs(topo: Topology, strategy: AggregationStrategy,
-                 round_idx: int,
-                 data_counts: Optional[np.ndarray] = None) -> np.ndarray:
+                 round_idx: int, data_counts: Optional[np.ndarray] = None,
+                 coeffs_fn: Optional[Callable[[int], np.ndarray]] = None,
+                 resample_random: bool = True) -> np.ndarray:
     """(n, n) f32 mixing matrix for one round, as the reference builds
-    it: the f32 coefficient program for its kinds, else the float64 host
-    matrix cast to f32 (the reference runs with x64 off, so its matrix
-    reaches the mix as f32)."""
+    it: ``coeffs_fn(round_idx)`` when given, else the f32 coefficient
+    program for its kinds (``random`` redraws each round unless
+    ``resample_random`` is False), else the float64 host matrix cast to
+    f32 (the reference runs with x64 off, so its matrix reaches the mix
+    as f32)."""
+    if coeffs_fn is not None:
+        return np.asarray(coeffs_fn(round_idx), dtype=np.float32)
     if strategy.kind in PROGRAM_KINDS:
-        program, state = program_for(topo, strategy, data_counts=data_counts)
+        program, state = program_for(topo, strategy, data_counts=data_counts,
+                                     resample_random=resample_random)
         return program.materialize(
             state, round_indices=np.array([round_idx]))[0]
     return mixing_matrix(topo, strategy, data_counts).astype(np.float32)
 
 
 def coeffs_stack(topo: Topology, strategy: AggregationStrategy, rounds: int,
-                 data_counts: Optional[np.ndarray] = None) -> np.ndarray:
+                 data_counts: Optional[np.ndarray] = None,
+                 coeffs_fn: Optional[Callable[[int], np.ndarray]] = None,
+                 resample_random: bool = True) -> np.ndarray:
     """(R, n, n) f32 stack of per-round mixing matrices."""
-    if strategy.kind in PROGRAM_KINDS:
-        program, state = program_for(topo, strategy, data_counts=data_counts)
+    if coeffs_fn is None and strategy.kind in PROGRAM_KINDS:
+        program, state = program_for(topo, strategy, data_counts=data_counts,
+                                     resample_random=resample_random)
         return program.materialize(state, rounds)
-    return np.stack([round_coeffs(topo, strategy, r, data_counts)
+    return np.stack([round_coeffs(topo, strategy, r, data_counts, coeffs_fn,
+                                  resample_random)
                      for r in range(rounds)])
 
 
@@ -612,6 +625,10 @@ class DecentralizedTrainer:
       eval_fn: ``(params, test_batch) -> accuracy`` for ONE node.
       config: round/epoch counts and the mixing backend.
       data_counts: per-node sample counts (the ``weighted`` strategy).
+      coeffs_fn: ``round -> (n, n)`` matrix overriding the strategy's
+        (e.g. ``core.dynamic.link_failure_schedule`` or a link-failure
+        program's rounds); its round-0 support joins the static tables
+        of ``"edges"``/``"sparse"``, and later rounds may only shrink it.
       device: where the run happens; ``None`` is the CUDA card, and raises
         when there is none — pass ``"cpu"`` to run on the CPU.
     """
@@ -625,6 +642,7 @@ class DecentralizedTrainer:
         eval_fn: Callable,
         config: DecentralizedConfig = DecentralizedConfig(),
         data_counts: Optional[np.ndarray] = None,
+        coeffs_fn: Optional[Callable[[int], np.ndarray]] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -633,6 +651,7 @@ class DecentralizedTrainer:
         self.optimizer = optimizer
         self.config = config
         self.data_counts = data_counts
+        self.coeffs_fn = coeffs_fn
         mix_support = None
         if (config.mix_impl in ("sparse", "edges")
                 or config.robust in ("trimmed", "median")):
@@ -640,7 +659,7 @@ class DecentralizedTrainer:
             # kinds with off-neighbourhood weight (fl's dense 1/n) keep
             # their mass in the static tables
             n = topology.n_nodes
-            m0 = round_coeffs(topology, strategy, 0, data_counts)
+            m0 = self._round_coeffs(0)
             mix_support = np.maximum(
                 topology.adjacency + np.eye(n),
                 (np.abs(np.asarray(m0)) > 1e-12).astype(np.float64))
@@ -654,18 +673,22 @@ class DecentralizedTrainer:
         self._eval_fn = torch.func.vmap(eval_fn, in_dims=(0, None))
 
     # ------------------------------------------------------------------
+    def _round_coeffs(self, r: int) -> np.ndarray:
+        return round_coeffs(self.topology, self.strategy, r,
+                            self.data_counts, self.coeffs_fn,
+                            self.config.resample_random_each_round)
+
     def coeffs_for_round(self, r: int) -> torch.Tensor:
         """Mixing matrix for round r, on the trainer's device."""
-        return torch.as_tensor(
-            round_coeffs(self.topology, self.strategy, r, self.data_counts),
-            device=self.device)
+        return torch.as_tensor(self._round_coeffs(r), device=self.device)
 
     def coeffs_stack(self, rounds: Optional[int] = None) -> np.ndarray:
         """(R, n, n) stack of this run's per-round mixing matrices."""
         return coeffs_stack(
             self.topology, self.strategy,
             self.config.rounds if rounds is None else rounds,
-            self.data_counts)
+            self.data_counts, self.coeffs_fn,
+            self.config.resample_random_each_round)
 
     def _to_device(self, tree):
         return tree_util.tree_map(

@@ -1,6 +1,12 @@
-"""Per-round node dynamics: partial participation and Byzantine faults
-(port of ``ParticipationSpec`` and ``FaultSpec`` in
-``repro/core/dynamic.py``).
+"""Per-round dynamics: link failure, partial participation and Byzantine
+faults (port of ``repro/core/dynamic.py``).
+
+Link failure drops each undirected edge i.i.d. with probability
+``p_fail`` a round, in two forms as in the reference: the host schedules
+(:func:`drop_edges`, :func:`dynamic_mixing_matrix`,
+:func:`link_failure_schedule`, numpy's ``default_rng`` per round, float64)
+and the coefficient program's :func:`edge_mask` (the threefry ``(n, n)``
+uniform draw at fold index 0, mirrored from its upper triangle).
 
 Each spec is the static half of its layer; the per-run rate and seed ride
 in the carries of ``core.decentralized`` (``participation_carry_init``,
@@ -12,22 +18,29 @@ Random strategy).  They are drawn on the host as ``(n,)`` numpy bools and
 equal the reference's masks bit for bit.  Uniform draws lie in [0, 1), so
 rate 1.0 activates every node and fault rate 0.0 marks none, exactly.
 
-Link failure (``edge_mask``, ``drop_edges``, ``link_failure_schedule``)
-and the ``"noise"`` fault mode, which needs ``jax.random.normal``'s
-stream, wait for ROADMAP Queue 1 [links].
+The ``"noise"`` fault mode, which needs ``jax.random.normal``'s stream,
+waits for ROADMAP Queue 1 [links].
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core import prng
+from repro_torch.core.strategies import (
+    AggregationStrategy,
+    mixing_matrix,
+    renormalize_rows,
+)
+from repro_torch.core.topology import Topology
 
-__all__ = ["PARTICIPATION_MODES", "ParticipationSpec", "FAULT_MODES",
-           "FaultSpec"]
+__all__ = ["edge_mask", "drop_edges", "dynamic_mixing_matrix",
+           "link_failure_schedule", "PARTICIPATION_MODES",
+           "ParticipationSpec", "FAULT_MODES", "FaultSpec"]
 
 PARTICIPATION_MODES = ("bernoulli", "duty")
 FAULT_MODES = ("nan", "inf", "noise", "signflip", "zero")
@@ -124,3 +137,65 @@ class FaultSpec:
                                 device=leaf.device) * leaf
 
         return tree_util.tree_map(bad, stacked_params)
+
+
+# ----------------------------------------------------------------------
+# link failure
+# ----------------------------------------------------------------------
+def edge_mask(k: np.ndarray, n: int, p_fail) -> np.ndarray:
+    """(n, n) f32 symmetric 0/1 keep-mask under the threefry key ``k``: one
+    uniform draw per upper-triangle entry, mirrored, kept where ``u >=
+    p_fail`` (f32), the diagonal always kept.  ``p_fail = 0`` keeps every
+    edge exactly (draws lie in [0, 1))."""
+    u = np.triu(prng.uniform(k, (n, n)), k=1)
+    u = u + u.T
+    keep = (u >= np.float32(p_fail)) | np.eye(n, dtype=bool)
+    return keep.astype(np.float32)
+
+
+def drop_edges(topo: Topology, p_fail: float,
+               rng: np.random.Generator) -> Topology:
+    """Remove each undirected edge with probability ``p_fail`` (one
+    ``rng.random`` draw per upper-triangle pair).  The survivor may be
+    disconnected; every node keeps its self-loop in the mixing support."""
+    a = topo.adjacency.copy()
+    n = topo.n_nodes
+    iu = np.triu_indices(n, k=1)
+    mask = (a[iu] > 0) & (rng.random(len(iu[0])) < p_fail)
+    a[iu[0][mask], iu[1][mask]] = 0.0
+    a[iu[1][mask], iu[0][mask]] = 0.0
+    return Topology(a, name=f"{topo.name}_drop{p_fail}", seed=topo.seed)
+
+
+def dynamic_mixing_matrix(topo: Topology, strategy: AggregationStrategy,
+                          round_idx: int, p_fail: float,
+                          data_counts: Optional[np.ndarray] = None,
+                          reactive: bool = False) -> np.ndarray:
+    """Float64 mixing matrix for one round under link failure, the
+    survivor drawn from ``default_rng((seed·1_000_003 + r)·7919 + 17)``.
+
+    ``reactive=False``: nominal scores, the nominal matrix restricted to
+    the surviving support and renormalized (rows left with nothing fall
+    back to self-weight 1).  ``reactive=True`` (and the kinds without a
+    centrality): the strategy rebuilt on the survivor, so ``eigenvector``
+    raises ``topology.AmbiguousSolution`` on a disconnected survivor, as
+    the reference's networkx does."""
+    rng = np.random.default_rng(
+        (strategy.seed * 1_000_003 + round_idx) * 7919 + 17)
+    surv = drop_edges(topo, p_fail, rng)
+    if reactive or strategy.kind in ("unweighted", "weighted", "random",
+                                     "fl"):
+        return mixing_matrix(surv, strategy, data_counts=data_counts)
+    full = mixing_matrix(topo, strategy, data_counts=data_counts)
+    return renormalize_rows(full * (surv.adjacency + np.eye(topo.n_nodes)))
+
+
+def link_failure_schedule(topo: Topology, strategy: AggregationStrategy,
+                          rounds: int, p_fail: float,
+                          data_counts: Optional[np.ndarray] = None,
+                          reactive: bool = False) -> np.ndarray:
+    """(R, n, n) stack of :func:`dynamic_mixing_matrix` for rounds 0..R−1."""
+    return np.stack([
+        dynamic_mixing_matrix(topo, strategy, r, p_fail,
+                              data_counts=data_counts, reactive=reactive)
+        for r in range(rounds)])

@@ -9,14 +9,17 @@ threefry2x32 stream here, matching jax 0.9.0 with
 
 * ``key(s)`` is the pair ``(0, s)`` for a 32-bit seed;
 * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``;
-* ``uniform(k, n)`` hashes the counters ``(0, i)`` for ``i < n``, takes
-  ``bits = out0 ^ out1``, and reads ``(bits >> 9) | 0x3F800000`` as a
-  float32 in [1, 2), minus 1.
+* ``uniform(k, shape)`` hashes the counters ``(0, i)`` for each flat
+  (row-major) index ``i`` of the shape — the partitionable form's 64-bit
+  iota split into a high and a low word, the high word 0 below 2^32
+  values — takes ``bits = out0 ^ out1``, and reads ``(bits >> 9) |
+  0x3F800000`` as a float32 in [1, 2), minus 1.
 
-Masks are ``(n,)`` per round and depend only on seeds and the round
-index, so drawing them on the host costs no device synchronisation.
-``normal`` (the ``"noise"`` fault mode) is not ported yet (ROADMAP Queue 1
-[links]), nor ``categorical`` (temperature sampling, [serving]).
+Masks (``(n,)`` node masks, the ``(n, n)`` edge mask of
+``core.dynamic.edge_mask``) depend only on seeds and the round index, so
+drawing them on the host costs no device synchronisation.  ``normal``
+(the ``"noise"`` fault mode) is not ported yet (ROADMAP Queue 1 [links]),
+nor ``categorical`` (temperature sampling, [serving]).
 """
 from __future__ import annotations
 
@@ -66,9 +69,14 @@ def fold_in(k: np.ndarray, data: int) -> np.ndarray:
     return np.concatenate([out0, out1])
 
 
-def uniform(k: np.ndarray, n: int) -> np.ndarray:
-    """``jax.random.uniform(k, (n,))``: ``(n,)`` float32 in [0, 1)."""
-    b0, b1 = threefry2x32(k, np.zeros(n, np.uint32),
-                          np.arange(n, dtype=np.uint32))
+def uniform(k: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.uniform(k, shape)``: float32 in [0, 1); an int
+    ``shape`` means ``(shape,)``."""
+    shape = (int(shape),) if np.ndim(shape) == 0 else tuple(shape)
+    size = int(np.prod(shape, dtype=np.int64))
+    if size >= 2 ** 32:
+        raise ValueError(f"uniform draws fewer than 2**32 values, got {size}")
+    b0, b1 = threefry2x32(k, np.zeros(size, np.uint32),
+                          np.arange(size, dtype=np.uint32))
     bits = ((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)
-    return bits.view(np.float32) - np.float32(1.0)
+    return (bits.view(np.float32) - np.float32(1.0)).reshape(shape)

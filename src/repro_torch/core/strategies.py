@@ -6,17 +6,18 @@ Two paths, as in the reference:
   (``core/coeffs.py``) that ``coeffs_stack`` sends the program kinds
   through;
 * the host path: :func:`mixing_matrix` builds and validates the float64
-  numpy matrix of a kind (:data:`STRATEGIES`).  ``round_coeffs`` takes it
-  for kinds outside the coefficient program (``metropolis``), and the
-  mix-cost study (``benchmarks.gossip_cost``) for every matrix it builds,
-  as the reference's does.
+  numpy matrix of every kind in :data:`STRATEGIES`.  ``round_coeffs``
+  takes it for kinds outside the coefficient program (``metropolis``),
+  ``core.dynamic`` for the link-failure schedules, and the mix-cost study
+  (``benchmarks.gossip_cost``) for every matrix it builds, as the
+  reference's do.
 
 :func:`masked_softmax` and :func:`masked_normalize` take either tensors
-or numpy arrays and compute in their dtype.  Only the ``degree`` score is
-ported: betweenness, eigenvector, pagerank and closeness need networkx in
-the reference (ROADMAP Queue 1 [graphs]), and the ``random`` scores,
-which the reference's host path draws from numpy's ``default_rng(seed)``,
-wait for Queue 1 [links].
+or numpy arrays and compute in their dtype.  The centrality scores come
+from the networkx-free :class:`~repro_torch.core.topology.Topology`
+methods; the ``random`` scores from numpy's ``default_rng(seed)``, as the
+reference's host path draws them.  ``register_strategy`` (plug-in kinds)
+is not ported (ROADMAP Queue 1 [tooling]).
 """
 from __future__ import annotations
 
@@ -34,19 +35,23 @@ __all__ = [
     "masked_normalize",
     "renormalize_rows",
     "strategy_scores",
+    "random_round_seed",
     "unweighted",
     "weighted",
+    "random_coeffs",
     "fl",
     "degree",
+    "betweenness",
+    "eigenvector",
+    "pagerank",
+    "closeness",
     "metropolis_hastings",
     "STRATEGIES",
+    "TOPOLOGY_AWARE",
+    "TOPOLOGY_UNAWARE",
     "mixing_matrix",
     "validate_mixing_matrix",
 ]
-
-# the reference's kinds that need what the port does not have yet
-_UNPORTED = ("random", "betweenness", "eigenvector", "pagerank",
-             "closeness")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +62,23 @@ class AggregationStrategy:
     kind: str = "unweighted"
     tau: float = 0.1
     seed: int = 0
+
+    def matrix(self, topo: Topology, data_counts: Optional[np.ndarray] = None,
+               round_idx: Optional[int] = None) -> np.ndarray:
+        """The float64 host matrix, or with ``round_idx`` round r's f32
+        matrix as the trainer mixes with it
+        (``core.decentralized.round_coeffs``)."""
+        if round_idx is None:
+            return mixing_matrix(topo, self, data_counts=data_counts)
+        from repro_torch.core.decentralized import round_coeffs  # no cycle
+
+        return round_coeffs(topo, self, round_idx, data_counts=data_counts)
+
+
+def random_round_seed(seed: int, round_idx: int) -> int:
+    """Per-round seed mixing for the host-path ``random`` draw (the
+    trainer's stream is the coefficient program's threefry fold)."""
+    return seed * 100003 + round_idx
 
 
 def masked_softmax(scores, mask, tau):
@@ -112,17 +134,28 @@ def renormalize_rows(c):
                        torch.eye(n, dtype=c.dtype, device=c.device))
 
 
+_SCORE_FNS: Dict[str, Callable[[Topology, AggregationStrategy],
+                                np.ndarray]] = {
+    # degree / (n-1): networkx normalization, scores in [0, 1]
+    "degree": lambda t, s: t.degree() / max(t.n_nodes - 1, 1),
+    "betweenness": lambda t, s: t.betweenness(),
+    "eigenvector": lambda t, s: t.eigenvector(),
+    # pagerank mass is O(1/n); rescaled to [0, 1] like the others
+    "pagerank": lambda t, s: t.pagerank() / t.pagerank().max(),
+    "closeness": lambda t, s: t.closeness(),
+    "random": lambda t, s: np.random.default_rng(s.seed).uniform(
+        size=t.n_nodes),
+}
+
+
 def strategy_scores(topo: Topology,
                     strategy: AggregationStrategy) -> np.ndarray:
     """(n,) float64 per-node scores R_j for the softmax-scaled kinds."""
-    if strategy.kind == "degree":
-        # degree / (n-1): networkx normalization, scores in [0, 1]
-        return topo.degree() / max(topo.n_nodes - 1, 1)
-    raise NotImplementedError(
-        f"strategy {strategy.kind!r} has no ported score vector; of the "
-        f"softmax-scored kinds the port has 'degree' (ROADMAP Queue 1: "
-        f"[links] for 'random', [graphs] for the networkx-free "
-        f"centralities)")
+    if strategy.kind not in _SCORE_FNS:
+        raise KeyError(f"strategy {strategy.kind!r} has no score vector; "
+                       f"softmax-scored kinds: {sorted(_SCORE_FNS)}")
+    return np.asarray(_SCORE_FNS[strategy.kind](topo, strategy),
+                      dtype=np.float64)
 
 
 # ----------------------------------------------------------------------
@@ -151,6 +184,14 @@ def weighted(topo: Topology, strategy: AggregationStrategy,
     return masked_normalize(counts, _neighborhood_mask(topo))
 
 
+def random_coeffs(topo: Topology, strategy: AggregationStrategy,
+                  data_counts: Optional[np.ndarray] = None) -> np.ndarray:
+    """softmax(U(0, 1) / τ) within each neighbourhood, the draw fixed by
+    ``strategy.seed`` (per-round draws mix the seed first:
+    :func:`random_round_seed`)."""
+    return _softmax_kind(topo, strategy)
+
+
 def fl(topo: Topology, strategy: AggregationStrategy,
        data_counts: Optional[np.ndarray] = None) -> np.ndarray:
     """FedAvg best-case baseline: uniform over the whole topology."""
@@ -158,11 +199,41 @@ def fl(topo: Topology, strategy: AggregationStrategy,
     return np.full((n, n), 1.0 / n)
 
 
+def _softmax_kind(topo: Topology, strategy: AggregationStrategy
+                  ) -> np.ndarray:
+    return masked_softmax(strategy_scores(topo, strategy),
+                          _neighborhood_mask(topo), strategy.tau)
+
+
 def degree(topo: Topology, strategy: AggregationStrategy,
            data_counts: Optional[np.ndarray] = None) -> np.ndarray:
     """R_j = degree centrality of j; C[i, ·] = softmax_{N_i}(R / τ)."""
-    return masked_softmax(strategy_scores(topo, strategy),
-                          _neighborhood_mask(topo), strategy.tau)
+    return _softmax_kind(topo, strategy)
+
+
+def betweenness(topo: Topology, strategy: AggregationStrategy,
+                data_counts: Optional[np.ndarray] = None) -> np.ndarray:
+    """R_j = betweenness centrality of j (the paper's §4 choice)."""
+    return _softmax_kind(topo, strategy)
+
+
+def eigenvector(topo: Topology, strategy: AggregationStrategy,
+                data_counts: Optional[np.ndarray] = None) -> np.ndarray:
+    """R_j = eigenvector centrality of j (raises
+    ``topology.AmbiguousSolution`` on a disconnected graph)."""
+    return _softmax_kind(topo, strategy)
+
+
+def pagerank(topo: Topology, strategy: AggregationStrategy,
+             data_counts: Optional[np.ndarray] = None) -> np.ndarray:
+    """R_j = PageRank mass of j over the largest mass."""
+    return _softmax_kind(topo, strategy)
+
+
+def closeness(topo: Topology, strategy: AggregationStrategy,
+              data_counts: Optional[np.ndarray] = None) -> np.ndarray:
+    """R_j = closeness centrality of j."""
+    return _softmax_kind(topo, strategy)
 
 
 def metropolis_hastings(topo: Topology, strategy: AggregationStrategy,
@@ -180,24 +251,27 @@ def metropolis_hastings(topo: Topology, strategy: AggregationStrategy,
     return c
 
 
-#: the host-path kinds the port has (the reference's other kinds raise)
 STRATEGIES: Dict[str, Callable[..., np.ndarray]] = {
     "unweighted": unweighted,
     "weighted": weighted,
+    "random": random_coeffs,
     "fl": fl,
     "degree": degree,
+    "betweenness": betweenness,
     "metropolis": metropolis_hastings,
+    "eigenvector": eigenvector,
+    "pagerank": pagerank,
+    "closeness": closeness,
 }
+
+TOPOLOGY_AWARE = frozenset({"degree", "betweenness", "eigenvector",
+                            "pagerank", "closeness"})
+TOPOLOGY_UNAWARE = frozenset({"unweighted", "weighted", "random", "fl"})
 
 
 def mixing_matrix(topo: Topology, strategy: AggregationStrategy,
                   data_counts: Optional[np.ndarray] = None) -> np.ndarray:
     """Build and validate the (n, n) float64 row-stochastic matrix."""
-    if strategy.kind in _UNPORTED:
-        raise NotImplementedError(
-            f"strategy {strategy.kind!r} is not ported; host kinds: "
-            f"{sorted(STRATEGIES)} (ROADMAP Queue 1: [links] for 'random', "
-            f"[graphs] for the networkx-free centralities)")
     if strategy.kind not in STRATEGIES:
         raise KeyError(f"unknown strategy {strategy.kind!r}; have "
                        f"{sorted(STRATEGIES)}")

@@ -50,8 +50,25 @@ def test_coeffs_stack_matches_reference(kind, n, p, seed, tau):
     ("random", {}), ("betweenness", {}), ("metropolis", {}),
     ("degree", {"p_fail": 0.1}), ("degree", {"reactive": True})])
 def test_unported_programs_raise(kind, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        program_for(ttopo.ring(5), TStrategy(kind), **kwargs)
+    """The port raises where the reference's ``program_for`` raises, with
+    the same exception type: ``metropolis`` has no coefficient program
+    (KeyError).  The cells that once raised for want of a port now build
+    and equal the reference's matrices (to the degree kind's 1e-7 plus
+    one ulp above)."""
+    from repro.core.coeffs import program_for as jprogram_for
+
+    jt, tt = jtopo.ring(5), ttopo.ring(5)
+    try:
+        jprog, jstate = jprogram_for(jt, JStrategy(kind), **kwargs)
+    except Exception as exc:   # the reference's refusal
+        with pytest.raises(type(exc)):
+            program_for(tt, TStrategy(kind), **kwargs)
+        assert kind == "metropolis"
+        return
+    prog, state = program_for(tt, TStrategy(kind), **kwargs)
+    np.testing.assert_allclose(prog.materialize(state, 3),
+                               jprog.materialize(jstate, 3),
+                               rtol=2.0 ** -23, atol=1e-7)
 
 
 def _jax_trees():

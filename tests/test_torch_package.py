@@ -27,12 +27,13 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_imports_with_jax_and_repro_blocked():
-    """Every module of the port imports with ``jax`` and ``repro`` made
-    unimportable (``sys.modules[name] = None``), the kernel wrappers and
-    the model layers among them."""
+    """Every module of the port imports with ``jax``, ``repro`` and
+    ``networkx`` made unimportable (``sys.modules[name] = None``; the GPU
+    machine has no networkx), the kernel wrappers, the model layers, the
+    graph layer and the coefficient programs among them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "repro"):
+        for name in ("jax", "jaxlib", "repro", "networkx"):
             sys.modules[name] = None
         import repro_torch
         mods = [m.name for m in pkgutil.walk_packages(
@@ -41,10 +42,12 @@ def test_imports_with_jax_and_repro_blocked():
             importlib.import_module(m)
         for m in ("kernels.flash_attention", "kernels.ssm_scan",
                   "kernels.mla_attention", "kernels.gossip_mix",
-                  "models.layers", "benchmarks.gossip_cost"):
+                  "models.layers", "benchmarks.gossip_cost",
+                  "core.topology", "core.coeffs"):
             assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
-                        if k.split(".")[0] in ("jax", "jaxlib", "repro")
+                        if k.split(".")[0] in ("jax", "jaxlib", "repro",
+                                               "networkx")
                         and sys.modules[k] is not None)
         assert not leaked, leaked
         print(len(mods))

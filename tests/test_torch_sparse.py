@@ -205,11 +205,17 @@ def test_host_matrices_equal_reference(kind, i):
 
 
 def test_host_path_raises_for_what_it_lacks():
+    """Every reference kind has a host matrix now; what the host path
+    lacks is an answer where the reference has none: eigenvector
+    centrality on a disconnected graph (networkx: AmbiguousSolution)."""
     topo = ttopo.ring(5)
+    split = ttopo.from_adjacency(np.kron(np.eye(2), np.ones((3, 3)))
+                                 - np.eye(6))
     for kind in ("random", "betweenness", "eigenvector", "pagerank",
                  "closeness"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstrat.mixing_matrix(topo, tstrat.AggregationStrategy(kind))
+        tstrat.mixing_matrix(topo, tstrat.AggregationStrategy(kind))
+    with pytest.raises(ttopo.AmbiguousSolution):
+        tstrat.mixing_matrix(split, tstrat.AggregationStrategy("eigenvector"))
     with pytest.raises(KeyError):
         tstrat.mixing_matrix(topo, tstrat.AggregationStrategy("krum"))
     with pytest.raises(ValueError, match="data_counts"):
