@@ -108,6 +108,28 @@ Phases, in order; any failure raises and the script exits nonzero:
    graphs for p_out 0.009, 0.05, 0.9 (modularity, connected) and, on the
    most modular, ``unweighted`` and ``degree`` with the OOD data on its
    highest-degree node (its own batches on the card);
+14. (after 13, its card batches freed) the paper's grids through the
+   sweep engine (``repro_torch.core.sweep``) on phase 3's scenario:
+   (a) the kernels' experiment axis — ``gossip_plane`` at the FFN plane
+   with E = 6 and the VGG-16 plane with E = 2, ``gossip_edges`` and
+   ``gossip_robust`` (trimmed, median; NaN/±Inf rows) at the FFN plane
+   with E = 3, each one launch equal to E single launches bit for bit,
+   timed beside the singles and the byte bound; (b) Fig. 4 at paper
+   scale as ONE grid (six strategies, E = 6, through
+   ``benchmarks.common.run_sweep_cells`` and one batched ``gossip_plane``
+   launch a round): s/round, AUCs, the device syncs the run makes
+   (``torch.cuda.set_sync_debug_mode``), peak memory, ``fig4.verdict``,
+   each experiment's drift from its phase-3/13 single-trainer run; (c)
+   the same grid chunked with a checkpoint at each boundary, resumed from
+   round 20, and unrolled (cut to R = 20), each bit for bit the scanned
+   run; (d) ``ablations.run_link_failure``'s grid (unweighted, degree at
+   p_fail 0.3, nominal and reactive, matrices made in the round loop)
+   through batched ``gossip_edges``, the nominal program equal to its
+   materialized stack bit for bit, degree held by drift to phase 13; (e)
+   ``byzantine_cells`` at fault rates 0, 0.1, 0.2 through the batched
+   trimmed mean, ``"noise"`` faults with the quarantine screen and a
+   ``"nan"`` group with ``skip_nonfinite_updates(sgd)``, the rate-0
+   experiment held by drift to phase 6's trimmed run;
 5. the per-round time breakdowns, the kernel JSON line, the card line and
    the device line (last).
 
@@ -135,9 +157,10 @@ check before phase 3 (n = 8, R = 2) runs ``degree`` through every backend
 and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
-Phases 3, 4, 6, 7, 13, 8, 9, 10, 11 and 12 are the main path: every launch
-counter is set to 0 just before each of them and read just after, and
-each prints its launches by kernel and by operand shape.  The script
+Phases 3, 4, 6, 7, 13, 14 (b–e), 8, 9, 10, 11 and 12 are the main path:
+every launch counter is set to 0 just before each of them and read just
+after, and each prints its launches by kernel and by operand shape (a
+batched launch's shape starts ``E=<E>``).  The script
 imports nothing of JAX.
 """
 import dataclasses
@@ -177,6 +200,9 @@ MODULES = {"gossip_plane": "gossip_mix", "gossip_edges": "gossip_mix",
            "mla_attention": "mla_attention"}
 ROBUST_CHUNK = 1 << 19          # plain-version columns per chunk
 VGG_LEAVES, FFN_LEAVES = 35, 6
+# single-trainer histories of phases 3, 6 and 13 (per node, every 4th
+# round), which phase 14 holds its sweep grids' experiments to
+HISTORIES = {}
 
 
 def log(*args):
@@ -678,6 +704,7 @@ def run_ffn(sc, gm):
         _, hist = tr.run(ffn_params(), sc["batcher"].round_batches,
                          sc["test_iid"], sc["test_ood"])
         secs = time.perf_counter() - t0
+        HISTORIES[strategy] = hist
         launches = gm.gossip_plane.launches - before
         assert launches == 40, launches   # one kernel launch per mix
         res = {"iid_auc": accuracy_auc(hist, "iid"),
@@ -853,6 +880,7 @@ def run_robust_ffn(sc, gm, batches, mean_res):
         t0 = time.perf_counter()
         params, hist = tr.run(ffn_params(), batches.__getitem__,
                               sc["test_iid"], sc["test_ood"])
+        HISTORIES[f"robust_{robust}"] = hist
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = counter.launches - before
@@ -1055,7 +1083,8 @@ def run_strategies(sc, gm, batches, ffn_res):
 
     out = {}
     for strategy in ("fl", "weighted", "random", "betweenness"):
-        tr, _, res = ffn_run(sc, strategy, "pallas", batches, gm.gossip_plane)
+        tr, HISTORIES[strategy], res = ffn_run(sc, strategy, "pallas",
+                                               batches, gm.gossip_plane)
         log(f"ffn {strategy} " + json.dumps(res))
         out[strategy] = res
         if strategy == "random":
@@ -1091,8 +1120,9 @@ def run_linkfail(sc, gm, batches, ffn_res, rounds=ROUNDS):
     out = {}
     for reactive in (False, True):
         fn = linkfail_coeffs_fn(sc, "degree", p_fail, reactive, rounds)
-        tr, _, res = ffn_run(sc, "degree", "edges", batches, gm.gossip_edges,
-                             rounds=rounds, coeffs_fn=fn)
+        tr, HISTORIES[f"linkfail_{reactive}"], res = ffn_run(
+            sc, "degree", "edges", batches, gm.gossip_edges, rounds=rounds,
+            coeffs_fn=fn)
         dropped = 0
         for r in range(rounds):
             c = fn(r)
@@ -1152,6 +1182,449 @@ def run_sb(gm, rounds=ROUNDS):
         f"{out['unweighted']['ood_auc']:.4f}, degree "
         f"{out['degree']['ood_auc']:.4f} (no gate on the order)")
     return out
+
+
+# ----------------------------------------------------------------------
+# phase 14: the paper's grids through the sweep engine (FFN)
+# ----------------------------------------------------------------------
+SWEEP_CUT_ROUNDS = 20   # (c): the unrolled run and the resumed tail
+# per-node drift of an engine experiment from its single-trainer run, in
+# eval samples of 512 (max over nodes and eval rounds).  Measured on the
+# H100: 0 for all six Fig. 4 strategies, nominal and reactive link
+# failure and the Byzantine rate-0 run (LocalTrain over E·n folded nodes
+# and the batched mixes change no accuracy); pinned there
+SWEEP_DRIFT_SAMPLES = 0
+
+
+def batched_case(name, label, e, run, single, plain, lib, nbytes, ops,
+                 plane, extra=None):
+    """One batched kernel against E single launches of the same kernel on
+    the same operands (max abs err 0, NaN where they have NaN), with its
+    CUDA-event median, the E singles' time back to back, the plain
+    version's (E plain calls), the library call's and the byte bound."""
+    import torch
+
+    out = run()
+    singles = torch.stack([single(i) for i in range(e)])
+    torch.cuda.synchronize()
+    err = exact_err(out.float(), singles.float())
+    del out, singles
+    assert err == 0.0, (name, label, err)
+    bnd, by = bound_ms(nbytes, ops)
+    case = {
+        "name": name, "shape": [e] + list(plane.shape[1:]),
+        "dtype": str(plane.dtype).replace("torch.", ""), "plane": label,
+        "experiments": e, "main": False, "max_abs_err": err,
+        "tolerance": "== 0 against E single launches",
+        "ms": cuda_ms(run),
+        "singles_ms": cuda_ms(lambda: [single(i) for i in range(e)]),
+        "plain_ms": cuda_ms(plain, reps=3),
+        "library_ms": None if lib is None else cuda_ms(lib),
+        "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
+        "operations": ops, **(extra or {})}
+    log("kernel_case " + json.dumps(case))
+    return case
+
+
+def folded_plane(e, p, dtype, gen, dev="cuda"):
+    """E planes ``(E, n, P)`` as one ``(E·n, ld)`` allocation, random."""
+    import torch
+
+    from repro_torch.core.plane import aligned_plane
+
+    plane = aligned_plane(e * N_NODES, p, dtype, dev)
+    plane.copy_(torch.randn((e * N_NODES, p), generator=gen, device=dev,
+                            dtype=torch.float32))
+    return plane.unflatten(0, (e, N_NODES))
+
+
+def grid_matrices(dev="cuda"):
+    """Round 0's matrix of each Fig. 4 strategy on BA(33, 2) (``(6, n,
+    n)``, fl dense) and the neighbour tables."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coeffs import program_for
+    from repro_torch.core.strategies import AggregationStrategy
+    from repro_torch.core.topology import barabasi_albert
+
+    topo = barabasi_albert(N_NODES, 2, 0)
+    counts = np.arange(1.0, N_NODES + 1.0)
+    mats = []
+    for kind in ("fl", "weighted", "unweighted", "random", "degree",
+                 "betweenness"):
+        program, state = program_for(topo, AggregationStrategy(kind, tau=0.1),
+                                     data_counts=counts)
+        mats.append(program.matrix(state, 0))
+    idx, msk = topo.neighbor_tables()
+    return (torch.stack(mats).to(dev), torch.as_tensor(idx, device=dev),
+            torch.as_tensor(msk, device=dev))
+
+
+def check_batched_kernels(gm, dev="cuda", sizes=None):
+    """Phase 14 (a): ``gossip_plane`` at the FFN plane with E = 6 and the
+    VGG-16 plane with E = 2, ``gossip_edges`` and ``gossip_robust``
+    (trimmed, median; a NaN, a +Inf and a −Inf row in experiment 1) at the
+    FFN plane with E = 3, all f32, each one launch held to E single
+    launches bit for bit."""
+    import torch
+
+    from repro_torch.core.mixing import edge_weights
+
+    ffn_p, vgg_p = sizes or (FFN_P, VGG_P)
+    c6, idx, msk = grid_matrices(dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n, b = N_NODES, 4
+    cases = []
+    for label, e, p in (("ffn", 6, ffn_p), ("vgg16", 2, vgg_p)):
+        plane = folded_plane(e, p, torch.float32, gen, dev)
+        c = c6[:e].contiguous()
+        cases.append(batched_case(
+            "gossip_plane", label, e, lambda: gm.gossip_plane(plane, c),
+            lambda i: gm.gossip_plane(plane[i], c[i]),
+            lambda: gm.gossip_plane_ref(plane, c),
+            lambda: torch.matmul(c, plane),
+            e * (2 * n * p * b + n * n * 4), 2 * e * n * n * p, plane))
+        del plane
+        torch.cuda.empty_cache()
+    # the on-support strategies: weighted, unweighted, degree
+    c3 = c6[[1, 2, 4]].contiguous()
+    w = edge_weights(c3, idx, msk)
+    dmax = idx.shape[1]
+    nnz = int((w != 0).sum())
+    plane = folded_plane(3, ffn_p, torch.float32, gen, dev)
+    cases.append(batched_case(
+        "gossip_edges", "ffn", 3, lambda: gm.gossip_edges(plane, w, idx),
+        lambda i: gm.gossip_edges(plane[i], w[i], idx),
+        lambda: gm.gossip_edges_ref(plane, w, idx),
+        lambda: torch.matmul(c3, plane),
+        3 * (2 * n * ffn_p * b + n * dmax * 4) + n * dmax * 4,
+        2 * nnz * ffn_p, plane))
+    plane[1, 1] = float("nan")
+    plane[1, 4, ::3] = float("inf")
+    plane[1, 7] = float("-inf")
+    for op, k in (("trimmed", 1), ("median", 0)):
+        cases.append(batched_case(
+            "gossip_robust", "ffn_poisoned", 3,
+            lambda: gm.gossip_robust(plane, w, idx, op, k),
+            lambda i: gm.gossip_robust(plane[i], w[i], idx, op, k),
+            lambda: gm.gossip_robust_ref(plane, w, idx, op, k), None,
+            3 * (2 * n * ffn_p * b + n * dmax * 4) + n * dmax * 4,
+            sum(robust_operations(w[i], ffn_p, op, k) for i in range(3)),
+            plane, {"op": op, "trim_k": k}))
+    del plane
+    torch.cuda.empty_cache()
+    return cases
+
+
+def sweep_inputs(sc, dev="cuda"):
+    """``run_sweep_cells`` keywords that give a grid phase 3's scenario:
+    its node split, batches and test sets (``data_fn``) and its init
+    (``init_fn``), so each experiment starts where a single-trainer run of
+    phases 3, 6 and 13 does."""
+    import torch
+
+    from repro_torch.models.paper_models import ffn_init
+
+    def data_fn(dataset, n_nodes, seed, ood_nodes, scale, steps):
+        assert (dataset, n_nodes, ood_nodes) == ("mnist", N_NODES,
+                                                 (sc["ood"],))
+        return sc["batcher"], sc["test_iid"], sc["test_ood"]
+
+    def init_fn(dataset, seed):
+        return ffn_init(torch.Generator().manual_seed(0), device=dev)
+
+    return dict(data_fn=data_fn, init_fn=init_fn, device=dev)
+
+
+class EngineClock:
+    """Wall time of each ``SweepEngine.run`` (its set-up and rounds,
+    without the grid's host-side build), ended by a synchronize."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import sweep
+
+        self.seconds, self._orig = [], sweep.SweepEngine.run
+        outer = self
+
+        def run(engine, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = outer._orig(engine, *args, **kwargs)
+            torch.cuda.synchronize()
+            outer.seconds.append(time.perf_counter() - t0)
+            return res
+
+        sweep.SweepEngine.run = run
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import sweep
+
+        sweep.SweepEngine.run = self._orig
+
+
+def drift_line(label, pairs):
+    """Each engine experiment's per-node drift from its single-trainer
+    history, in eval samples of 512, held to ``SWEEP_DRIFT_SAMPLES``."""
+    assert pairs, f"{label}: no single-trainer history to hold it to"
+    drift = {k: max_drift_samples(a, b, 512) for k, (a, b) in pairs.items()}
+    log(f"{label} drift from the single-trainer runs (eval samples of 512, "
+        f"limit {SWEEP_DRIFT_SAMPLES}): {json.dumps(drift)}")
+    assert max(drift.values()) <= SWEEP_DRIFT_SAMPLES + 1e-3, drift
+    return drift
+
+
+def same_results(a, b, rounds=None):
+    """Two sweep results bit for bit: the history (its first ``rounds``
+    rounds of ``a``), and the params unless ``rounds`` cuts ``a``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    r = a.rounds if rounds is None else rounds
+    for k in ("train_loss", "iid_acc", "ood_acc"):
+        assert np.array_equal(getattr(a, k)[:, :r], getattr(b, k),
+                              equal_nan=True), k
+    if rounds is None:
+        for x, y in zip(tree_util.leaves(a.params),
+                        tree_util.leaves(b.params)):
+            assert torch.equal(x, y)
+        for k in (a.analytics or {}):
+            assert np.array_equal(a.analytics[k], b.analytics[k]), k
+
+
+def run_sweep_fig4(sc, gm, dev="cuda", scale=None):
+    """Phase 14 (b): Fig. 4 at paper scale as ONE grid — six strategies
+    (E = 6, D = 1) on phase 3's scenario through ``run_sweep_cells`` with
+    ``mix_impl="pallas"``: one batched ``gossip_plane`` launch a round,
+    s/round, each experiment's AUCs and drift from its single-trainer run,
+    the device syncs in the run (``set_sync_debug_mode``), peak memory,
+    and ``fig4.verdict``."""
+    import warnings
+
+    import torch
+
+    from repro_torch.benchmarks import fig4_strategies as fig4
+    from repro_torch.benchmarks.common import FULL, run_sweep_cells
+
+    scale = scale or FULL
+    cells = fig4.cells(n_nodes=N_NODES)
+    results = []
+    before = gm.gossip_plane.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with EngineClock() as clock, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rows = run_sweep_cells(cells, scale=scale, mix_impl="pallas",
+                                   results=results, **sweep_inputs(sc, dev))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = gm.gossip_plane.launches - before
+    assert launches == scale.rounds, launches   # one launch a round
+    syncs = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{Path(w.filename).name}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+    (idxs, result), = results
+    secs = clock.seconds[0]
+    res = {"experiments": len(cells), "rounds": scale.rounds,
+           "s_per_round": secs / scale.rounds, "engine_s": secs,
+           "launches": launches, "peak_gb_above_start": peak_gb,
+           "syncs": sum(syncs.values()), "syncs_by_line": syncs,
+           "aucs": {r["strategy"]: (r["iid_auc"], r["ood_auc"])
+                    for r in rows},
+           "stream_vs_host_max_dev": max(
+               r["analytics"]["stream_vs_host_max_dev"] for r in rows)}
+    log("ffn_sweep fig4 grid " + json.dumps(res))
+    assert res["stream_vs_host_max_dev"] < 1e-6, res
+    log(fig4.verdict(rows))
+    drift_line("ffn_sweep fig4", {
+        c.strategy: (result.history(e), HISTORIES[c.strategy])
+        for e, c in enumerate(cells) if c.strategy in HISTORIES})
+    return cells, rows, result
+
+
+def run_sweep_modes(sc, gm, fig4_run, dev="cuda", scale=None):
+    """Phase 14 (c): the same grid chunked (10 rounds a chunk, a
+    checkpoint at each boundary), then resumed from the round-20
+    checkpoint, each bit for bit the scanned run of (b); and unrolled, cut
+    to R = 20, bit for bit the scanned run's first 20 rounds and the
+    round-20 checkpoint's params."""
+    import dataclasses as dc
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.benchmarks.common import FULL, run_sweep_cells
+    from repro_torch.kernels import build
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    scale = scale or FULL
+    cells, _, scanned = fig4_run
+    ck = build.BUILD_DIR / "sweep_checkpoints"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(scale=scale, mix_impl="pallas", **sweep_inputs(sc, dev))
+    chunk = scale.rounds // 4
+    try:
+        with EngineClock() as clock:
+            out = []
+            run_sweep_cells(cells, chunk_rounds=chunk,
+                            checkpoint_dir=str(ck), results=out, **kw)
+            same_results(scanned, out[0][1])
+            files = sorted(p.name for p in ck.iterdir())
+            assert len(files) == 3, files
+            (ck / files[-1]).unlink()       # resume from the middle one
+            out = []
+            run_sweep_cells(cells, chunk_rounds=chunk,
+                            checkpoint_dir=str(ck), resume=True,
+                            results=out, **kw)
+            same_results(scanned, out[0][1])
+            cut = SWEEP_CUT_ROUNDS if scale.rounds > SWEEP_CUT_ROUNDS \
+                else scale.rounds // 2
+            out = []
+            run_sweep_cells(cells, unroll_eval=True, results=out,
+                            **dict(kw, scale=dc.replace(scale, rounds=cut)))
+            unrolled = out[0][1]
+            same_results(scanned, unrolled, rounds=cut)
+            state, _, meta = load_checkpoint(str(ck / files[1]),
+                                             {"params": unrolled.params})
+            assert meta["rounds_done"] == cut, meta
+            for x, y in zip(tree_util.leaves(state["params"]),
+                            tree_util.leaves(unrolled.params)):
+                assert torch.equal(x, y)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    s = clock.seconds
+    log("ffn_sweep modes " + json.dumps({
+        "chunked_rounds": scale.rounds, "chunk_rounds": chunk,
+        "resumed_from_round": 2 * chunk, "unrolled_rounds": cut,
+        "chunked_s_per_round": s[0] / scale.rounds,
+        "resumed_s_per_round": s[1] / (scale.rounds - 2 * chunk),
+        "unrolled_s_per_round": s[2] / cut,
+        "bit_identical_to_scanned": True,
+        "cut": f"unrolled run and resumed tail cut to {cut} rounds"}))
+
+
+def run_ffn_sweep(sc, gm):
+    """Phase 14 (b) then (c), one main path (``ffn_sweep``)."""
+    fig4_run = run_sweep_fig4(sc, gm)
+    run_sweep_modes(sc, gm, fig4_run)
+
+
+def run_sweep_linkfail(sc, gm, dev="cuda", scale=None):
+    """Phase 14 (d): ``ablations.run_link_failure``'s grid — unweighted
+    and degree at p_fail 0.3, nominal and reactive, ``coeff_mode=
+    "program"`` (each round's matrices made in the round loop) through
+    batched ``gossip_edges``; the nominal program equal bit for bit to its
+    materialized stack; the reactive degree run held by drift to phase
+    13's ``ffn_linkfail``."""
+    from repro_torch.benchmarks import ablations
+    from repro_torch.benchmarks.common import (
+        FULL,
+        linkfail_cells,
+        run_sweep_cells,
+    )
+
+    scale = scale or FULL
+    before = gm.gossip_edges.launches
+    kw = dict(mix_impl="edges", **sweep_inputs(sc, dev))
+    out = {}
+    with EngineClock() as clock:
+        for reactive in (False, True):
+            res = []
+            rows = ablations.run_link_failure(
+                p_fails=(0.3,), scale=scale, n_nodes=N_NODES,
+                reactive=reactive, log=lambda *a: None, results=res, **kw)
+            out[reactive] = (rows, res[0][1])
+            log(f"ffn_sweep_linkfail reactive={reactive} " + json.dumps({
+                r["strategy"]: (r["iid_auc"], r["ood_auc"]) for r in rows}))
+        stack = []
+        run_sweep_cells(linkfail_cells(n_nodes=N_NODES, p_fails=(0.3,),
+                                       reactive=False),
+                        scale=scale, coeff_mode="stack", results=stack, **kw)
+    same_results(out[False][1], stack[0][1])
+    launches = gm.gossip_edges.launches - before
+    assert launches == 3 * scale.rounds, launches
+    log("ffn_sweep_linkfail " + json.dumps({
+        "s_per_round": [s / scale.rounds for s in clock.seconds],
+        "launches": launches,
+        "program_equals_stack": "bit for bit (nominal)"}))
+    pairs = {}
+    for reactive in (False, True):
+        key = f"linkfail_{reactive}"
+        if key in HISTORIES:
+            pairs[f"degree_{'reactive' if reactive else 'nominal'}"] = (
+                out[reactive][1].history(1), HISTORIES[key])
+    drift_line("ffn_sweep_linkfail", pairs)
+    return out
+
+
+def run_sweep_byzantine(sc, gm, dev="cuda", scale=None):
+    """Phase 14 (e): ``byzantine_cells`` at fault rates 0, 0.1, 0.2 on
+    BA(33, 2) with the OOD data on the hub, the trimmed mean through
+    batched ``gossip_robust``: ``"noise"`` faults with the quarantine
+    screen, then a ``"nan"`` group with ``skip_nonfinite_updates(sgd)``;
+    the quarantine digests and skipped-step counts; the rate-0 experiment
+    held by drift to phase 6's trimmed run."""
+    import numpy as np
+
+    from repro_torch.benchmarks.common import FULL, byzantine_cells, \
+        run_sweep_cells
+    from repro_torch.core.dynamic import FaultSpec
+    from repro_torch.core.topology import barabasi_albert
+
+    scale = scale or FULL
+    ba = barabasi_albert(N_NODES, 2, 0).name
+    cells = [c for c in byzantine_cells(n_nodes=N_NODES,
+                                        rates=(0.0, 0.1, 0.2),
+                                        robusts=("trimmed",))
+             if c.topo.name == ba and c.ood_k == 1]
+    assert [c.fault_rate for c in cells] == [0.0, 0.1, 0.2]
+    before = gm.gossip_robust.launches
+    kw = dict(scale=scale, mix_impl="edges", **sweep_inputs(sc, dev))
+    groups = {}
+    with EngineClock() as clock:
+        for label, spec, guard in (
+                ("noise", FaultSpec(mode="noise", quarantine=True), False),
+                ("nan", FaultSpec(mode="nan"), True)):
+            res = []
+            rows = run_sweep_cells(cells, fault=spec, skip_nonfinite=guard,
+                                   results=res, **kw)
+            result = res[0][1]
+            groups[label] = result
+            skipped = (result.opt_state["skipped"].sum(dim=1).tolist()
+                       if guard else None)
+            log(f"ffn_sweep_byzantine {label} " + json.dumps({
+                "rates": [c.fault_rate for c in cells],
+                "aucs": [(r["iid_auc"], r["ood_auc"]) for r in rows],
+                "quarantine": [r["fault"] for r in rows],
+                "skipped_steps": skipped,
+                "finite_params": all_finite(result.params)}))
+    launches = gm.gossip_robust.launches - before
+    assert launches == 2 * scale.rounds, launches
+    same_rate0 = all(np.array_equal(getattr(groups["noise"], k)[0],
+                                    getattr(groups["nan"], k)[0])
+                     for k in ("train_loss", "iid_acc", "ood_acc"))
+    log("ffn_sweep_byzantine " + json.dumps({
+        "s_per_round": [s / scale.rounds for s in clock.seconds],
+        "launches": launches,
+        "rate0_noise_group_equals_rate0_nan_group": same_rate0}))
+    if "robust_trimmed" in HISTORIES:
+        drift_line("ffn_sweep_byzantine rate 0", {
+            "noise_group": (groups["noise"].history(0),
+                            HISTORIES["robust_trimmed"])})
+    return groups
 
 
 # ----------------------------------------------------------------------
@@ -2771,6 +3244,13 @@ def main() -> int:
     main_path("sb_modularity", run_sb, gm)
     log(f"phase 13 (strategies, link failure, SB graphs): "
         f"{time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    cases += check_batched_kernels(gm)
+    main_path("ffn_sweep", run_ffn_sweep, ffn_sc, gm)
+    main_path("ffn_sweep_linkfail", run_sweep_linkfail, ffn_sc, gm)
+    main_path("ffn_sweep_byzantine", run_sweep_byzantine, ffn_sc, gm)
+    log(f"phase 14 (the paper's grids through the sweep engine): "
+        f"{time.perf_counter() - t14:.1f} s")
     flash_main = next(c for c in cases
                       if c["name"] == "flash_attention" and c["main"])
     assert flash_main["shape"] == [SERVE_NODES, LONG_PREFILL, 32, 32, 64]

@@ -20,7 +20,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,3 +34,15 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on the CUDA device by default and no GPU is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def to_device(array, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) as a tensor on ``device``.  On
+    the card the copy goes through pinned memory without blocking, so a
+    round loop that uploads its host-drawn masks and matrices this way
+    never waits for the device (a pageable copy synchronizes)."""
+    t = torch.as_tensor(array, dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -222,14 +222,16 @@ def robust_split(source: Path):
         ld = plane.stride(0)
         out = torch.empty((n, ld), device="cuda")
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        # a source with the experiment axis takes E after ld (here 1)
+        batched = "int experiments" in source.read_text()
         args = [_ptr(w), _ptr(idx), _ptr(plane), _ptr(out), n, dmax, p, ld,
-                0, 0, 0, 1]
+                *([1] if batched else []), 0, 0, 0, 1]
         best = gm.robust_plan(n, p, dmax, torch.float32)
         for variant, text in variants:
             lib = _compile(text, "gossip_robust")
             lib.gossip_robust_launch.argtypes = (
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 2 + [ctypes.c_int] * (4 + batched)
                 + ([ctypes.POINTER(ctypes.c_longlong)]
                    if design == "plan_entry" else []) + [ctypes.c_void_p])
             plans = [None]

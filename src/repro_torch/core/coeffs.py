@@ -23,7 +23,10 @@ a reactive program refuses it unless ``allow_nominal_betweenness`` opts
 into the nominal scores (:meth:`CoeffProgram.validate_state_kinds`).
 
 The program runs on the host in f32 torch ops: its matrices are tiny and
-the trainer copies each round's to the card.
+the trainer copies each round's to the card.  :class:`ProgramCoeffs` is
+one program with the states of a sweep's E experiments: the sweep engine
+makes each round's ``(E, n, n)`` matrices from it inside its round loop,
+in place of an ``(E, R, n, n)`` stack.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ from repro_torch.core.strategies import (
 from repro_torch.core.topology import Topology
 
 __all__ = ["PROGRAM_KINDS", "PORTED_KINDS", "CENTRALITY_KINDS",
-           "CoeffProgram", "program_for", "participation_renormalize",
+           "CoeffProgram", "ProgramCoeffs", "program_for",
+           "participation_renormalize",
            "quarantine_renormalize", "stack_states", "state_nbytes",
            "degree_centrality", "eigenvector_centrality",
            "pagerank_centrality", "closeness_centrality", "sparse_matvec",
@@ -341,6 +345,30 @@ def program_for(topo: Topology, strategy: AggregationStrategy,
     return program, state
 
 
+@dataclasses.dataclass
+class ProgramCoeffs:
+    """In place of the ``(E, R, n, n)`` stack in ``SweepEngine.run``: one
+    shared program and the experiments' states stacked on a leading E
+    axis (:func:`stack_states`)."""
+
+    program: CoeffProgram
+    states: dict
+
+    @property
+    def n_experiments(self) -> int:
+        return int(np.asarray(tree_util.leaves(self.states)[0]).shape[0])
+
+    def state(self, e: int) -> dict:
+        """Experiment e's state."""
+        return {k: np.asarray(v)[e] for k, v in self.states.items()}
+
+    def matrices(self, round_idx: int) -> np.ndarray:
+        """``(E, n, n)`` float32: every experiment's matrix for the
+        absolute round ``round_idx``."""
+        return np.stack([self.program.matrix(self.state(e), round_idx)
+                         .numpy() for e in range(self.n_experiments)])
+
+
 def stack_states(states: Sequence[dict]) -> dict:
     """[state] * E → one state with a leading E axis."""
     return {k: np.stack([np.asarray(s[k]) for s in states])
@@ -356,11 +384,13 @@ def participation_renormalize(c: torch.Tensor,
                               active: torch.Tensor) -> torch.Tensor:
     """Drop inactive *columns* from a row-stochastic mixing matrix and
     renormalize the surviving rows (``stale_mixing=False`` partial
-    participation).  Rows that lost no mass come back BIT-identical (the
+    participation; ``c`` may carry a leading experiment axis, ``(E, n,
+    n)`` against ``(E, n)`` masks).  Rows that lost no mass come back
+    BIT-identical (the
     row-level ``changed`` gate skips the divide), so an all-active round
     reproduces the matrix exactly; rows whose whole support went inactive
     fall back to self-weight 1."""
-    masked = c * active.to(c.dtype)
+    masked = c * active.to(c.dtype)[..., None, :]
     changed = (masked != c).any(dim=-1, keepdim=True)
     return torch.where(changed, renormalize_rows(masked), c)
 

@@ -36,6 +36,16 @@ of nodes train and gossip each round; both draw their per-round masks
 from the port's JAX-compatible threefry (``core.prng``), so the masks
 equal the reference's.
 
+The sweep engine (``core.sweep``) runs the same round functions over E
+experiments at once: its trees carry a leading experiment axis (leaves
+``(E, n, ...)``), its matrices are ``(E, n, n)``, and a participation or
+fault carry holds ``(E,)`` rates and seeds.  A round function sees the
+axis in ``coeffs.ndim == 3``: LocalTrain folds E into the node axis
+(``(E·n, ...)`` through the same ``torch.func.vmap``), the masks are drawn
+for each experiment (``(E, n)``), and the mix backends take the batched
+operands in one pack and one launch.  :func:`make_scan_fn` is the round
+loop shared by the engine's modes.
+
 Mixing matrices come from the f32 coefficient program for its kinds
 (``core/coeffs.py``) and from the float64 host path
 (``core.strategies.mixing_matrix``, cast to f32) for the others
@@ -52,7 +62,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, to_device
 from repro_torch import tree as tree_util
 from repro_torch.core.coeffs import (
     PROGRAM_KINDS,
@@ -66,6 +76,7 @@ from repro_torch.core.mixing import (
     mix_robust_tables,
     mix_sparse,
     norm_clip_coeffs,
+    per_experiment,
     plane_norms,
     sparse_offsets,
 )
@@ -91,6 +102,7 @@ __all__ = [
     "fault_carry_init",
     "make_fault_round_fn",
     "eval_round_indices",
+    "make_scan_fn",
 ]
 
 MIX_IMPLS = ("einsum", "pallas", "edges", "sparse")
@@ -237,7 +249,12 @@ def make_mix_fn(mix_impl: str = "einsum",
     the plain backends; ``"trimmed"``/``"median"`` need ``mix_support``
     and run on ``"einsum"`` (``mix_robust_tables``) or ``"edges"`` (the
     robust CUDA kernel), any other impl raises; ``"norm_clip"`` puts
-    :func:`core.mixing.norm_clip_coeffs` in front of any backend."""
+    :func:`core.mixing.norm_clip_coeffs` in front of any backend.
+
+    Every backend also takes a sweep's batched operands — trees of ``(E,
+    n, ...)`` leaves with ``(E, n, n)`` coefficients — and gives each
+    experiment what its own call would; the kernels mix the whole grid in
+    one launch."""
     if robust not in ROBUST_MODES:
         raise ValueError(f"unknown robust mode {robust!r}; "
                          f"have {ROBUST_MODES}")
@@ -270,7 +287,8 @@ def make_mix_fn(mix_impl: str = "einsum",
                            mix_in_float32=mix_in_float32, device=device)
         clip = float(robust_clip)
         return lambda params, coeffs: base(
-            params, norm_clip_coeffs(coeffs, plane_norms(params), clip))
+            params, norm_clip_coeffs(
+                coeffs, plane_norms(params, coeffs.ndim - 1), clip))
     if mix_impl == "einsum":
         return functools.partial(mix_dense, mix_in_float32=mix_in_float32)
     if mix_impl == "pallas":
@@ -297,8 +315,13 @@ def make_mix_fn(mix_impl: str = "einsum",
         offsets, _ = sparse_schedule(mix_support, sparse_slack)
         if offsets is None:
             return make_mix_fn("einsum", mix_in_float32=mix_in_float32)
-        return lambda params, coeffs: mix_sparse(
-            params, coeffs, offsets, mix_in_float32=mix_in_float32)
+        def sparse(params, coeffs):
+            if coeffs.ndim == 3:
+                return per_experiment(sparse, params, coeffs)
+            return mix_sparse(params, coeffs, offsets,
+                              mix_in_float32=mix_in_float32)
+
+        return sparse
     raise KeyError(f"unknown mix_impl {mix_impl!r}; have {MIX_IMPLS}")
 
 
@@ -339,6 +362,32 @@ def make_local_train_fn(loss_fn: Callable, optimizer: Optimizer,
     return local_train
 
 
+def _experiments(coeffs) -> Optional[int]:
+    """E for a sweep's ``(E, n, n)`` matrices, None for one ``(n, n)``."""
+    return coeffs.shape[0] if coeffs.ndim == 3 else None
+
+
+def _fold(tree, e: Optional[int]):
+    """``(E, n, ...)`` leaves as ``(E·n, ...)`` (views)."""
+    if e is None:
+        return tree
+    return tree_util.tree_map(lambda x: x.reshape((-1,) + x.shape[2:]), tree)
+
+
+def _unfold(tree, e: Optional[int]):
+    if e is None:
+        return tree
+    return tree_util.tree_map(lambda x: x.reshape((e, -1) + x.shape[1:]),
+                              tree)
+
+
+def _local_train_folded(local_train, params, opt, batches, e):
+    """LocalTrain with a sweep's E experiments folded into the node axis."""
+    p, o, losses = local_train(_fold(params, e), _fold(opt, e),
+                               _fold(batches, e))
+    return _unfold(p, e), _unfold(o, e), _unfold(losses, e)
+
+
 def make_round_fn(loss_fn: Callable, optimizer: Optimizer, local_epochs: int,
                   mix_impl: str = "einsum",
                   epoch_shuffle: bool = True,
@@ -360,34 +409,52 @@ def make_round_fn(loss_fn: Callable, optimizer: Optimizer, local_epochs: int,
                       device=device)
 
     def round_fn(stacked_params, stacked_opt, node_batches, coeffs):
-        params, opt, losses = local_train(stacked_params, stacked_opt,
-                                          node_batches)
+        params, opt, losses = _local_train_folded(
+            local_train, stacked_params, stacked_opt, node_batches,
+            _experiments(coeffs))
         return mix(params, coeffs), opt, losses
 
     return round_fn
 
 
 def _select(mask: torch.Tensor, new, old):
-    """Per node: ``new`` rows where ``mask`` (n,) is set, else ``old``
-    (every leaf, optimizer steps included, carries the node axis)."""
+    """Per node: ``new`` rows where ``mask`` ((n,), or (E, n) for a
+    sweep's trees) is set, else ``old`` (every leaf, optimizer steps
+    included, carries the node axis)."""
     def sel(a, b):
-        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)),
-                           a, b)
+        return torch.where(
+            mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim)), a, b)
     return tree_util.tree_map(sel, new, old)
+
+
+def _node_shape(params, rate) -> tuple:
+    """``(n,)``, or ``(E, n)`` when the rate is one per experiment."""
+    leaf = tree_util.leaves(params)[0]
+    return tuple(leaf.shape[:1 + np.ndim(rate)])
+
+
+def _host_scalars(rate, seed):
+    """A carry's rate (f32) and seed: host scalars, or ``(E,)`` arrays."""
+    if np.ndim(rate) == 0:
+        return np.float32(rate), int(seed)
+    rate = np.asarray(rate, np.float32)
+    return rate, np.broadcast_to(np.asarray(seed, np.int64), rate.shape)
 
 
 def participation_carry_init(params, rate, pseed) -> dict:
     """Per-run participation carry (the reference's, DESIGN.md §15):
-    ``rate``/``pseed`` (host scalars), ``pub`` — the published plane, a
-    copy of the initial params — and per-node int32 counters
-    ``staleness``, ``staleness_sum``, ``rounds_active``, ``local_steps``
-    on the params' device."""
+    ``rate``/``pseed`` (host scalars, or ``(E,)`` arrays for a sweep's
+    ``(E, n, ...)`` trees), ``pub`` — the published plane, a copy of the
+    initial params — and per-node int32 counters ``staleness``,
+    ``staleness_sum``, ``rounds_active``, ``local_steps`` on the params'
+    device."""
     leaf = tree_util.leaves(params)[0]
-    zeros = torch.zeros((leaf.shape[0],), dtype=torch.int32,
+    zeros = torch.zeros(_node_shape(params, rate), dtype=torch.int32,
                         device=leaf.device)
+    rate, pseed = _host_scalars(rate, pseed)
     return {
-        "rate": np.float32(rate),
-        "pseed": int(pseed),
+        "rate": rate,
+        "pseed": pseed,
         "pub": tree_util.tree_map(lambda x: x.clone(), params),
         "staleness": zeros,
         "staleness_sum": zeros,
@@ -440,13 +507,13 @@ def make_participation_round_fn(loss_fn: Callable, optimizer: Optimizer,
 
     def round_fn(stacked_params, stacked_opt, pcarry, node_batches, coeffs,
                  round_idx):
-        trained, opt_t, losses = local_train(stacked_params, stacked_opt,
-                                             node_batches)
-        n = losses.shape[0]
-        steps = tree_util.leaves(node_batches)[0].shape[1]
-        active = torch.as_tensor(participation.active_mask(
-            pcarry["rate"], pcarry["pseed"], round_idx, n),
-            device=losses.device)
+        e = _experiments(coeffs)
+        trained, opt_t, losses = _local_train_folded(
+            local_train, stacked_params, stacked_opt, node_batches, e)
+        n = losses.shape[-1]
+        steps = tree_util.leaves(node_batches)[0].shape[losses.ndim]
+        active = to_device(participation.active_mask(
+            pcarry["rate"], pcarry["pseed"], round_idx, n), losses.device)
         pub = _select(active, trained, pcarry["pub"])
         if not participation.stale_mixing:
             coeffs = participation_renormalize(coeffs, active)
@@ -461,20 +528,22 @@ def make_participation_round_fn(loss_fn: Callable, optimizer: Optimizer,
 
 def fault_carry_init(params, rate, fseed) -> dict:
     """Per-run fault/quarantine carry (the reference's, DESIGN.md §16):
-    ``rate``/``fseed`` (host scalars); per node on the params' device:
+    ``rate``/``fseed`` (host scalars, or ``(E,)`` arrays for a sweep's
+    ``(E, n, ...)`` trees); per node on the params' device:
     ``qtimer`` (probation countdown, quarantined while > 0), ``norm_ema``
     (EMA of the published row norm, 0 = not seeded yet),
     ``rounds_quarantined``, ``fault_rounds``, ``quar_fault_rounds``, and
     ``first_fault``/``first_quar`` (first such round, −1 = never)."""
-    leaf = tree_util.leaves(params)[0]
-    n, dev = leaf.shape[0], leaf.device
-    zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
-    never = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    shape = _node_shape(params, rate)
+    dev = tree_util.leaves(params)[0].device
+    zeros = torch.zeros(shape, dtype=torch.int32, device=dev)
+    never = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    rate, fseed = _host_scalars(rate, fseed)
     return {
-        "rate": np.float32(rate),
-        "fseed": int(fseed),
+        "rate": rate,
+        "fseed": fseed,
         "qtimer": zeros,
-        "norm_ema": torch.zeros((n,), dtype=torch.float32, device=dev),
+        "norm_ema": torch.zeros(shape, dtype=torch.float32, device=dev),
         "rounds_quarantined": zeros,
         "fault_rounds": zeros,
         "quar_fault_rounds": zeros,
@@ -488,10 +557,11 @@ def _quarantine_screen(fault, fcarry, pub, faulty, round_idx):
     a norm above ``spike_ratio`` × their EMA, (re)start their probation,
     advance the EMA of the rows that passed, and count.  Returns the
     updated carry and the (n,) quarantined mask."""
-    norms = plane_norms(pub)
-    n = norms.shape[0]
+    lead = faulty.ndim
+    norms = plane_norms(pub, lead)
     nonfinite = sum(
-        (~torch.isfinite(leaf.reshape(n, -1))).sum(dim=1, dtype=torch.int32)
+        (~torch.isfinite(leaf.reshape(tuple(leaf.shape[:lead]) + (-1,))))
+        .sum(dim=-1, dtype=torch.int32)
         for leaf in tree_util.leaves(pub))
     ema = fcarry["norm_ema"]
     suspicious = ((nonfinite > 0) | ~torch.isfinite(norms)
@@ -560,22 +630,25 @@ def make_fault_round_fn(loss_fn: Callable, optimizer: Optimizer,
         else:
             pcarry = None
             fcarry, node_batches, coeffs, round_idx = state_and_xs
-        trained, opt_t, losses = local_train(stacked_params, stacked_opt,
-                                             node_batches)
-        n, dev = losses.shape[0], losses.device
+        e = _experiments(coeffs)
+        trained, opt_t, losses = _local_train_folded(
+            local_train, stacked_params, stacked_opt, node_batches, e)
+        n, dev = losses.shape[-1], losses.device
         if participation is not None:
-            active = torch.as_tensor(participation.active_mask(
-                pcarry["rate"], pcarry["pseed"], round_idx, n), device=dev)
+            active = to_device(participation.active_mask(
+                pcarry["rate"], pcarry["pseed"], round_idx, n), dev)
             pub = _select(active, trained, pcarry["pub"])
             if not participation.stale_mixing:
                 coeffs = participation_renormalize(coeffs, active)
         else:
             pub = trained
-        faulty = torch.as_tensor(fault.faulty_mask(
-            fcarry["rate"], fcarry["fseed"], round_idx, n), device=dev)
+        faulty_host = fault.faulty_mask(fcarry["rate"], fcarry["fseed"],
+                                        round_idx, n)
+        faulty = to_device(faulty_host, dev)
         # the corruption lands on the PUBLISHED plane (and stays in
         # pcarry["pub"] until the node publishes again)
-        pub = _select(faulty, fault.corrupt(pub), pub)
+        pub = _select(faulty, fault.corrupt(pub, fcarry["fseed"], round_idx,
+                                            faulty_host), pub)
         fcarry = {
             **fcarry,
             "fault_rounds": fcarry["fault_rounds"] + faulty.to(torch.int32),
@@ -598,11 +671,108 @@ def make_fault_round_fn(loss_fn: Callable, optimizer: Optimizer,
         params = _select(active, params, stacked_params)
         opt = _select(active, opt_t, stacked_opt)
         losses = torch.where(active, losses, torch.zeros_like(losses))
-        steps = tree_util.leaves(node_batches)[0].shape[1]
+        steps = tree_util.leaves(node_batches)[0].shape[losses.ndim]
         pcarry = _participation_update({**pcarry, "pub": pub}, active, steps)
         return params, opt, pcarry, fcarry, losses
 
     return round_fn
+
+
+def make_scan_fn(round_fn: Callable, evaluate: Callable,
+                 make_batch: Optional[Callable] = None,
+                 coeff_fn: Optional[Callable] = None,
+                 analytics=None,
+                 keep_history: bool = True,
+                 participation=None,
+                 fault=None) -> Callable:
+    """The round loop shared by the sweep engine's modes (the reference's
+    ``lax.scan`` over rounds, here a Python loop with the same argument
+    and return order).
+
+    ``round_fn`` has :func:`make_round_fn`'s signature, or with
+    ``participation`` :func:`make_participation_round_fn`'s, with
+    ``fault`` :func:`make_fault_round_fn`'s (the participation carry
+    before the fault carry); ``evaluate(params, test_iid, test_ood) ->
+    (iid, ood)``; ``make_batch`` maps a step's slice of ``batch_xs`` to
+    the round's node batches (identity by default: stacked batches).
+    ``coeff_fn`` makes ``coeffs`` a sequence of absolute round indices
+    whose matrices ``coeff_fn(r)`` computes each step (a coefficient
+    program).  ``analytics`` (``core.analytics.AnalyticsSpec``) folds
+    every eval round into its carry; ``keep_history=False`` (needs
+    ``analytics``) returns no per-round history.
+
+    Returns ``scan_fn(params, opt, batch_xs, coeffs, eval_mask, test_iid,
+    test_ood[, round_idx, analytics_carry, participation_carry,
+    fault_carry]) -> (params, opt[, participation_carry][, fault_carry]
+    [, analytics_carry][, losses, iid, ood])``.  ``batch_xs`` and
+    ``coeffs`` are indexed by the step (leading axis R, or a tree of
+    such), ``eval_mask`` and ``round_idx`` are host sequences (the
+    absolute round indices that analytics, participation and fault draws
+    fold, so a chunk cannot shift them).  The eval runs only where
+    ``eval_mask`` is set; other steps report zeros and leave the
+    analytics carry as it is.  Nothing in the loop reads a device value
+    back: the history stays on the device, stacked on a leading R axis,
+    until the caller takes it."""
+    if make_batch is None:
+        make_batch = lambda b: b
+    if not keep_history and analytics is None:
+        raise ValueError("keep_history=False without an analytics spec "
+                         "would return no metrics at all")
+    needs_rounds = (analytics is not None or participation is not None
+                    or fault is not None)
+
+    def scan_fn(params, opt, batch_xs, coeffs, eval_mask, test_iid,
+                test_ood, round_idx=None, analytics_carry=None,
+                participation_carry=None, fault_carry=None):
+        if needs_rounds and round_idx is None:
+            raise ValueError("analytics, participation and faults need the "
+                             "absolute round_idx of each step")
+        p, o = params, opt
+        pc, fc, ac = participation_carry, fault_carry, analytics_carry
+        losses_h, iid_h, ood_h = [], [], []
+        for t in range(len(eval_mask)):
+            bx = tree_util.tree_map(lambda x: x[t], batch_xs)
+            c = coeffs[t]
+            if coeff_fn is not None:
+                c = coeff_fn(int(c))   # c is this step's absolute round
+            r_abs = int(round_idx[t]) if needs_rounds else None
+            batch = make_batch(bx)
+            if fault is not None:
+                if participation is not None:
+                    p, o, pc, fc, losses = round_fn(p, o, pc, fc, batch, c,
+                                                    r_abs)
+                else:
+                    p, o, fc, losses = round_fn(p, o, fc, batch, c, r_abs)
+            elif participation is not None:
+                p, o, pc, losses = round_fn(p, o, pc, batch, c, r_abs)
+            else:
+                p, o, losses = round_fn(p, o, batch, c)
+            del batch   # before the next round's gather, not after it
+            do_eval = bool(eval_mask[t])
+            if do_eval:
+                with torch.no_grad():
+                    iid, ood = evaluate(p, test_iid, test_ood)
+            else:
+                iid = ood = torch.zeros(losses.shape, dtype=torch.float32,
+                                        device=losses.device)
+            if analytics is not None:
+                ac = analytics.update(ac, r_abs, do_eval, iid, ood)
+            if keep_history:
+                losses_h.append(losses)
+                iid_h.append(iid)
+                ood_h.append(ood)
+        out = [p, o]
+        if participation is not None:
+            out.append(pc)
+        if fault is not None:
+            out.append(fc)
+        if analytics is not None:
+            out.append(ac)
+        if keep_history:
+            out.extend(torch.stack(h) for h in (losses_h, iid_h, ood_h))
+        return tuple(out)
+
+    return scan_fn
 
 
 def eval_round_indices(rounds: int, eval_every: int) -> List[int]:

@@ -17,18 +17,24 @@ participation, 3 for faults (0 and 1 belong to the edge mask and the
 Random strategy).  They are drawn on the host as ``(n,)`` numpy bools and
 equal the reference's masks bit for bit.  Uniform draws lie in [0, 1), so
 rate 1.0 activates every node and fault rate 0.0 marks none, exactly.
+A rate and a seed may also be ``(E,)`` arrays, one per experiment of the
+sweep engine: the masks then come back ``(E, n)``.
 
-The ``"noise"`` fault mode, which needs ``jax.random.normal``'s stream,
-waits for ROADMAP Queue 1 [links].
+The ``"noise"`` fault draws ``jax.random.normal``'s stream
+(``prng.normal_at``) for the faulty rows only: a value depends on its key
+and flat index alone, so a row's counters give the same values as the
+whole-leaf draw at a fraction of the host threefry's cost.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import to_device
 from repro_torch import tree as tree_util
 from repro_torch.core import prng
 from repro_torch.core.strategies import (
@@ -50,6 +56,15 @@ def _round_key(seed, round_idx, fold: int) -> np.ndarray:
     return prng.fold_in(prng.fold_in(prng.key(seed), round_idx), fold)
 
 
+def _draw_per_experiment(draw, rate, seed, round_idx, n: int) -> np.ndarray:
+    """``draw(rate, seed, round_idx, n)`` for scalars, or stacked over the
+    experiments when ``rate``/``seed`` are ``(E,)`` arrays."""
+    if np.ndim(rate) == 0 and np.ndim(seed) == 0:
+        return draw(rate, seed, round_idx, n)
+    rate, seed = np.broadcast_arrays(np.asarray(rate), np.asarray(seed))
+    return np.stack([draw(r, s, round_idx, n) for r, s in zip(rate, seed)])
+
+
 @dataclasses.dataclass(frozen=True)
 class ParticipationSpec:
     """Which nodes train and gossip in a round.
@@ -65,6 +80,7 @@ class ParticipationSpec:
     mode: str = "bernoulli"
     stale_mixing: bool = True
     period: int = 0
+    seed: int = 0
 
     def __post_init__(self):
         if self.mode not in PARTICIPATION_MODES:
@@ -74,7 +90,12 @@ class ParticipationSpec:
             raise ValueError("duty-cycle participation needs period >= 1")
 
     def active_mask(self, rate, pseed, round_idx, n: int) -> np.ndarray:
-        """``(n,)`` bool active mask for one round."""
+        """``(n,)`` bool active mask for one round (``(E, n)`` for ``(E,)``
+        rates and seeds)."""
+        return _draw_per_experiment(self._active_mask, rate, pseed,
+                                    round_idx, n)
+
+    def _active_mask(self, rate, pseed, round_idx, n: int) -> np.ndarray:
         if self.mode == "bernoulli":
             u = prng.uniform(_round_key(pseed, round_idx, 2), n)
             return u < np.float32(rate)
@@ -91,16 +112,21 @@ class FaultSpec:
     Each round each node is faulty i.i.d. with probability ``rate`` (fold
     index 3); a faulty node's neighbours see ``corrupt``'s garbage in its
     place while the node keeps its own trained params.  Modes: ``"nan"``
-    / ``"inf"`` (the row poisoned wholesale), ``"signflip"`` (the row
-    times ``-byz_scale``), ``"zero"``.  ``"noise"`` is not ported yet.
-    ``quarantine=True`` turns on the screen of
+    / ``"inf"`` (the row poisoned wholesale), ``"noise"`` (the row plus
+    ``noise_scale`` times a standard normal draw, leaf i's under
+    ``fold_in(round key, i)``), ``"signflip"`` (the row times
+    ``-byz_scale``), ``"zero"``.  ``seed`` is the first experiment's
+    fault seed in the sweep engine (experiment e draws under ``seed +
+    e`` unless given its own).  ``quarantine=True`` turns on the screen of
     ``core.decentralized.make_fault_round_fn``: a row with a nonfinite
     value or a norm above ``spike_ratio`` × its EMA (``ema_beta``) is
     quarantined for ``probation`` rounds.
     """
 
     mode: str = "signflip"
+    noise_scale: float = 1.0
     byz_scale: float = 3.0
+    seed: int = 0
     quarantine: bool = False
     probation: int = 3
     spike_ratio: float = 10.0
@@ -110,22 +136,27 @@ class FaultSpec:
         if self.mode not in FAULT_MODES:
             raise ValueError(f"fault mode {self.mode!r} not in "
                              f"{FAULT_MODES}")
-        if self.mode == "noise":
-            raise NotImplementedError(
-                "fault mode 'noise' needs jax.random.normal's stream, which "
-                "the port's threefry does not draw yet (ROADMAP Queue 1 "
-                "[links])")
         if self.quarantine and self.probation < 1:
             raise ValueError("quarantine needs probation >= 1")
 
     def faulty_mask(self, rate, fseed, round_idx, n: int) -> np.ndarray:
-        """``(n,)`` bool faulty mask for one round."""
-        return prng.uniform(_round_key(fseed, round_idx, 3), n) < \
-            np.float32(rate)
+        """``(n,)`` bool faulty mask for one round (``(E, n)`` for
+        ``(E,)`` rates and seeds)."""
+        return _draw_per_experiment(
+            lambda r, s, ri, m: prng.uniform(_round_key(s, ri, 3), m)
+            < np.float32(r), rate, fseed, round_idx, n)
 
-    def corrupt(self, stacked_params):
-        """Fully corrupted copy of a stacked ``(n, ...)`` tree; the caller
-        selects the faulty rows out of it."""
+    def corrupt(self, stacked_params, fseed=None, round_idx=None,
+                faulty=None):
+        """Corrupted copy of a stacked tree (leaves ``(n, ...)``, or ``(E,
+        n, ...)`` with ``(E,)`` seeds); the caller selects the faulty rows
+        out of it.  ``"noise"`` needs the round's ``fseed`` and
+        ``round_idx`` and draws only the rows that the host mask
+        ``faulty`` (the leaves' leading shape; None: every row) marks —
+        the other rows come back unchanged."""
+        if self.mode == "noise":
+            return self._noisy(stacked_params, fseed, round_idx, faulty)
+
         def bad(leaf):
             if self.mode == "nan":
                 return torch.full_like(leaf, float("nan"))
@@ -133,10 +164,55 @@ class FaultSpec:
                 return torch.full_like(leaf, float("inf"))
             if self.mode == "zero":
                 return torch.zeros_like(leaf)
-            return torch.tensor(-self.byz_scale, dtype=leaf.dtype,
-                                device=leaf.device) * leaf
+            # the scale rounded to the leaf dtype first, as the reference
+            return torch.tensor(-self.byz_scale, dtype=leaf.dtype) * leaf
 
         return tree_util.tree_map(bad, stacked_params)
+
+    def _noisy(self, stacked_params, fseed, round_idx, faulty):
+        if fseed is None or round_idx is None:
+            raise ValueError("fault mode 'noise' needs the round's fseed "
+                             "and round_idx")
+        leaves, treedef = tree_util.flatten(stacked_params)
+        lead = 1 if np.ndim(fseed) == 0 else 2
+        rows_shape = tuple(leaves[0].shape[:lead])
+        faulty = (np.ones(rows_shape, bool) if faulty is None
+                  else np.asarray(faulty, bool))
+        if faulty.shape != rows_shape:
+            raise ValueError(f"faulty mask {faulty.shape} != the leaves' "
+                             f"leading shape {rows_shape}")
+        seeds = np.broadcast_to(np.asarray(fseed), rows_shape[:-1])
+        pos = np.argwhere(faulty)                  # (k, lead), row-major
+        groups = [(pos[:, 0] == e) for e in range(rows_shape[0])] \
+            if lead == 2 else [np.ones(len(pos), bool)]
+        keys = [_round_key(int(s), round_idx, 3) for s in seeds.ravel()] \
+            if lead == 2 else [_round_key(int(fseed), round_idx, 3)]
+        out = []
+        for i, leaf in enumerate(leaves):
+            if leaf.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"fault mode 'noise' draws float32 values; a "
+                    f"{leaf.dtype} leaf needs jax's draw in that dtype")
+            if not len(pos):
+                out.append(leaf)
+                continue
+            size = math.prod(leaf.shape[lead:])
+            noise = np.empty((len(pos), size), np.float32)
+            for key, sel in zip(keys, groups):
+                if sel.any():
+                    rows = pos[sel, -1].astype(np.int64)
+                    noise[sel] = prng.normal_at(
+                        prng.fold_in(key, i),
+                        rows[:, None] * size + np.arange(size)[None])
+            idx = tuple(to_device(pos[:, d], leaf.device)
+                        for d in range(lead))
+            noise_t = to_device(noise, leaf.device).reshape(
+                (len(pos),) + tuple(leaf.shape[lead:]))
+            scale = torch.tensor(self.noise_scale, dtype=leaf.dtype)
+            bad = leaf.clone()
+            bad[idx] = leaf[idx] + scale * noise_t
+            out.append(bad)
+        return tree_util.unflatten(treedef, out)
 
 
 # ----------------------------------------------------------------------

@@ -23,6 +23,12 @@ leading node axis ``(n, ...)``:
 They accumulate in f32 by default; ``mix_in_float32=False`` accumulates
 in the leaf dtype (the low-precision-aggregation ablation).
 
+The sweep engine's form: :func:`mix_dense`, :func:`mix_robust_tables`,
+:func:`plane_norms` and :func:`norm_clip_coeffs` also take a leading
+experiment axis — trees with leaves ``(E, n, ...)`` against ``(E, n, n)``
+matrices — and give each experiment exactly what its own call would
+(:func:`per_experiment`).
+
 Robust aggregation (DESIGN.md §16): :func:`robust_combine` replaces the
 weighted mean by a coordinate-wise trimmed mean or median over each
 destination's occupied table slots, :func:`mix_robust_tables` applies it
@@ -44,6 +50,7 @@ from repro_torch import tree as tree_util
 from repro_torch.core.strategies import renormalize_rows
 
 __all__ = [
+    "per_experiment",
     "mix_dense",
     "edge_weights",
     "mix_edges",
@@ -79,9 +86,20 @@ def _leaf_mix(c: torch.Tensor, leaf: torch.Tensor,
     return acc.reshape(leaf.shape).to(leaf.dtype)
 
 
+def per_experiment(mix, params, coeffs: torch.Tensor, *args, **kwargs):
+    """``mix(params, coeffs, ...)`` for each experiment of a batched tree
+    (leaves ``(E, n, ...)``, ``coeffs`` ``(E, n, n)``), stacked: bit for
+    bit E separate calls."""
+    outs = [mix(tree_util.tree_map(lambda x: x[e], params), coeffs[e],
+                *args, **kwargs) for e in range(coeffs.shape[0])]
+    return tree_util.tree_map(lambda *xs: torch.stack(xs), *outs)
+
+
 def mix_dense(params, coeffs: torch.Tensor, mix_in_float32: bool = True):
     """Dense gossip: every leaf ``(n, ...)`` contracted against the
-    ``(n, n)`` matrix."""
+    ``(n, n)`` matrix (or each experiment's, for ``(E, n, n)``)."""
+    if coeffs.ndim == 3:
+        return per_experiment(mix_dense, params, coeffs, mix_in_float32)
     return tree_util.tree_map(
         lambda leaf: _leaf_mix(coeffs, leaf, mix_in_float32), params)
 
@@ -194,9 +212,10 @@ def mixing_collective_bytes(n_nodes: int, param_bytes_per_node: int,
 def edge_weights(coeffs: torch.Tensor, nbr_idx: torch.Tensor,
                  nbr_mask: torch.Tensor) -> torch.Tensor:
     """Per-edge coefficients ``w[i, d] = coeffs[i, nbr_idx[i, d]]``, zero
-    on padding slots: the ``(n, dmax)`` operand of the edge-list mix."""
-    rows = torch.arange(coeffs.shape[0], device=coeffs.device)[:, None]
-    return coeffs[rows, nbr_idx.long()] * nbr_mask.to(coeffs.dtype)
+    on padding slots: the ``(n, dmax)`` operand of the edge-list mix
+    (``(E, n, dmax)`` for ``(E, n, n)`` coefficients)."""
+    rows = torch.arange(coeffs.shape[-2], device=coeffs.device)[:, None]
+    return coeffs[..., rows, nbr_idx.long()] * nbr_mask.to(coeffs.dtype)
 
 
 def mix_edges(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
@@ -296,6 +315,9 @@ def mix_robust_tables(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
     padding, dropped or quarantined columns — take no part).  Gathers an
     ``(dmax, n, |leaf|)`` tensor per leaf: a plain version, not a
     kernel (``mix_impl="edges"`` runs the kernel)."""
+    if coeffs.ndim == 3:
+        return per_experiment(mix_robust_tables, params, coeffs, nbr_idx,
+                              nbr_mask, op, trim_k, mix_in_float32)
     idx = nbr_idx.long()
     w = edge_weights(coeffs.to(torch.float32), idx, nbr_mask)
     n = idx.shape[0]
@@ -310,15 +332,16 @@ def mix_robust_tables(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
     return tree_util.tree_map(leaf_fn, params)
 
 
-def plane_norms(params) -> torch.Tensor:
-    """``(n,)`` f32 L2 norm of each node's whole parameter row: what the
-    ``norm_clip`` rule and the quarantine screen compare."""
+def plane_norms(params, batch_dims: int = 1) -> torch.Tensor:
+    """f32 L2 norm of each node's whole parameter row, ``(n,)`` (or the
+    leaves' first ``batch_dims`` axes, ``(E, n)`` for a sweep's trees):
+    what the ``norm_clip`` rule and the quarantine screen compare."""
     leaves = tree_util.leaves(params)
-    n = leaves[0].shape[0]
-    sq = torch.zeros((n,), dtype=torch.float32, device=leaves[0].device)
+    lead = tuple(leaves[0].shape[:batch_dims])
+    sq = torch.zeros(lead, dtype=torch.float32, device=leaves[0].device)
     for leaf in leaves:
-        flat = leaf.reshape(n, -1).to(torch.float32)
-        sq = sq + (flat * flat).sum(dim=1)
+        flat = leaf.reshape(lead + (-1,)).to(torch.float32)
+        sq = sq + (flat * flat).sum(dim=-1)
     return torch.sqrt(sq)
 
 
@@ -330,16 +353,17 @@ def norm_clip_coeffs(coeffs: torch.Tensor, norms: torch.Tensor,
     unclipped, self weights are never clipped; rows that changed are
     renormalised (fallback self-weight 1) and rows left untouched come
     back BIT-identical, so a round where nothing clips is the plain mean
-    exactly."""
+    exactly.  ``coeffs`` ``(E, n, n)`` takes ``(E, n)`` norms."""
     c = coeffs
     n = c.shape[-1]
     norms = norms.to(torch.float32)
     denom = torch.where(norms > 0, norms, torch.ones_like(norms))
-    ratio = float(clip_mult) * norms[:, None] / denom[None, :]
+    ratio = float(clip_mult) * norms[..., :, None] / denom[..., None, :]
     one = torch.ones((), dtype=torch.float32, device=c.device)
-    factor = torch.where(norms[None, :] > 0, torch.minimum(ratio, one), one)
+    factor = torch.where(norms[..., None, :] > 0, torch.minimum(ratio, one),
+                         one)
     factor = torch.where(torch.isfinite(factor), factor, one)
-    factor = torch.where(torch.isfinite(norms)[None, :], factor,
+    factor = torch.where(torch.isfinite(norms)[..., None, :], factor,
                          torch.zeros_like(factor))
     eye = torch.eye(n, dtype=torch.bool, device=c.device)
     factor = torch.where(eye, one, factor).to(c.dtype)

@@ -5,6 +5,13 @@ Per round the trainer wants leaves ``(n_nodes, E·steps, batch, ...)``;
 every node runs the same number of steps, nodes with fewer samples wrap
 around with a fresh permutation per cycle, and each of the E local epochs
 is its own shuffle (epoch mixed into the seed).
+
+The sweep engine takes the same batches as data: :meth:`NodeBatcher.
+sample_bank` pads every node's samples into one ``(n, cap, ...)`` bank
+and :meth:`NodeBatcher.all_round_indices` gives the whole run's index
+schedule, so a round's batches are one gather ``bank[node, idx]`` on the
+device (``core.sweep.gather_round_batch``), equal to
+:meth:`NodeBatcher.round_batches` bit for bit.
 """
 from __future__ import annotations
 
@@ -63,6 +70,23 @@ class NodeBatcher:
                 out[node, epoch * need:(epoch + 1) * need] = \
                     self._epoch_indices(rng, len(ds), need)
         return out
+
+    def all_round_indices(self, rounds: int) -> np.ndarray:
+        """(rounds, n_nodes, local_epochs·steps·batch) index schedule of a
+        whole run."""
+        return np.stack([self.round_indices(r) for r in range(rounds)])
+
+    def sample_bank(self) -> Dict[str, np.ndarray]:
+        """Padded per-node sample bank, leaves ``(n_nodes, cap, ...)``: each
+        node's dataset zero-padded to the largest node's length, which
+        :meth:`round_indices` never indexes into."""
+        cap = max(len(d) for d in self.node_data)
+
+        def pad(a: np.ndarray) -> np.ndarray:
+            return np.pad(a, [(0, cap - a.shape[0])] + [(0, 0)] * (a.ndim - 1))
+
+        return {"x": np.stack([pad(d.x) for d in self.node_data]),
+                "y": np.stack([pad(d.y) for d in self.node_data])}
 
     def round_batches(self, round_idx: int) -> Dict[str, np.ndarray]:
         """→ leaves (n_nodes, local_epochs·steps, batch, ...)."""

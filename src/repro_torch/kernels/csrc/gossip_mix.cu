@@ -67,6 +67,17 @@
 // for the slabs the 16-byte copies cannot take (a strided middle
 // dimension, an odd or unaligned slab).
 //
+// The experiment axis.  The sweep engine mixes E experiments' planes at
+// once: one (E * n, P) allocation of row stride ld, seen as (E, n, P), with
+// one (n, n) matrix (stream_kernel) or one set of (n, dmax) edge weights
+// (edges_kernel) an experiment and one shared neighbour table.  The grid
+// gains a y index, the experiment: a block offsets its coefficients by
+// e * (n * n) or e * (n * dmax) floats and its plane and output by e * n
+// rows, and runs exactly the single-experiment block.  An output row sums
+// its sources in the same order whatever E is, so a batched launch equals
+// E single launches bit for bit, and the table check stays j in [0, n)
+// within each experiment.
+//
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns the launch's cudaError_t.
 
@@ -82,7 +93,8 @@ constexpr int kRpt = 11;                    // output rows a thread
 constexpr int kMaxGroups = 6;               // row groups a block
 constexpr int kStreamThreads = kVecs * kMaxGroups;
 constexpr int kMaxStages = 8;
-constexpr int kPlanFields = 10;
+constexpr int kPlanFields = 11;
+constexpr int kMaxExperiments = 65535;   // the grid's y extent
 constexpr int kEdgeThreads = 256;    // threads in an edges block
 constexpr int kRowThreads = 256;     // threads in a rows block
 constexpr int kRowsMax = 8;          // output rows per rows block, at most
@@ -93,10 +105,11 @@ enum Arith { kFma = 0, kLowp = 1, kUnfused = 2 };
 // passes it: output rows a block and row blocks, row groups (64 threads
 // each), source rows a chunk and chunks, ring stages, whether the
 // coefficients stay resident, grid, dynamic shared bytes, and 16-byte
-// vectors a thread (1, or 2 for f32 where the mix is bound by operations).
+// vectors a thread (1, or 2 for f32 where the mix is bound by operations),
+// and experiments (the grid's y extent; grid is the x extent).
 struct StreamPlan {
   int rows_per_block, row_blocks, groups, chunk, chunks, stages, w_resident;
-  int grid, smem, vecs;
+  int grid, smem, vecs, experiments;
 };
 
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
@@ -294,8 +307,9 @@ __device__ __forceinline__ void consume(float (&acc)[kRpt][VEC],
   }
 }
 
-// Block b owns row block b % row_blocks and walks column tiles b /
-// row_blocks, + lanes, ... (lanes = grid / row_blocks); a step is one
+// Block b of experiment blockIdx.y (w, x and out offset by ew, ex and eo
+// elements an experiment) owns row block b % row_blocks and walks column
+// tiles b / row_blocks, + lanes, ... (lanes = grid / row_blocks); a step is one
 // (tile, source chunk) and one ring stage.  Thread t computes the rows of
 // slots (t / 64) * kRpt .. + kRpt - 1 of its row block at the 16-byte
 // column vectors t % 64 + 64 nv (nv < NV) of the tile, so that a warp's
@@ -304,12 +318,16 @@ template <typename T, int A, int NV>
 __global__ void __launch_bounds__(kStreamThreads, 1)
 stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
               T* __restrict__ out, int r_total, int k_total, long long len,
-              long long sx, long long so, StreamPlan pl) {
+              long long sx, long long so, long long ew, long long ex,
+              long long eo, StreamPlan pl) {
   constexpr int E = 16 / sizeof(T);            // elements a vector
   constexpr int VEC = NV * E;                  // a thread's columns
   constexpr int kRowBytes = NV * kVecBytes;    // a tile's source row
   constexpr long long kCols = kVecs * VEC;
   extern __shared__ __align__(16) unsigned char stream_smem[];
+  w += blockIdx.y * ew;
+  x += blockIdx.y * ex;
+  out += blockIdx.y * eo;
   const int tid = threadIdx.x;
   const int grp = tid / kVecs;                 // warp-uniform
   const int v = tid % kVecs;
@@ -433,15 +451,20 @@ stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
   }
 }
 
-// One block: destination row i x (kEdgeThreads * VEC) plane columns.  The
-// 1-D grid runs destination rows fastest, so the n rows that gather from
-// one column tile run close together and share its source rows in L2.
+// One block: destination row i x (kEdgeThreads * VEC) plane columns of
+// experiment blockIdx.y (its weights n * dmax floats on, its plane and
+// output n * ld elements on; the table is shared).  The grid's x index
+// runs destination rows fastest, so the n rows that gather from one column
+// tile run close together and share its source rows in L2.
 template <typename T, int VEC, bool LOWP>
 __global__ void __launch_bounds__(kEdgeThreads)
 edges_kernel(const float* __restrict__ w, const int* __restrict__ idx,
              const T* __restrict__ plane, T* __restrict__ out, int n,
              int dmax, long long p, long long ld) {
   extern __shared__ float smem[];
+  w += static_cast<long long>(blockIdx.y) * n * dmax;
+  plane += static_cast<long long>(blockIdx.y) * n * ld;
+  out += static_cast<long long>(blockIdx.y) * n * ld;
   float* ws = smem;
   int* is = reinterpret_cast<int*>(smem + dmax);
   const long long bid = blockIdx.x;
@@ -551,7 +574,8 @@ cudaError_t launch_rows(const void* w, const void* blocks, void* out,
 template <typename T, int A, int NV>
 cudaError_t launch_stream_nv(const void* w, const void* x, void* out,
                              int r_total, int k_total, long long len,
-                             long long sx, long long so, const StreamPlan& pl,
+                             long long sx, long long so, long long ew,
+                             long long ex, long long eo, const StreamPlan& pl,
                              cudaStream_t stream) {
   if (pl.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -562,16 +586,18 @@ cudaError_t launch_stream_nv(const void* w, const void* x, void* out,
       return err;
     }
   }
-  stream_kernel<T, A, NV><<<pl.grid, pl.groups * kVecs, pl.smem, stream>>>(
+  const dim3 grid(pl.grid, pl.experiments);
+  stream_kernel<T, A, NV><<<grid, pl.groups * kVecs, pl.smem, stream>>>(
       static_cast<const float*>(w), static_cast<const T*>(x),
-      static_cast<T*>(out), r_total, k_total, len, sx, so, pl);
+      static_cast<T*>(out), r_total, k_total, len, sx, so, ew, ex, eo, pl);
   return cudaGetLastError();
 }
 
 template <typename T, int A>
 cudaError_t launch_stream(const void* w, const void* x, void* out,
                           int r_total, int k_total, long long len,
-                          long long sx, long long so, const long long* plan,
+                          long long sx, long long so, long long ew,
+                          long long ex, long long eo, const long long* plan,
                           cudaStream_t stream) {
   if (plan == nullptr) return cudaErrorInvalidValue;
   for (int i = 0; i < kPlanFields; ++i) {
@@ -588,7 +614,9 @@ cudaError_t launch_stream(const void* w, const void* x, void* out,
   pl.grid = static_cast<int>(plan[7]);
   pl.smem = static_cast<int>(plan[8]);
   pl.vecs = static_cast<int>(plan[9]);
+  pl.experiments = static_cast<int>(plan[10]);
   const bool ok =
+      pl.experiments >= 1 && pl.experiments <= kMaxExperiments &&
       pl.groups >= 1 && pl.groups <= kMaxGroups && pl.rows_per_block >= 1 &&
       pl.rows_per_block <= pl.groups * kRpt && pl.row_blocks >= 1 &&
       static_cast<long long>(pl.row_blocks) * pl.rows_per_block >= r_total &&
@@ -607,23 +635,23 @@ cudaError_t launch_stream(const void* w, const void* x, void* out,
   if constexpr (sizeof(T) == 4) {
     if (pl.vecs == 2) {
       return launch_stream_nv<T, A, 2>(w, x, out, r_total, k_total, len, sx,
-                                       so, pl, stream);
+                                       so, ew, ex, eo, pl, stream);
     }
   }
   return launch_stream_nv<T, A, 1>(w, x, out, r_total, k_total, len, sx, so,
-                                   pl, stream);
+                                   ew, ex, eo, pl, stream);
 }
 
 template <typename T, int VEC, bool LOWP>
 cudaError_t launch_edges(const void* w, const void* idx, const void* plane,
                          void* out, int n, int dmax, long long p,
-                         long long ld, cudaStream_t stream) {
+                         long long ld, int experiments, cudaStream_t stream) {
   const long long n_tiles =
       (p + kEdgeThreads * VEC - 1) / (kEdgeThreads * VEC);
   const long long blocks = n_tiles * n;
   const size_t smem = static_cast<size_t>(dmax) * (sizeof(float) + sizeof(int));
-  edges_kernel<T, VEC, LOWP><<<static_cast<unsigned>(blocks), kEdgeThreads,
-                               smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), experiments);
+  edges_kernel<T, VEC, LOWP><<<grid, kEdgeThreads, smem, stream>>>(
       static_cast<const float*>(w), static_cast<const int*>(idx),
       static_cast<const T*>(plane), static_cast<T*>(out), n, dmax, p, ld);
   return cudaGetLastError();
@@ -633,45 +661,60 @@ cudaError_t launch_edges(const void* w, const void* idx, const void* plane,
 
 // dtype: 0 = float32, 1 = bfloat16.  lowp: accumulate in the plane dtype.
 // ld: row stride of both plane and out, in elements.  plane, out and
-// ld * element size must be 16-byte aligned (the wrappers check).  plan:
-// kPlanFields int64 values of mix_plan(n, n, p, dtype, sms), host memory.
+// ld * element size must be 16-byte aligned (the wrappers check).
+// experiments: E planes of n rows, one after the other (E * n rows of
+// stride ld), and E (n, n) matrices.  plan: kPlanFields int64 values of
+// mix_plan(n, n, p, dtype, sms, E), host memory; its experiment count must
+// be E.
 extern "C" int gossip_plane_launch(const void* c, const void* plane,
                                    void* out, int n, long long p,
-                                   long long ld, int dtype, int lowp,
-                                   void* stream, const long long* plan) {
+                                   long long ld, int experiments, int dtype,
+                                   int lowp, void* stream,
+                                   const long long* plan) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (plan == nullptr || experiments < 1 || plan[10] != experiments) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long ew = static_cast<long long>(n) * n;
+  const long long ex = static_cast<long long>(n) * ld;
   cudaError_t err = cudaSuccess;
   if (n > 0 && p > 0) {
     if (dtype == 0) {
-      err = launch_stream<float, kFma>(c, plane, out, n, n, p, ld, ld, plan,
-                                       s);
+      err = launch_stream<float, kFma>(c, plane, out, n, n, p, ld, ld, ew, ex,
+                                       ex, plan, s);
     } else if (lowp) {
       err = launch_stream<__nv_bfloat16, kLowp>(c, plane, out, n, n, p, ld,
-                                                ld, plan, s);
+                                                ld, ew, ex, ex, plan, s);
     } else {
       err = launch_stream<__nv_bfloat16, kFma>(c, plane, out, n, n, p, ld, ld,
-                                               plan, s);
+                                               ew, ex, ex, plan, s);
     }
   }
   return static_cast<int>(err);
 }
 
+// experiments: E planes of n rows (E * n rows of stride ld) and E (n, dmax)
+// weight tables against one shared (n, dmax) index table.
 extern "C" int gossip_edges_launch(const void* w, const void* idx,
                                    const void* plane, void* out, int n,
                                    int dmax, long long p, long long ld,
-                                   int dtype, int lowp, void* stream) {
+                                   int experiments, int dtype, int lowp,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (experiments < 1 || experiments > kMaxExperiments) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSuccess;
   if (n > 0 && p > 0 && dmax > 0) {
     if (dtype == 0) {
       err = launch_edges<float, 4, false>(w, idx, plane, out, n, dmax, p, ld,
-                                          s);
+                                          experiments, s);
     } else if (lowp) {
       err = launch_edges<__nv_bfloat16, 8, true>(w, idx, plane, out, n, dmax,
-                                                 p, ld, s);
+                                                 p, ld, experiments, s);
     } else {
       err = launch_edges<__nv_bfloat16, 8, false>(w, idx, plane, out, n, dmax,
-                                                  p, ld, s);
+                                                  p, ld, experiments, s);
     }
   }
   return static_cast<int>(err);
@@ -698,15 +741,19 @@ extern "C" int gossip_mix_launch(const void* w, const void* blocks,
         reinterpret_cast<unsigned long long>(blocks) % 16 == 0 &&
         reinterpret_cast<unsigned long long>(out) % 16 == 0 &&
         (sk * b) % 16 == 0 && (len * b) % 16 == 0;
+    if (vec && (plan == nullptr || plan[10] != 1)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (dtype == 0) {
       err = vec ? launch_stream<float, kUnfused>(w, blocks, out, r_total,
-                                                 k_total, len, sk, len, plan,
-                                                 s)
+                                                 k_total, len, sk, len, 0, 0,
+                                                 0, plan, s)
                 : launch_rows<float>(w, blocks, out, r_total, k_total, n, len,
                                      sk, sm, s);
     } else {
       err = vec ? launch_stream<__nv_bfloat16, kUnfused>(
-                      w, blocks, out, r_total, k_total, len, sk, len, plan, s)
+                      w, blocks, out, r_total, k_total, len, sk, len, 0, 0, 0,
+                      plan, s)
                 : launch_rows<__nv_bfloat16>(w, blocks, out, r_total,
                                              k_total, n, len, sk, sm, s);
     }

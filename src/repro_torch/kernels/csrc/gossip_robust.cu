@@ -67,6 +67,13 @@
 // product, every partial sum and the quotient are rounded to bf16 in that
 // same order, as the plain version's bf16 tensors are.
 //
+// The experiment axis (the sweep engine's E experiments in one launch):
+// the plane is E * n rows of stride ld, the weights E (n, dmax) tables
+// against one shared index table, and the grid's y index is the
+// experiment.  A block stages only its own experiment's n rows, so the
+// plan (robust_plan) is the single experiment's, and a batched launch
+// equals E single launches bit for bit.
+//
 // The entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
@@ -89,6 +96,7 @@ constexpr int kPlanFields = 5;
 // bytes.
 struct RobustPlan {
   int tile_cols, staged, slots, grid, smem;
+  int experiments;   // the grid's y extent (an argument of the entry)
 };
 
 // columns a lane takes in a unit: two for the median over tables of at
@@ -269,6 +277,11 @@ robust_kernel(const float* __restrict__ w, const int* __restrict__ idx,
               const T* __restrict__ plane, T* __restrict__ out, int n,
               int dmax, long long p, long long ld, int trim_k, int width) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // experiment blockIdx.y: its weights, plane and output rows; the table
+  // is shared, so j in [0, n) is checked within the experiment
+  w += static_cast<long long>(blockIdx.y) * n * dmax;
+  plane += static_cast<long long>(blockIdx.y) * n * ld;
+  out += static_cast<long long>(blockIdx.y) * n * ld;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long c0 = static_cast<long long>(blockIdx.x) * width;
@@ -384,7 +397,8 @@ cudaError_t launch_robust(const RobustPlan& pl, const void* w,
       return err;
     }
   }
-  kernel<<<pl.grid, kRobustThreads, pl.smem, stream>>>(
+  const dim3 grid(pl.grid, pl.experiments);
+  kernel<<<grid, kRobustThreads, pl.smem, stream>>>(
       static_cast<const float*>(w), static_cast<const int*>(idx),
       static_cast<const T*>(plane), static_cast<T*>(out), n, dmax, p, ld,
       trim_k, pl.tile_cols);
@@ -434,19 +448,20 @@ cudaError_t launch_slots(const RobustPlan& pl, int median, const void* w,
 // dtype: 0 = float32, 1 = bfloat16.  lowp: accumulate in the plane dtype.
 // median: 1 = median, 0 = trimmed mean dropping trim_k per side.
 // ld: row stride of both plane and out, in elements; plane, out and
-// ld * element size 16-byte aligned (the wrapper checks).  plan:
-// kPlanFields int64 values of robust_plan(n, p, dmax, dtype), host memory;
+// ld * element size 16-byte aligned (the wrapper checks).  experiments:
+// E planes of n rows, one after the other.  plan: kPlanFields int64
+// values of robust_plan(n, p, dmax, dtype), host memory;
 // a plan that does not fit the operands (a table wider than its slots, a
 // grid that leaves columns out, other shared bytes) returns
 // cudaErrorInvalidValue without a launch.
 extern "C" int gossip_robust_launch(const void* w, const void* idx,
                                     const void* plane, void* out, int n,
                                     int dmax, long long p, long long ld,
-                                    int dtype, int lowp, int median,
-                                    int trim_k, const long long* plan,
-                                    void* stream) {
+                                    int experiments, int dtype, int lowp,
+                                    int median, int trim_k,
+                                    const long long* plan, void* stream) {
   if (dmax > kMaxSlots || dmax < 0 || trim_k < 0 || plan == nullptr ||
-      dtype < 0 || dtype > 1) {
+      dtype < 0 || dtype > 1 || experiments < 1 || experiments > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int i = 0; i < kPlanFields; ++i) {
@@ -460,6 +475,7 @@ extern "C" int gossip_robust_launch(const void* w, const void* idx,
   pl.slots = static_cast<int>(plan[2]);
   pl.grid = static_cast<int>(plan[3]);
   pl.smem = static_cast<int>(plan[4]);
+  pl.experiments = experiments;
   const int itemsize = dtype == 0 ? 4 : 2;
   const bool ok =
       (pl.tile_cols == 32 || pl.tile_cols == 64 || pl.tile_cols == 128 ||

@@ -32,10 +32,25 @@ CUDA tensor launches the kernel or raises.
 caller), ``<wrapper>.shapes`` the same launches by operand shape and
 dtype.
 
+The experiment axis: :func:`gossip_plane`, :func:`gossip_edges` and
+:func:`gossip_robust` also take the sweep engine's E experiments at once
+— a plane ``(E, n, P)`` (a view of one ``(E·n, P)`` allocation of row
+stride ``ld``, as :meth:`PlaneLayout.pack` makes it for the folded tree),
+coefficients ``(E, n, n)`` or weights ``(E, n, dmax)`` against ONE shared
+``(n, dmax)`` table — in one launch whose grid carries the experiment
+index; the reference runs its kernels under ``jax.vmap`` over the
+experiments, which gives a ``pallas_call`` the same batch axis.  Each
+output row sums its sources in the same order whatever E is, so a batched
+launch equals E single launches bit for bit; the plain versions take the
+same operands and are E plain calls.  The ``.shapes`` key of a batched
+launch leads with ``"E=<E>"``.
+
 :func:`mix_plane`, :func:`mix_edges_kernel` and :func:`mix_robust_kernel`
 are the tree-level wrappers the trainer calls: pack once → one launch →
-unpack once.  :func:`mix_modeled_hbm_bytes` is the reference's byte model
-of one mix for every backend.
+unpack once; with ``(E, n, n)`` coefficients they take ``(E, n, ...)``
+trees and still pack, launch and unpack once for the whole grid.
+:func:`mix_modeled_hbm_bytes` is the reference's byte model of one mix
+for every backend.
 """
 from __future__ import annotations
 
@@ -85,30 +100,54 @@ def _lib(name: str = "gossip_mix") -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "gossip_mix":
             plan = ctypes.POINTER(ll)
-            lib.gossip_plane_launch.argtypes = [p, p, p, i, ll, ll, i, i, p,
-                                                plan]
+            lib.gossip_plane_launch.argtypes = [p, p, p, i, ll, ll, i, i, i,
+                                                p, plan]
             lib.gossip_plane_launch.restype = ctypes.c_int
             lib.gossip_edges_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
-                                                i, p]
+                                                i, i, p]
             lib.gossip_edges_launch.restype = ctypes.c_int
             lib.gossip_mix_launch.argtypes = [p, p, p, i, i, ll, ll, ll, ll,
                                               i, p, plan]
             lib.gossip_mix_launch.restype = ctypes.c_int
         else:
             lib.gossip_robust_launch.argtypes = [p, p, p, p, i, i, ll, ll, i,
-                                                 i, i, i, ctypes.POINTER(ll),
-                                                 p]
+                                                 i, i, i, i,
+                                                 ctypes.POINTER(ll), p]
             lib.gossip_robust_launch.restype = ctypes.c_int
         _bound[name] = lib
     return lib
 
 
 def _check_plane(plane: torch.Tensor) -> None:
-    if plane.ndim != 2:
-        raise ValueError(f"plane must be (n, P), got {tuple(plane.shape)}")
+    if plane.ndim not in (2, 3):
+        raise ValueError(f"plane must be (n, P) or (E, n, P), got "
+                         f"{tuple(plane.shape)}")
     if plane.dtype not in _DTYPE_CODES:
         raise TypeError(f"plane dtype must be float32 or bfloat16, got "
                         f"{plane.dtype}")
+
+
+def _rows_view(plane: torch.Tensor, name: str) -> torch.Tensor:
+    """The ``(E·n, P)`` view of an ``(E, n, P)`` CUDA plane (the plane
+    itself when 2-D): the experiments' rows must be one allocation of one
+    row stride, which the kernels walk as E blocks of n rows."""
+    if plane.ndim == 2:
+        return plane
+    e, n, p = plane.shape
+    try:
+        return plane.view(e * n, p)
+    except RuntimeError:
+        raise ValueError(
+            f"{name}: an (E, n, P) plane must be one (E·n, P) allocation "
+            f"of one row stride (PlaneLayout.pack of the folded tree), got "
+            f"strides {plane.stride()}") from None
+
+
+def _shape_key(plane: torch.Tensor, *extra):
+    """The ``.shapes`` key: ``(n, P, dtype, ...)``, led by ``"E=<E>"`` for
+    a batched launch."""
+    key = (plane.shape[-2], plane.shape[-1], str(plane.dtype)[6:]) + extra
+    return (f"E={plane.shape[0]}",) + key if plane.ndim == 3 else key
 
 
 def _check_cuda_plane(plane: torch.Tensor, name: str) -> int:
@@ -132,9 +171,9 @@ def _check_cuda_plane(plane: torch.Tensor, name: str) -> int:
 
 
 def _out_like(plane: torch.Tensor, ld: int) -> torch.Tensor:
-    n, p = plane.shape
-    return torch.empty((n, ld), dtype=plane.dtype,
-                       device=plane.device)[:, :p]
+    *lead, p = plane.shape
+    return torch.empty(tuple(lead) + (ld,), dtype=plane.dtype,
+                       device=plane.device)[..., :p]
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -178,7 +217,9 @@ class MixPlan:
     ``vecs`` 16-byte column vectors.  Source rows come in ``chunks`` of
     ``chunk`` (the last may be shorter), one ring stage each, ``stages``
     stages.  C's rows of the block stay in shared memory when
-    ``w_resident``, else each stage carries its chunk's slice."""
+    ``w_resident``, else each stage carries its chunk's slice.  The grid
+    runs ``grid`` blocks an experiment (its x extent) for ``experiments``
+    experiments (its y extent)."""
 
     itemsize: int
     rows_per_block: int
@@ -192,6 +233,7 @@ class MixPlan:
     smem_bytes: int
     vecs: int
     blocks_per_sm: int
+    experiments: int = 1
 
     @property
     def row_bytes(self) -> int:
@@ -224,10 +266,10 @@ class MixPlan:
 
     def c_args(self):
         """The plan as the C entries take it (``StreamPlan``'s order)."""
-        return (ctypes.c_longlong * 10)(
+        return (ctypes.c_longlong * 11)(
             self.rows_per_block, self.row_blocks, self.groups, self.chunk,
             self.chunks, self.stages, int(self.w_resident), self.grid,
-            self.smem_bytes, self.vecs)
+            self.smem_bytes, self.vecs, self.experiments)
 
 
 def _round4(x: int) -> int:
@@ -242,10 +284,11 @@ def _blocks_per_sm(threads: int, smem: int) -> int:
 
 
 def mix_plan(n_rows: int, n_src: int, p: int, dtype: torch.dtype,
-             sms: int) -> MixPlan:
+             sms: int, experiments: int = 1) -> MixPlan:
     """The launch plan of ``stream_kernel`` for ``n_rows`` output rows
     (R), ``n_src`` source rows (K) and ``p`` columns (L) of ``dtype``
-    (f32 or bf16) on a card with ``sms`` SMs.
+    (f32 or bf16) on a card with ``sms`` SMs, for each of ``experiments``
+    experiments.
 
     Output rows: one row block for R ≤ 64, else balanced blocks of ≤ 64;
     ⌈rows / 11⌉ row groups (n = 33: 3 groups of 11, no idle warp).  A
@@ -259,7 +302,12 @@ def mix_plan(n_rows: int, n_src: int, p: int, dtype: torch.dtype,
     that keeps the most source bytes in flight on it (blocks × ``stages −
     1`` stages), the fewest on a tie.  Grid: the SM count times those
     blocks, a multiple of the row blocks, and no more lanes than column
-    tiles."""
+    tiles; with E experiments the SMs' blocks are shared among E × the
+    row blocks (at least one lane each), so ``experiments=1`` is the
+    single-experiment plan exactly."""
+    if experiments < 1:
+        raise ValueError(f"mix_plan needs experiments >= 1, got "
+                         f"{experiments}")
     if n_rows < 1 or n_src < 1 or p < 0:
         raise ValueError(f"mix_plan needs R, K >= 1 and L >= 0, got "
                          f"{n_rows}, {n_src}, {p}")
@@ -294,10 +342,10 @@ def mix_plan(n_rows: int, n_src: int, p: int, dtype: torch.dtype,
                          f"{n_rows}, K={n_src}")
     (bps, _), stages, smem = best
     n_tiles = _cdiv(p, row_bytes // itemsize)
-    lanes = max(1, min(n_tiles, sms * bps // row_blocks))
+    lanes = max(1, min(n_tiles, sms * bps // (row_blocks * experiments)))
     return MixPlan(itemsize, rows_per_block, row_blocks, groups, chunk,
                    chunks, stages, w_resident, lanes * row_blocks, smem,
-                   vecs, bps)
+                   vecs, bps, experiments)
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,11 +353,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _plan_args(n_rows: int, n_src: int, p: int, t: torch.Tensor):
+def _plan_args(n_rows: int, n_src: int, p: int, t: torch.Tensor,
+               experiments: int = 1):
     index = t.device.index
     if index is None:
         index = torch.cuda.current_device()
-    return mix_plan(n_rows, n_src, p, t.dtype, _sm_count(index)).c_args()
+    return mix_plan(n_rows, n_src, p, t.dtype, _sm_count(index),
+                    experiments).c_args()
 
 
 # ----------------------------------------------------------------------
@@ -322,7 +372,12 @@ def gossip_plane_ref(plane: torch.Tensor, coeffs: torch.Tensor,
     f32 accumulation: ``C.float() @ plane.float()`` cast back.  With
     ``mix_in_float32=False`` on a bf16 plane the sum runs in bf16 in
     ascending source row: C, each product and each partial sum rounded to
-    bf16 (the kernel's arithmetic, op for op)."""
+    bf16 (the kernel's arithmetic, op for op).  ``(E, n, P)`` with ``(E,
+    n, n)``: each experiment's own call."""
+    if plane.ndim == 3:
+        return torch.stack([gossip_plane_ref(plane[e], coeffs[e],
+                                             mix_in_float32)
+                            for e in range(plane.shape[0])])
     if mix_in_float32 or plane.dtype == torch.float32:
         return (coeffs.float() @ plane.float()).to(plane.dtype)
     c = coeffs.to(plane.dtype)
@@ -335,11 +390,13 @@ def gossip_plane_ref(plane: torch.Tensor, coeffs: torch.Tensor,
 def gossip_plane(plane: torch.Tensor, coeffs: torch.Tensor,
                  mix_in_float32: bool = True) -> torch.Tensor:
     """``out = coeffs @ plane``: plane ``(n, P)`` f32 or bf16, coeffs
-    ``(n, n)`` f32; f32 accumulation unless ``mix_in_float32=False``."""
+    ``(n, n)`` f32; f32 accumulation unless ``mix_in_float32=False``.  A
+    plane ``(E, n, P)`` with coeffs ``(E, n, n)`` mixes E experiments in
+    one launch."""
     _check_plane(plane)
-    n, p = plane.shape
-    if tuple(coeffs.shape) != (n, n):
-        raise ValueError(f"coeffs must be ({n}, {n}), got "
+    *lead, n, p = plane.shape
+    if tuple(coeffs.shape) != tuple(lead) + (n, n):
+        raise ValueError(f"coeffs must be {tuple(lead) + (n, n)}, got "
                          f"{tuple(coeffs.shape)}")
     if plane.device.type == "cpu":
         return gossip_plane_ref(plane, coeffs, mix_in_float32)
@@ -349,18 +406,19 @@ def gossip_plane(plane: torch.Tensor, coeffs: torch.Tensor,
     if coeffs.device != plane.device or coeffs.dtype != torch.float32:
         raise ValueError("coeffs must be float32 on the plane's device")
     coeffs = coeffs.contiguous()
-    ld = _check_cuda_plane(plane, "gossip_plane")
+    experiments = lead[0] if lead else 1
+    ld = _check_cuda_plane(_rows_view(plane, "gossip_plane"), "gossip_plane")
     out = _out_like(plane, ld)
     lowp = int(not mix_in_float32 and plane.dtype != torch.float32)
     with torch.cuda.device(plane.device):
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = _lib().gossip_plane_launch(
             coeffs.data_ptr(), plane.data_ptr(), out.data_ptr(), n, p, ld,
-            _DTYPE_CODES[plane.dtype], lowp, stream,
-            _plan_args(n, n, p, plane))
+            experiments, _DTYPE_CODES[plane.dtype], lowp, stream,
+            _plan_args(n, n, p, plane, experiments))
     _raise_on(rc, "gossip_plane")
     gossip_plane.launches += 1
-    gossip_plane.shapes[(n, p, str(plane.dtype)[6:])] += 1
+    gossip_plane.shapes[_shape_key(plane)] += 1
     return out
 
 
@@ -368,14 +426,42 @@ gossip_plane.launches = 0
 gossip_plane.shapes = collections.Counter()
 
 
+def _fold(params, coeffs: torch.Tensor):
+    """A tree of ``(E, n, ...)`` leaves as ``(E·n, ...)`` (the tree itself
+    for ``(n, n)`` coefficients)."""
+    if coeffs.ndim == 2:
+        return params
+    return tree_util.tree_map(lambda x: x.reshape((-1,) + x.shape[2:]),
+                              params)
+
+
+def _pack(params, coeffs: torch.Tensor):
+    """``(layout, plane)``: the folded tree packed once, the plane seen as
+    ``(E, n, P)`` for ``(E, n, n)`` coefficients."""
+    flat = _fold(params, coeffs)
+    layout = PlaneLayout.from_tree(flat)
+    plane = layout.pack(flat)
+    if coeffs.ndim == 3:
+        plane = plane.unflatten(0, (coeffs.shape[0], -1))
+    return layout, plane
+
+
+def _unpack(layout: PlaneLayout, mixed: torch.Tensor, coeffs: torch.Tensor):
+    if coeffs.ndim == 2:
+        return layout.unpack(mixed)
+    e = coeffs.shape[0]
+    return tree_util.tree_map(lambda x: x.reshape((e, -1) + x.shape[1:]),
+                              layout.unpack(mixed.flatten(0, 1)))
+
+
 def mix_plane(params, coeffs: torch.Tensor, mix_in_float32: bool = True):
     """Eq. (2) over a stacked tree via :func:`gossip_plane`: pack once (in
     the widest leaf dtype) → one launch → unpack once, whatever the leaf
-    count."""
-    layout = PlaneLayout.from_tree(params)
-    plane = layout.pack(params)
+    count; ``(E, n, ...)`` trees with ``(E, n, n)`` coefficients are one
+    pack and one launch for all E."""
+    layout, plane = _pack(params, coeffs)
     mixed = gossip_plane(plane, coeffs.to(torch.float32), mix_in_float32)
-    return layout.unpack(mixed)
+    return _unpack(layout, mixed, coeffs)
 
 
 # ----------------------------------------------------------------------
@@ -387,7 +473,12 @@ def gossip_edges_ref(plane: torch.Tensor, weights: torch.Tensor,
     """Plain PyTorch version of :func:`gossip_edges`: the gather-mul-sum
     of ``mix_edges`` in ascending d from 0, each product and sum its own
     rounded op (in bf16, weight included, when ``mix_in_float32=False``
-    on a bf16 plane)."""
+    on a bf16 plane).  ``(E, n, P)`` with ``(E, n, dmax)`` weights: each
+    experiment's own call."""
+    if plane.ndim == 3:
+        return torch.stack([gossip_edges_ref(plane[e], weights[e], nbr_idx,
+                                             mix_in_float32)
+                            for e in range(plane.shape[0])])
     lowp = not mix_in_float32 and plane.dtype != torch.float32
     acc_dtype = plane.dtype if lowp else torch.float32
     w = weights.to(acc_dtype)
@@ -400,11 +491,16 @@ def gossip_edges_ref(plane: torch.Tensor, weights: torch.Tensor,
 
 def _check_tables(plane: torch.Tensor, weights: torch.Tensor,
                   nbr_idx: torch.Tensor) -> None:
-    n = plane.shape[0]
-    if weights.ndim != 2 or weights.shape[0] != n or \
-            tuple(nbr_idx.shape) != tuple(weights.shape):
-        raise ValueError(f"weights and nbr_idx must both be ({n}, dmax), got "
-                         f"{tuple(weights.shape)} and {tuple(nbr_idx.shape)}")
+    """weights ``(n, dmax)`` (``(E, n, dmax)`` for an ``(E, n, P)`` plane)
+    and one ``(n, dmax)`` table."""
+    *lead, n, _ = plane.shape
+    if weights.ndim != plane.ndim or tuple(weights.shape[:-1]) != \
+            tuple(lead) + (n,) or nbr_idx.ndim != 2 or \
+            tuple(nbr_idx.shape) != tuple(weights.shape[-2:]):
+        raise ValueError(
+            f"weights must be {tuple(lead) + (n,)} + (dmax,) and nbr_idx "
+            f"({n}, dmax), got {tuple(weights.shape)} and "
+            f"{tuple(nbr_idx.shape)}")
 
 
 def _check_cuda_tables(plane: torch.Tensor, weights: torch.Tensor,
@@ -423,26 +519,28 @@ def gossip_edges(plane: torch.Tensor, weights: torch.Tensor,
     """``out[i] = Σ_d weights[i, d] · plane[nbr_idx[i, d]]``: plane
     ``(n, P)`` f32 or bf16, weights ``(n, dmax)`` f32 (zero on padding
     slots), nbr_idx ``(n, dmax)`` int32 rows in ``[0, n)`` (padding = own
-    row).  A CUDA launch with an index outside ``[0, n)`` traps."""
+    row).  A CUDA launch with an index outside ``[0, n)`` traps.  A plane
+    ``(E, n, P)`` with weights ``(E, n, dmax)`` mixes E experiments in one
+    launch over the one shared table."""
     _check_plane(plane)
-    n, p = plane.shape
+    *lead, n, p = plane.shape
     _check_tables(plane, weights, nbr_idx)
     if plane.device.type == "cpu":
         return gossip_edges_ref(plane, weights, nbr_idx, mix_in_float32)
     _check_cuda_tables(plane, weights, nbr_idx, "gossip_edges")
     weights, nbr_idx = weights.contiguous(), nbr_idx.contiguous()
-    ld = _check_cuda_plane(plane, "gossip_edges")
+    ld = _check_cuda_plane(_rows_view(plane, "gossip_edges"), "gossip_edges")
     out = _out_like(plane, ld)
     lowp = int(not mix_in_float32 and plane.dtype != torch.float32)
     with torch.cuda.device(plane.device):
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = _lib().gossip_edges_launch(
             weights.data_ptr(), nbr_idx.data_ptr(), plane.data_ptr(),
-            out.data_ptr(), n, weights.shape[1], p, ld,
-            _DTYPE_CODES[plane.dtype], lowp, stream)
+            out.data_ptr(), n, weights.shape[-1], p, ld,
+            lead[0] if lead else 1, _DTYPE_CODES[plane.dtype], lowp, stream)
     _raise_on(rc, "gossip_edges")
     gossip_edges.launches += 1
-    gossip_edges.shapes[(n, p, str(plane.dtype)[6:])] += 1
+    gossip_edges.shapes[_shape_key(plane)] += 1
     return out
 
 
@@ -454,12 +552,12 @@ def mix_edges_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
                      nbr_mask: torch.Tensor, mix_in_float32: bool = True):
     """Eq. (2) over a stacked tree via :func:`gossip_edges`: pack once →
     per-edge weight gather (``core.mixing.edge_weights``, in torch as the
-    reference does it outside Pallas) → one launch → unpack once."""
-    layout = PlaneLayout.from_tree(params)
-    plane = layout.pack(params)
+    reference does it outside Pallas) → one launch → unpack once (for
+    ``(E, n, n)`` coefficients, once for the whole grid)."""
+    layout, plane = _pack(params, coeffs)
     w = edge_weights(coeffs.to(torch.float32), nbr_idx, nbr_mask)
     mixed = gossip_edges(plane, w, nbr_idx.to(torch.int32), mix_in_float32)
-    return layout.unpack(mixed)
+    return _unpack(layout, mixed, coeffs)
 
 
 # ----------------------------------------------------------------------
@@ -556,7 +654,12 @@ def gossip_robust_ref(plane: torch.Tensor, weights: torch.Tensor,
     sums in ascending sorted order, in bf16 when ``mix_in_float32=False``
     on a bf16 plane).  Memory is ``2·dmax·n·P`` accumulation-dtype
     values: columns are independent, so a caller may run it over column
-    chunks."""
+    chunks.  ``(E, n, P)`` with ``(E, n, dmax)`` weights: each
+    experiment's own call."""
+    if plane.ndim == 3:
+        return torch.stack([gossip_robust_ref(plane[e], weights[e], nbr_idx,
+                                              op, trim_k, mix_in_float32)
+                            for e in range(plane.shape[0])])
     lowp = not mix_in_float32 and plane.dtype != torch.float32
     acc_dtype = plane.dtype if lowp else torch.float32
     flat = plane.to(acc_dtype)
@@ -574,9 +677,11 @@ def gossip_robust(plane: torch.Tensor, weights: torch.Tensor,
     the occupied slots' values (slots with weight > 0), falling back to
     the row's own value.  Operands as :func:`gossip_edges`; on the card
     the table width dmax is at most the widest kernel instantiation (64)
-    and an index outside ``[0, n)`` traps."""
+    and an index outside ``[0, n)`` traps.  ``(E, n, P)`` with ``(E, n,
+    dmax)`` weights: E experiments in one launch, each block staging only
+    its own experiment's rows (the plan is the single experiment's)."""
     _check_plane(plane)
-    n, p = plane.shape
+    *lead, n, p = plane.shape
     _check_tables(plane, weights, nbr_idx)
     if op not in ROBUST_OPS:
         raise ValueError(f"gossip_robust op {op!r} not in {ROBUST_OPS}")
@@ -586,22 +691,24 @@ def gossip_robust(plane: torch.Tensor, weights: torch.Tensor,
         return gossip_robust_ref(plane, weights, nbr_idx, op, trim_k,
                                  mix_in_float32)
     _check_cuda_tables(plane, weights, nbr_idx, "gossip_robust")
-    dmax = weights.shape[1]
+    dmax = weights.shape[-1]
     plan = robust_plan(n, p, dmax, plane.dtype, op)
     lib = _lib("gossip_robust")
     weights, nbr_idx = weights.contiguous(), nbr_idx.contiguous()
-    ld = _check_cuda_plane(plane, "gossip_robust")
+    ld = _check_cuda_plane(_rows_view(plane, "gossip_robust"),
+                           "gossip_robust")
     out = _out_like(plane, ld)
     lowp = int(not mix_in_float32 and plane.dtype != torch.float32)
     with torch.cuda.device(plane.device):
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = lib.gossip_robust_launch(
             weights.data_ptr(), nbr_idx.data_ptr(), plane.data_ptr(),
-            out.data_ptr(), n, dmax, p, ld, _DTYPE_CODES[plane.dtype], lowp,
-            int(op == "median"), trim_k, plan.c_args(), stream)
+            out.data_ptr(), n, dmax, p, ld, lead[0] if lead else 1,
+            _DTYPE_CODES[plane.dtype], lowp, int(op == "median"), trim_k,
+            plan.c_args(), stream)
     _raise_on(rc, "gossip_robust")
     gossip_robust.launches += 1
-    gossip_robust.shapes[(n, p, str(plane.dtype)[6:], op)] += 1
+    gossip_robust.shapes[_shape_key(plane, op)] += 1
     return out
 
 
@@ -614,13 +721,13 @@ def mix_robust_kernel(params, coeffs: torch.Tensor, nbr_idx: torch.Tensor,
                       trim_k: int = 1, mix_in_float32: bool = True):
     """Robust Eq. (2) over a stacked tree via :func:`gossip_robust`: pack
     once → per-edge weight gather → one launch → unpack once.  Equals
-    ``core.mixing.mix_robust_tables`` bit for bit on the CPU."""
-    layout = PlaneLayout.from_tree(params)
-    plane = layout.pack(params)
+    ``core.mixing.mix_robust_tables`` bit for bit on the CPU; ``(E, n,
+    ...)`` trees with ``(E, n, n)`` coefficients are one launch."""
+    layout, plane = _pack(params, coeffs)
     w = edge_weights(coeffs.to(torch.float32), nbr_idx, nbr_mask)
     mixed = gossip_robust(plane, w, nbr_idx.to(torch.int32), op, trim_k,
                           mix_in_float32)
-    return layout.unpack(mixed)
+    return _unpack(layout, mixed, coeffs)
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Optimizers over the stacked node axis (port of
-``repro/training/optimizer.py``: ``sgd``, ``adam``, ``apply_updates`` and
-``clip_by_global_norm``).
+``repro/training/optimizer.py``: ``sgd``, ``adam``, ``apply_updates``,
+``clip_by_global_norm`` and the nonfinite guard ``skip_nonfinite_updates``).
 
 The reference's ``Optimizer`` updates ONE node and the trainer vmaps it
 over the node axis.  The port writes that axis out: every tree here has
@@ -10,12 +10,14 @@ computes it under ``vmap``, so a norm taken over the stacked tensors would
 be wrong.  The step counter too is one int32 per node, ``(n,)``, as in
 the reference's vmapped state, so a round with partial participation can
 keep an inactive node's count.  States are dicts of trees so they flatten
-in ``jax.tree`` order.
+in ``jax.tree`` order.  A tree may also carry the sweep engine's
+experiments folded into its node axis (``(E·n, ...)``): every quantity
+stays per row.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional, TypedDict
 
 import torch
 
@@ -28,6 +30,8 @@ __all__ = [
     "apply_updates",
     "global_norm",
     "clip_by_global_norm",
+    "NonfiniteGuardState",
+    "skip_nonfinite_updates",
 ]
 
 
@@ -131,5 +135,53 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             lambda m, v: -lr * (m * _per_node(mu_hat, m))
             / (torch.sqrt(v * _per_node(nu_hat, v)) + eps), mu, nu)
         return updates, {"mu": mu, "nu": nu, "step": step}
+
+    return Optimizer(init, update)
+
+
+# ----------------------------------------------------------------------
+# nonfinite guard (DESIGN.md §16: the local half of fault tolerance)
+# ----------------------------------------------------------------------
+class NonfiniteGuardState(TypedDict):
+    """The guard's state: the wrapped optimizer's state and ``skipped``,
+    an ``(n,)`` int32 count of each node's dropped steps (the reference's
+    NamedTuple fields, in the same flatten order)."""
+
+    inner: Any
+    skipped: torch.Tensor
+
+
+def skip_nonfinite_updates(opt: Optimizer) -> Optimizer:
+    """Wrap ``opt`` so a node's step with any NaN/Inf gradient is the
+    identity for that node: its update is zero, its inner state (step
+    count included) is carried through unchanged, and its ``skipped``
+    count grows by one.  The gradients are zero-substituted before the
+    inner update, so no NaN arithmetic leaks through the select.  Per
+    node on the stacked axis, as the reference's guard is under its
+    vmap."""
+
+    def init(params):
+        return NonfiniteGuardState(inner=opt.init(params),
+                                   skipped=_step_zeros(params))
+
+    def update(grads, state, params=None):
+        leaves = tree_util.leaves(grads)
+        n = leaves[0].shape[0]
+        finite = torch.stack([torch.isfinite(g.reshape(n, -1)).all(dim=1)
+                              for g in leaves]).all(dim=0)
+        safe = tree_util.tree_map(
+            lambda g: torch.where(_per_node(finite, g), g,
+                                  torch.zeros_like(g)), grads)
+        upd, new_inner = opt.update(safe, state["inner"], params)
+
+        def sel(new, old):
+            return torch.where(_per_node(finite, new), new, old)
+
+        updates = tree_util.tree_map(
+            lambda u: sel(u, torch.zeros_like(u)), upd)
+        inner = tree_util.tree_map(sel, new_inner, state["inner"])
+        skipped = torch.where(finite, state["skipped"],
+                              state["skipped"] + 1)
+        return updates, NonfiniteGuardState(inner=inner, skipped=skipped)
 
     return Optimizer(init, update)

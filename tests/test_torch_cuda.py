@@ -267,7 +267,7 @@ def test_robust_kernel_under_every_tile_width_on_the_card(tile):
     out = tk._out_like(pt, pt.stride(0))
     rc = tk._lib("gossip_robust").gossip_robust_launch(
         w.data_ptr(), idx.data_ptr(), pt.data_ptr(), out.data_ptr(), 33,
-        idx.shape[1], 1001, pt.stride(0), 0, 0, 0, 1, plan.c_args(),
+        idx.shape[1], 1001, pt.stride(0), 1, 0, 0, 0, 1, plan.c_args(),
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
@@ -300,7 +300,7 @@ def test_robust_kernel_refuses_a_plan_for_other_operands_on_the_card():
                                for f in fields})
         rc = tk._lib("gossip_robust").gossip_robust_launch(
             w.data_ptr(), idx.data_ptr(), pt.data_ptr(), out.data_ptr(), 33,
-            idx.shape[1], 1001, pt.stride(0), 0, 0, median, 1 - median,
+            idx.shape[1], 1001, pt.stride(0), 1, 0, 0, median, 1 - median,
             bad.c_args(), torch.cuda.current_stream().cuda_stream)
         assert rc != 0, change
 

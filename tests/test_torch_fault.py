@@ -110,8 +110,12 @@ def test_fault_spec_validation():
         tdyn.FaultSpec(mode="gremlins")
     with pytest.raises(ValueError, match="probation"):
         tdyn.FaultSpec(quarantine=True, probation=0)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \[links\]"):
-        tdyn.FaultSpec(mode="noise")
+    noise = tdyn.FaultSpec(mode="noise")
+    ref = jdyn.FaultSpec(mode="noise")
+    assert (noise.noise_scale, noise.seed) == (ref.noise_scale, ref.seed)
+    with pytest.raises(ValueError, match="fseed"):
+        noise.corrupt({"w": torch.zeros(2, 3)})
+    assert tdyn.ParticipationSpec().seed == jdyn.ParticipationSpec().seed
     with pytest.raises(ValueError, match="period"):
         tdyn.ParticipationSpec(mode="duty")
     assert tdyn.FAULT_MODES == jdyn.FAULT_MODES
@@ -375,3 +379,103 @@ def test_rate0_and_full_participation_equal_make_round_fn(scenarios,
                 assert torch.equal(a, b), k
     assert int(state["q"][2][0]["fault_rounds"].sum()) == 0
     assert int(state["q"][2][0]["rounds_quarantined"].sum()) == 0
+
+
+# ----------------------------------------------------------------------
+# the "noise" mode, per-experiment masks, the nonfinite guard
+# ----------------------------------------------------------------------
+# jax.random.normal against the port's draw: at most 3 ulps of the noise
+# (tests/test_torch_prng.py); with noise_scale 0.5 added to leaves of
+# magnitude ~1 the corrupted values measured here differ by at most
+# 1.2e-7 absolute.  Pinned: 1e-6.
+NOISE_ATOL = 1e-6
+
+
+def _noise_tree(e=None):
+    rng = np.random.default_rng(11)
+    lead = (6,) if e is None else (e, 6)
+    return {"l1": {"b": rng.standard_normal(lead + (5,)).astype(np.float32),
+                   "w": rng.standard_normal(lead + (4, 5)).astype(np.float32)},
+            "l2": {"w": rng.standard_normal(lead + (3,)).astype(np.float32)}}
+
+
+@pytest.mark.parametrize("fseed,r", [(0, 0), (5, 3), (2 ** 31, 39)])
+def test_noise_corruption_matches_jax(fseed, r):
+    p = _noise_tree()
+    want = jdyn.FaultSpec(mode="noise", noise_scale=0.5).corrupt(
+        jax.tree.map(jnp.asarray, p), jnp.uint32(fseed), r)
+    got = tdyn.FaultSpec(mode="noise", noise_scale=0.5).corrupt(
+        tree_util.tree_map(torch.as_tensor, p), fseed, r)
+    for a, b in zip(tree_util.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=NOISE_ATOL)
+
+
+def test_noise_rows_drawn_alone_equal_the_whole_leaf_draw():
+    """Drawing only the faulty rows' counters gives those rows of the
+    whole-leaf draw bit for bit; the other rows come back unchanged.  The
+    batched form (``(E,)`` seeds, ``(E, n)`` mask) is each experiment's
+    own draw."""
+    spec = tdyn.FaultSpec(mode="noise", noise_scale=2.0)
+    p = tree_util.tree_map(torch.as_tensor, _noise_tree())
+    faulty = np.array([True, False, False, True, True, False])
+    whole = spec.corrupt(p, 7, 4)
+    rows = spec.corrupt(p, 7, 4, faulty)
+    for w, r, x in zip(*(tree_util.leaves(t) for t in (whole, rows, p))):
+        assert torch.equal(r[faulty], w[faulty])
+        assert torch.equal(r[~faulty], x[~faulty])
+    pe = tree_util.tree_map(torch.as_tensor, _noise_tree(3))
+    seeds = np.array([7, 8, 9])
+    fe = np.random.default_rng(0).random((3, 6)) < 0.5
+    got = spec.corrupt(pe, seeds, 4, fe)
+    for e in range(3):
+        one = spec.corrupt(tree_util.tree_map(lambda x: x[e], pe),
+                           int(seeds[e]), 4, fe[e])
+        for a, b in zip(tree_util.leaves(got), tree_util.leaves(one)):
+            assert torch.equal(a[e], b)
+
+
+def test_masks_for_experiment_grids_are_each_experiments_own():
+    rates = np.array([0.0, 0.3, 1.0], np.float32)
+    seeds = np.array([4, 5, 6])
+    fs, ps = tdyn.FaultSpec(), tdyn.ParticipationSpec()
+    for r in (0, 7):
+        fm = fs.faulty_mask(rates, seeds, r, 9)
+        pm = ps.active_mask(rates, seeds, r, 9)
+        assert fm.shape == pm.shape == (3, 9)
+        for e in range(3):
+            assert np.array_equal(fm[e], fs.faulty_mask(rates[e], seeds[e],
+                                                        r, 9))
+            assert np.array_equal(pm[e], ps.active_mask(rates[e], seeds[e],
+                                                        r, 9))
+
+
+def test_skip_nonfinite_updates_matches_the_reference_guard():
+    """Per node: the port's stacked guard against the reference's under
+    ``jax.vmap``, SGD with momentum, over steps with NaN and Inf
+    gradients on some nodes.  Updates, momentum and step counts exact,
+    ``skipped`` exact."""
+    rng = np.random.default_rng(3)
+    n = 5
+    params = {"a": rng.standard_normal((n, 3)).astype(np.float32),
+              "b": rng.standard_normal((n, 2, 2)).astype(np.float32)}
+    jopt_ = jopt.skip_nonfinite_updates(jopt.sgd(0.1, momentum=0.9))
+    topt_ = topt.skip_nonfinite_updates(topt.sgd(0.1, momentum=0.9))
+    js = jax.vmap(jopt_.init)(jax.tree.map(jnp.asarray, params))
+    ts = topt_.init(tree_util.tree_map(torch.as_tensor, params))
+    for step in range(4):
+        g = {k: rng.standard_normal(v.shape).astype(np.float32)
+             for k, v in params.items()}
+        g["a"][step % n, 0] = np.nan
+        g["b"][(step + 2) % n, 1, 1] = np.inf
+        ju, js = jax.vmap(jopt_.update)(jax.tree.map(jnp.asarray, g), js)
+        tu, ts = topt_.update(tree_util.tree_map(torch.as_tensor, g), ts)
+        for a, b in zip(tree_util.leaves(tu), jax.tree.leaves(ju)):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+    assert np.array_equal(ts["skipped"].numpy(), np.asarray(js.skipped))
+    assert ts["skipped"].tolist() == [2, 1, 2, 2, 1]
+    assert np.array_equal(ts["inner"]["step"].numpy(),
+                          np.asarray(js.inner.step))
+    for a, b in zip(tree_util.leaves(ts["inner"]["momentum"]),
+                    jax.tree.leaves(js.inner.momentum)):
+        assert np.array_equal(a.numpy(), np.asarray(b))

@@ -4,6 +4,8 @@ its geometry, its shared-memory layout, and a numpy walk of the kernel's
 schedule (blocks, ring steps, the coefficients' ``[k / 4][slot][4]``
 layout, the zero-filled ragged edge) against ``W @ X``.  The kernel itself
 runs only on the card (``tests/test_torch_cuda.py``)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -71,7 +73,8 @@ def test_plan_geometry(n_rows, n_src, dtype):
         assert pl.w_bytes(n_src) <= tk.W_RESIDENT_BYTES
     assert list(pl.c_args()) == [
         pl.rows_per_block, pl.row_blocks, pl.groups, pl.chunk, pl.chunks,
-        pl.stages, int(pl.w_resident), pl.grid, pl.smem_bytes, pl.vecs]
+        pl.stages, int(pl.w_resident), pl.grid, pl.smem_bytes, pl.vecs,
+        pl.experiments]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -194,3 +197,99 @@ def test_kernel_schedule_computes_w_at_x(n_rows, n_src, p, sms, dtype):
     assert not np.isnan(got).any()
     assert max_read == p - 1
     np.testing.assert_allclose(got, w @ x, rtol=1e-12, atol=1e-12)
+
+
+# ----------------------------------------------------------------------
+# the experiment axis
+# ----------------------------------------------------------------------
+def _plan_before_the_experiment_axis(n_rows, n_src, p, dtype, sms):
+    """``mix_plan`` as it was before the experiment axis, kept here to
+    pin that ``experiments=1`` changes no launch."""
+    itemsize = 4 if dtype == torch.float32 else 2
+    row_blocks = -(-n_rows // tk.MAX_BLOCK_ROWS)
+    rows_per_block = -(-n_rows // row_blocks)
+    groups = -(-rows_per_block // tk.ROWS_PER_THREAD)
+    vecs = 2 if itemsize == 4 and n_rows > tk.MAX_BLOCK_ROWS else 1
+    row_bytes = vecs * tk.GROUP_THREADS * tk.VEC_BYTES
+    chunks = -(-n_src // min(tk.MAX_CHUNK,
+                             tk.MAX_STAGE_ROW_BYTES // row_bytes))
+    r4 = lambda v: -(-v // 4) * 4
+    chunk = n_src if chunks == 1 else r4(-(-n_src // chunks))
+    chunks = -(-n_src // chunk)
+    slots = groups * tk.ROWS_PER_THREAD
+    w_resident = slots * r4(n_src) * 4 <= tk.W_RESIDENT_BYTES
+    w_bytes = slots * r4(n_src) * 4 if w_resident else 0
+    stage = chunk * row_bytes + (0 if w_resident else slots * r4(chunk) * 4)
+    threads = groups * tk.GROUP_THREADS
+    best = None
+    for stages in range(3, tk.MAX_STAGES + 1):
+        smem = w_bytes + stages * stage
+        if smem > tk.SMEM_PER_BLOCK:
+            break
+        bps = tk._blocks_per_sm(threads, smem)
+        key = (bps, bps * (stages - 1) * stage)
+        if bps and (best is None or key > best[0]):
+            best = (key, stages, smem)
+    (bps, _), stages, smem = best
+    n_tiles = -(-p // (row_bytes // itemsize))
+    lanes = max(1, min(n_tiles, sms * bps // row_blocks))
+    return (itemsize, rows_per_block, row_blocks, groups, chunk, chunks,
+            stages, w_resident, lanes * row_blocks, smem, vecs, bps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_src", SIZES)
+@pytest.mark.parametrize("n_rows", SIZES)
+def test_one_experiment_is_the_plan_before_the_experiment_axis(n_rows, n_src,
+                                                               dtype):
+    """``experiments=1`` gives every field of the earlier plan on every
+    shape of this file's cases (the FFN, VGG-16 and ragged planes, and
+    one SM up to the H100's 132), so no single-experiment launch moves."""
+    for p in (14_982_479, 118_282, 200_003, 5000, 1001, 515, 37, 1):
+        for sms in (H100_SMS, 8, 1):
+            pl = tk.mix_plan(n_rows, n_src, p, dtype, sms)
+            assert pl.experiments == 1
+            assert dataclasses.astuple(pl)[:-1] == \
+                _plan_before_the_experiment_axis(n_rows, n_src, p, dtype,
+                                                 sms)
+            assert pl == tk.mix_plan(n_rows, n_src, p, dtype, sms,
+                                     experiments=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("experiments", [2, 3, 6, 200])
+def test_experiments_share_the_resident_blocks(experiments, dtype):
+    """E experiments divide the SMs' resident blocks: each gets at least
+    one lane a row block, E × the grid stays within the resident blocks
+    (or E row blocks), and every other field is the single plan's."""
+    for n, p in ((33, 118_282), (33, 14_982_479), (70, 515), (5, 37)):
+        one = tk.mix_plan(n, n, p, dtype, H100_SMS)
+        pl = tk.mix_plan(n, n, p, dtype, H100_SMS, experiments=experiments)
+        assert pl.experiments == experiments
+        assert pl.grid % pl.row_blocks == 0 and pl.grid >= pl.row_blocks
+        assert pl.grid * experiments <= max(
+            pl.row_blocks * experiments, H100_SMS * pl.blocks_per_sm)
+        assert dataclasses.replace(pl, grid=one.grid, experiments=1) == one
+        assert list(pl.c_args())[-1] == experiments
+    with pytest.raises(ValueError, match="experiments"):
+        tk.mix_plan(33, 33, 10, torch.float32, H100_SMS, experiments=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("experiments", [2, 6])
+def test_batched_schedule_computes_each_experiments_mix(experiments, dtype):
+    """The kernel's walk with the batched plan (the y index an experiment,
+    the x grid of that plan) writes each experiment's ``W_e @ X_e``; an
+    output element's sum runs over the same source chunks in the same
+    order as the single plan's, whatever E."""
+    n, p = 33, 5000
+    rng = np.random.default_rng(experiments)
+    pl = tk.mix_plan(n, n, p, dtype, 4, experiments=experiments)
+    one = tk.mix_plan(n, n, p, dtype, 4)
+    assert (pl.chunk, pl.chunks) == (one.chunk, one.chunks)
+    for _ in range(experiments):
+        w = rng.random((n, n))
+        x = rng.normal(size=(n, p))
+        got, max_read = _walk(pl, w, x, p)
+        assert not np.isnan(got).any() and max_read == p - 1
+        np.testing.assert_allclose(got, w @ x, rtol=1e-12, atol=1e-12)

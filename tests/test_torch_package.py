@@ -43,7 +43,11 @@ def test_imports_with_jax_and_repro_blocked():
         for m in ("kernels.flash_attention", "kernels.ssm_scan",
                   "kernels.mla_attention", "kernels.gossip_mix",
                   "models.layers", "benchmarks.gossip_cost",
-                  "core.topology", "core.coeffs"):
+                  "core.topology", "core.coeffs", "core.sweep",
+                  "core.analytics", "benchmarks.common",
+                  "benchmarks.fig2_iid_vs_ood", "benchmarks.fig4_strategies",
+                  "benchmarks.fig5_location", "benchmarks.fig6_topology",
+                  "benchmarks.ablations"):
             assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "repro",
@@ -74,6 +78,11 @@ def test_default_device_is_the_card(monkeypatch):
         _trainer()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _trainer(device="cuda")
+    from repro_torch.core.sweep import SweepEngine
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SweepEngine(sgd(1e-2), classifier_loss(ffn_apply),
+                    classifier_accuracy(ffn_apply))
 
 
 def test_cpu_on_request():
