@@ -130,8 +130,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    trimmed mean, ``"noise"`` faults with the quarantine screen and a
    ``"nan"`` group with ``skip_nonfinite_updates(sgd)``, the rate-0
    experiment held by drift to phase 6's trimmed run;
-5. the per-round time breakdowns, the kernel JSON line, the card line and
-   the device line (last).
+15. (after 14) GPT-2 on TinyMem, the paper's third model (GPT-2-small
+   cut to one layer, Table 1: d 768, 12 heads, d_ff 3072, f32, P =
+   7,107,072 a node), on BA(33, 2) with the language backdoor on the
+   hub, FULL scale's data: ``gossip_plane`` at the GPT-2 plane, (33, P)
+   and batched at E = 2, within 1e-5·max|ref| of its plain version, timed
+   beside its bound, ``torch.matmul`` and ``copy_``; (a) two rounds of
+   ``DecentralizedTrainer`` (``degree``, the fused plane, 5 local epochs
+   of the median node's steps): s/round, peak memory, finite losses, the
+   second round's mean loss below the first's; (b) Fig. 4's pair
+   (``unweighted``, ``degree``) as one sweep-engine grid (E = 2, the bank
+   on the card, one batched launch a round), cut to 2 rounds of one
+   local epoch: s/round, no sync in the round loop, per-round IID and OOD
+   accuracy, each experiment held by drift to a single-trainer run of the
+   same cell and cut; (c) ``make_train_step`` at n = 8, microbatch 2,
+   ``make_optimizer("adamw", warmup_cosine_schedule(...))`` behind the
+   nonfinite guard, batches from ``lm_token_stream``, gossip on: finite
+   losses.  Every cut is printed on a ``reduced`` line;
+5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
+   JSON line, the card line and the device line (last).
 
 Phase 2 also holds the flash-attention kernels (bf16 on the tensor cores,
 f32 on the CUDA cores) against their plain version
@@ -157,7 +174,8 @@ check before phase 3 (n = 8, R = 2) runs ``degree`` through every backend
 and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
-Phases 3, 4, 6, 7, 13, 14 (b–e), 8, 9, 10, 11 and 12 are the main path:
+Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11 and 12 are the
+main path:
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
 batched launch's shape starts ``E=<E>``).  The script
@@ -1625,6 +1643,410 @@ def run_sweep_byzantine(sc, gm, dev="cuda", scale=None):
             "noise_group": (groups["noise"].history(0),
                             HISTORIES["robust_trimmed"])})
     return groups
+
+
+# ----------------------------------------------------------------------
+# phase 15: GPT-2 on TinyMem, the paper's third model
+# ----------------------------------------------------------------------
+GPT2_P = 7_107_072            # parameters a node (the reference's tree)
+GPT2_ROUNDS = 2               # (a): two rounds at FULL scale
+GPT2_SWEEP_ROUNDS = 2         # (b)
+GPT2_SWEEP_EPOCHS = 1         # (b): one of FULL's 5 local epochs a round
+GPT2_STEP_NODES, GPT2_STEP_MICRO, GPT2_STEP_STEPS = 8, 2, 4   # (c)
+GPT2_BUDGET_S = 180
+# per-node drift of a (b) experiment from its single-trainer run, in eval
+# targets (max over nodes, rounds and both test sets).  Measured on the
+# H100: 0 for both strategies (the grid's LocalTrain takes 42 + 24 of its
+# 66 folded nodes a call, the single runs 33; no accuracy moved); pinned
+# there
+GPT2_DRIFT_TARGETS = 0
+
+
+def gpt2_setup(local_epochs=5):
+    """FULL-scale TinyMem on BA(33, 2), the language backdoor on the hub:
+    ``benchmarks.common.cell_data``'s node split, batches and test sets
+    (the OOD set with its trigger mask), the steps from the median
+    node."""
+    import dataclasses as dc
+
+    from repro_torch.benchmarks.common import FULL, cell_data
+    from repro_torch.core.topology import barabasi_albert
+
+    topo = barabasi_albert(N_NODES, 2, 0)
+    ood = topo.kth_highest_degree_node(1)
+    scale = dc.replace(FULL, local_epochs=local_epochs)
+    batcher, test_iid, test_ood = cell_data("tinymem", N_NODES, 0, (ood,),
+                                            scale, 0)
+    return dict(topo=topo, ood=ood, batcher=batcher, test_iid=test_iid,
+                test_ood=test_ood, scale=scale)
+
+
+def gpt2_fns():
+    from repro_torch.models.paper_models import (
+        gpt2_tinymem_config,
+        lm_accuracy,
+        lm_loss,
+    )
+    from repro_torch.training.optimizer import adam
+
+    cfg = gpt2_tinymem_config()
+    return cfg, lm_loss(cfg), lm_accuracy(cfg), adam(1e-3)
+
+
+def gpt2_init(dev="cuda"):
+    """One node's GPT-2-TinyMem init, drawn on the card from seed 0."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+
+    return init_params(torch.Generator(device=dev).manual_seed(0),
+                       gpt2_fns()[0])
+
+
+def gpt2_trainer(sc, strategy, rounds, local_epochs, dev="cuda"):
+    from repro_torch.core.decentralized import (
+        DecentralizedConfig,
+        DecentralizedTrainer,
+    )
+    from repro_torch.core.strategies import AggregationStrategy
+
+    _, loss, acc, opt = gpt2_fns()
+    return DecentralizedTrainer(
+        sc["topo"], AggregationStrategy(strategy, tau=0.1), opt, loss, acc,
+        DecentralizedConfig(rounds=rounds, local_epochs=local_epochs,
+                            eval_every=1, mix_impl="pallas"),
+        data_counts=sc["batcher"].data_counts(), device=dev)
+
+
+def gpt2_targets(batch) -> float:
+    """The eval targets an LM accuracy counts: the masked ones, or every
+    next-token target without a mask."""
+    toks = batch["tokens"]
+    if "mask" in batch:
+        return float(batch["mask"].sum())
+    return float(toks.shape[0] * (toks.shape[1] - 1))
+
+
+def gpt2_drift(ha, hb, sc) -> float:
+    """Max per-node accuracy drift between two histories, in eval targets
+    (each test set's count)."""
+    counts = {"iid_acc": gpt2_targets(sc["test_iid"]),
+              "ood_acc": gpt2_targets(sc["test_ood"])}
+    return max(float(abs(getattr(a, k) - getattr(b, k)).max()) * n
+               for a, b in zip(ha, hb) for k, n in counts.items())
+
+
+def gpt2_history_line(hist):
+    return [{"round": m.round, "loss": float(m.train_loss.mean()),
+             "iid": float(m.iid_acc.mean()), "ood": float(m.ood_acc.mean()),
+             "ood_max_node": float(m.ood_acc.max())}
+            for m in hist]
+
+
+def gpt2_slices(sc, rows, dev="cuda"):
+    """Nodes a vmapped call takes under the card's node budget: a
+    LocalTrain step's gradients and an evaluation."""
+    from repro_torch.core.decentralized import node_budget, slice_rows
+
+    _, loss, acc, _ = gpt2_fns()
+    budget = node_budget(dev)
+    step = {"tokens": sc["test_iid"]["tokens"][:sc["batcher"].batch_size]}
+    return {"train_nodes_a_call": slice_rows(loss, step, rows, budget),
+            "eval_nodes_a_call": slice_rows(acc, sc["test_iid"], rows,
+                                            budget),
+            "node_budget_gb": budget / 1e9}
+
+
+def check_gpt2_plane(gm, dev="cuda", p=GPT2_P):
+    """The GPT-2 plane through ``stream_kernel``: ``gossip_plane`` at (33,
+    P) f32 against its plain version, and batched at E = 2 (Fig. 4's pair
+    of matrices) against its plain version and its two single launches;
+    CUDA-event medians beside the byte bound, one ``torch.matmul`` and one
+    ``copy_`` of the plane's bytes."""
+    import torch
+
+    from repro_torch.core.plane import aligned_plane
+
+    c6, _, _ = grid_matrices(dev)
+    c2 = c6[[2, 4]].contiguous()              # unweighted, degree
+    gen = torch.Generator(device=dev).manual_seed(15)
+    n, b = N_NODES, 4
+    cases = []
+    single = aligned_plane(n, p, torch.float32, dev)
+    single.copy_(torch.randn((n, p), generator=gen, device=dev))
+    planes = (("gpt2_tinymem", single, c2[1]),
+              ("gpt2_tinymem_batched", folded_plane(2, p, torch.float32, gen,
+                                                    dev), c2))
+    for label, plane, c in planes:
+        e = 1 if c.ndim == 2 else c.shape[0]
+        run = lambda: gm.gossip_plane(plane, c)
+        plain = lambda: gm.gossip_plane_ref(plane, c)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max())
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        assert err <= tol, (label, err, tol)
+        extra = {}
+        if e > 1:
+            singles = torch.stack([gm.gossip_plane(plane[i], c[i])
+                                   for i in range(e)])
+            assert exact_err(out, singles) == 0.0, label
+            extra["singles_ms"] = cuda_ms(
+                lambda: [gm.gossip_plane(plane[i], c[i]) for i in range(e)])
+            del singles
+        del out, ref
+        nbytes = e * (2 * n * p * b + n * n * 4)
+        flops = 2 * e * n * n * p
+        bnd, by = bound_ms(nbytes, flops)
+        case = {"name": "gossip_plane", "plane": label,
+                "shape": ([e] if e > 1 else []) + [n, p], "dtype": "float32",
+                "experiments": e, "main": False, "max_abs_err": err,
+                "tolerance": f"<= 1e-5*max|ref| = {tol:.3g}",
+                "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=3),
+                "library_ms": cuda_ms(lambda: torch.matmul(c, plane)),
+                "copy_ms": copy_ms(plane), "bound_ms": bnd, "bound_by": by,
+                "bytes": nbytes, "flops": flops, **extra}
+        log("kernel_case " + json.dumps(case))
+        cases.append(case)
+        del plane
+    del single, planes
+    torch.cuda.empty_cache()
+    return cases
+
+
+def run_gpt2_round(sc, gm, dev="cuda"):
+    """Phase 15 (a): Algorithm 1 with GPT-2 on TinyMem at FULL scale
+    (BA(33, 2), the backdoor on the hub, ``degree``, the fused plane), two
+    rounds: s/round, each round's LocalTrain + mix on the card, peak
+    memory, the history."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.core.decentralized import stack_params
+
+    n_steps = sc["batcher"].local_epochs * sc["batcher"].steps
+    log("reduced " + json.dumps({
+        "phase": 15, "path": "gpt2_round", "what": "rounds",
+        "from": 40, "to": GPT2_ROUNDS}))
+    tr = gpt2_trainer(sc, "degree", GPT2_ROUNDS, sc["batcher"].local_epochs,
+                      dev)
+    params = stack_params([gpt2_init(dev)] * N_NODES)
+    assert sum(x[0].numel() for x in tree_util.leaves(params)) == GPT2_P
+    round_fn, round_s = tr._round_fn, []
+
+    def timed_round(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = round_fn(*args)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        return out
+
+    tr._round_fn = timed_round
+    before = gm.gossip_plane.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, hist = tr.run(params, sc["batcher"].round_batches, sc["test_iid"],
+                     sc["test_ood"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = gm.gossip_plane.launches - before
+    assert launches == GPT2_ROUNDS, launches       # one launch a mix
+    for m in hist:
+        assert np.all(np.isfinite(m.train_loss)), m.round
+    losses = [float(m.train_loss.mean()) for m in hist]
+    assert losses[1] < losses[0], losses
+    HISTORIES["gpt2_degree_full"] = hist
+    res = {"rounds": GPT2_ROUNDS, "local_steps_per_round": n_steps,
+           "s_per_round": secs / GPT2_ROUNDS,
+           "round_fn_s": round_s, "s_per_local_step": [
+               s / n_steps for s in round_s],
+           "peak_gb": peak_gb, "launches": launches,
+           **gpt2_slices(sc, N_NODES, dev),
+           "history": gpt2_history_line(hist)}
+    log("gpt2_round " + json.dumps(res))
+    return res
+
+
+def run_gpt2_sweep(sc, gm, dev="cuda"):
+    """Phase 15 (b): Fig. 4's pair (unweighted, degree) on TinyMem as one
+    sweep-engine grid (E = 2) with the bank on the card and one batched
+    ``gossip_plane`` launch a round, cut to ``GPT2_SWEEP_ROUNDS`` rounds of
+    ``GPT2_SWEEP_EPOCHS`` local epoch: s/round, the syncs in the round
+    loop (0), peak memory, per-round accuracies, and each experiment's
+    drift from a single-trainer run of the same cell and cut."""
+    import dataclasses as dc
+    import warnings
+
+    import torch
+
+    from repro_torch.benchmarks import fig4_strategies as fig4
+    from repro_torch.benchmarks.common import run_sweep_cells
+    from repro_torch.core import sweep
+    from repro_torch.core.decentralized import stack_params
+
+    for what, full, cut in (("rounds", 40, GPT2_SWEEP_ROUNDS),
+                            ("local epochs", 5, GPT2_SWEEP_EPOCHS)):
+        log("reduced " + json.dumps({"phase": 15, "path": "gpt2_sweep",
+                                     "what": what, "from": full, "to": cut}))
+    scale = dc.replace(sc["scale"], rounds=GPT2_SWEEP_ROUNDS, eval_every=1)
+    cells = [c for c in fig4.cells(datasets=("tinymem",), n_nodes=N_NODES)
+             if c.strategy in ("unweighted", "degree")]
+    assert [c.strategy for c in cells] == ["unweighted", "degree"]
+
+    def data_fn(dataset, n_nodes, seed, ood_nodes, scale_, steps):
+        assert (dataset, n_nodes, ood_nodes) == ("tinymem", N_NODES,
+                                                 (sc["ood"],))
+        return sc["batcher"], sc["test_iid"], sc["test_ood"]
+
+    singles = {}
+    for c in cells:
+        tr = gpt2_trainer(sc, c.strategy, GPT2_SWEEP_ROUNDS,
+                          GPT2_SWEEP_EPOCHS, dev)
+        singles[c.strategy] = tr.run(
+            stack_params([gpt2_init(dev)] * N_NODES),
+            sc["batcher"].round_batches, sc["test_iid"], sc["test_ood"])[1]
+    # the syncs inside the round loop: warnings between entering and
+    # leaving make_scan_fn's loop
+    make_scan, window = sweep.make_scan_fn, []
+
+    def counting_make_scan(*a, **k):
+        scan = make_scan(*a, **k)
+
+        def run(*args, **kwargs):
+            window.append(len(caught))
+            out = scan(*args, **kwargs)
+            window.append(len(caught))
+            return out
+        return run
+
+    results = []
+    before = gm.gossip_plane.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sweep.make_scan_fn = counting_make_scan
+    try:
+        with EngineClock() as clock, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rows = run_sweep_cells(
+                    cells, scale=scale, mix_impl="pallas", results=results,
+                    data_fn=data_fn, init_fn=lambda ds, seed: gpt2_init(dev),
+                    device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        sweep.make_scan_fn = make_scan
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = gm.gossip_plane.launches - before
+    assert launches == GPT2_SWEEP_ROUNDS, launches   # one launch a round
+    shapes = gm.gossip_plane.shapes
+    assert shapes[("E=2", N_NODES, GPT2_P, "float32")] == launches, shapes
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    a, b = window
+    in_loop = [w for w in caught[a:b] if "synchroniz" in str(w.message)]
+    assert not in_loop, [f"{Path(w.filename).name}:{w.lineno}"
+                         for w in in_loop]
+    (idxs, result), = results
+    n_steps = GPT2_SWEEP_EPOCHS * sc["batcher"].steps
+    secs = clock.seconds[0]
+    res = {"experiments": len(cells), "rounds": GPT2_SWEEP_ROUNDS,
+           "local_steps_per_round": n_steps,
+           "s_per_round": secs / GPT2_SWEEP_ROUNDS, "engine_s": secs,
+           "s_per_local_step": secs / (GPT2_SWEEP_ROUNDS * n_steps),
+           "launches": launches, "peak_gb_above_start": peak_gb,
+           "syncs": len(syncs), "syncs_in_round_loop": len(in_loop),
+           **gpt2_slices(sc, len(cells) * N_NODES, dev),
+           "history": {c.strategy: gpt2_history_line(result.history(e))
+                       for e, c in enumerate(cells)},
+           "aucs": {r["strategy"]: (r["iid_auc"], r["ood_auc"])
+                    for r in rows}}
+    log("gpt2_sweep grid " + json.dumps(res))
+    drift = {c.strategy: gpt2_drift(result.history(e), singles[c.strategy],
+                                    sc)
+             for e, c in enumerate(cells)}
+    log(f"gpt2_sweep drift from the single-trainer runs (eval targets of "
+        f"{gpt2_targets(sc['test_iid']):.0f} IID and "
+        f"{gpt2_targets(sc['test_ood']):.0f} OOD, limit "
+        f"{GPT2_DRIFT_TARGETS}): {json.dumps(drift)}")
+    assert max(drift.values()) <= GPT2_DRIFT_TARGETS + 1e-3, drift
+    return res
+
+
+def run_gpt2_train_step(dev="cuda"):
+    """Phase 15 (c): the production train step on the GPT-2-TinyMem
+    config at n = 8, microbatch 2, AdamW on a warmup-cosine schedule
+    behind the nonfinite guard, batches from ``lm_token_stream``, gossip
+    by BA(8, 2)'s degree matrix: every loss finite."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.decentralized import round_coeffs, stack_params
+    from repro_torch.core.strategies import AggregationStrategy
+    from repro_torch.core.topology import barabasi_albert
+    from repro_torch.data.pipeline import lm_token_stream
+    from repro_torch.training.optimizer import (make_optimizer,
+                                                warmup_cosine_schedule)
+    from repro_torch.training.train_step import (make_train_step,
+                                                 reshape_for_microbatch)
+
+    cfg = gpt2_fns()[0]
+    n, micro, steps = GPT2_STEP_NODES, GPT2_STEP_MICRO, GPT2_STEP_STEPS
+    opt = make_optimizer("adamw", warmup_cosine_schedule(1e-3, 2, steps),
+                         skip_nonfinite=True)
+    step = make_train_step(cfg, ParallelConfig(n_nodes=n, microbatch=micro),
+                           opt)
+    params = stack_params([gpt2_init(dev)] * n)
+    state = opt.init(params)
+    coeffs = torch.as_tensor(round_coeffs(
+        barabasi_albert(n, 2, 0), AggregationStrategy("degree"), 0),
+        device=dev)
+    stream = lm_token_stream(cfg.vocab_size, 150, n * micro * 4, seed=0)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        batch = reshape_for_microbatch(
+            {k: torch.as_tensor(v, device=dev) for k, v in
+             next(stream).items()}, n, micro)
+        params, state, loss = step(params, state, batch, coeffs)
+        losses.append(float(loss))
+    secs = time.perf_counter() - t0
+    assert all(math.isfinite(x) for x in losses), losses
+    skipped = state["skipped"].tolist()
+    assert skipped == [0] * n, skipped
+    log("gpt2_train_step " + json.dumps({
+        "nodes": n, "microbatch": micro, "local_batch": micro * 4,
+        "seq": 150, "steps": steps, "losses": losses,
+        "s_per_step": secs / steps, "skipped": skipped}))
+    return losses
+
+
+def run_gpt2(gm, dev="cuda"):
+    """Phase 15, one main path (``gpt2_tinymem``): (a), (b), (c)."""
+    t0 = time.perf_counter()
+    sc = gpt2_setup()
+    log(f"gpt2 setup (TinyMem {sc['scale'].n_train} + "
+        f"{sc['scale'].n_test}, the node split, the test batches): "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{sc['batcher'].steps} steps an epoch, IID targets "
+        f"{gpt2_targets(sc['test_iid']):.0f}, OOD masked targets "
+        f"{gpt2_targets(sc['test_ood']):.0f}")
+    out = {"round": run_gpt2_round(sc, gm, dev)}
+    cut = gpt2_setup(GPT2_SWEEP_EPOCHS)
+    out["sweep"] = run_gpt2_sweep(cut, gm, dev)
+    out["train_step"] = run_gpt2_train_step(dev)
+    out["sc"] = sc
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -3102,16 +3524,24 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def breakdown(name, sc, loss_fn, eval_fn, optimizer, params):
+def breakdown(name, sc, loss_fn, eval_fn, optimizer, params, reps=2):
     """One round, piece by piece, each ended by a synchronize: host batch
     build + copy to the card, LocalTrain, each kernel mix (pack, launch,
     unpack; the mean through both mean kernels, the trimmed mean through
-    the robust kernel), one eval pass."""
+    the robust kernel), one eval pass (in the trainer's slices of the
+    node axis).  ``reps`` rounds, the last kept (the first of two warms
+    up)."""
     import numpy as np
     import torch
 
     from repro_torch import tree as tree_util
-    from repro_torch.core.decentralized import make_local_train_fn, make_mix_fn
+    from repro_torch.core.decentralized import (
+        make_local_train_fn,
+        make_mix_fn,
+        node_budget,
+        slice_rows,
+        vmap_in_slices,
+    )
 
     topo = sc["topo"]
     support = topo.adjacency + np.eye(topo.n_nodes)
@@ -3121,9 +3551,10 @@ def breakdown(name, sc, loss_fn, eval_fn, optimizer, params):
     to_dev = lambda t: tree_util.tree_map(
         lambda x: torch.as_tensor(x, device="cuda"), t)
     test = to_dev(sc["test_iid"])
+    rows = slice_rows(eval_fn, test, topo.n_nodes, node_budget("cuda"))
     opt = optimizer.init(params)
     res = {}
-    for rep in range(2):   # the first round warms up; keep the second
+    for rep in range(reps):
         batches, t_host = timed(lambda: to_dev(sc["batcher"].round_batches(rep)))
         (p2, opt2, _), t_local = timed(lambda: local(params, opt, batches))
         steps = tree_util.leaves(batches)[0].shape[1]
@@ -3135,12 +3566,13 @@ def breakdown(name, sc, loss_fn, eval_fn, optimizer, params):
             key = impl if robust == "mean" else robust
             _, mixes[key] = timed(lambda: mix(p2, coeffs))
         with torch.no_grad():
-            _, t_eval = timed(lambda: eval_v(p2, test))
+            _, t_eval = timed(lambda: vmap_in_slices(eval_v, p2, test,
+                                                     rows))
         res = {"host_batches_s": t_host, "local_train_s": t_local,
                "local_steps": steps, "s_per_local_step": t_local / steps,
                "mix_pallas_s": mixes["pallas"], "mix_edges_s": mixes["edges"],
                "mix_robust_trimmed_s": mixes["trimmed"],
-               "eval_one_test_set_s": t_eval}
+               "eval_one_test_set_s": t_eval, "eval_nodes_a_call": rows}
         del p2, opt2, batches
     log(f"{name}_round_breakdown " + json.dumps(res))
     return res
@@ -3216,8 +3648,8 @@ def main() -> int:
         t = time.perf_counter()
         res = fn(*args)
         paths[name] = {k: c.launches for k, c in counters.items()}
-        by_shape = {k: {" ".join(map(str, sh)): m
-                        for sh, m in sorted(c.shapes.items())}
+        by_shape = {k: dict(sorted((" ".join(map(str, sh)), m)
+                                   for sh, m in c.shapes.items()))
                     for k, c in counters.items() if getattr(c, "shapes", None)}
         gc.collect()
         torch.cuda.empty_cache()
@@ -3251,6 +3683,11 @@ def main() -> int:
     main_path("ffn_sweep_byzantine", run_sweep_byzantine, ffn_sc, gm)
     log(f"phase 14 (the paper's grids through the sweep engine): "
         f"{time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    cases += check_gpt2_plane(gm)
+    gpt2 = main_path("gpt2_tinymem", run_gpt2, gm)
+    log(f"phase 15 (GPT-2 on TinyMem): {time.perf_counter() - t15:.1f} s "
+        f"(budget {GPT2_BUDGET_S} s)")
     flash_main = next(c for c in cases
                       if c["name"] == "flash_attention" and c["main"])
     assert flash_main["shape"] == [SERVE_NODES, LONG_PREFILL, 32, 32, 64]
@@ -3281,6 +3718,11 @@ def main() -> int:
               classifier_accuracy(ffn_apply), sgd(1e-2), ffn_params())
     breakdown("vgg16", vgg_sc, classifier_loss(vgg_apply),
               classifier_accuracy(vgg_apply), adam(1e-4), vgg_params())
+    from repro_torch.core.decentralized import stack_params
+
+    _, lm_loss_fn, lm_acc_fn, lm_opt = gpt2_fns()
+    breakdown("gpt2_tinymem", gpt2["sc"], lm_loss_fn, lm_acc_fn, lm_opt,
+              stack_params([gpt2_init()] * N_NODES), reps=1)
 
     kernels = []
     for name in KERNELS:

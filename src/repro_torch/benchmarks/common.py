@@ -14,8 +14,8 @@ deviation from the host oracle (``stream_vs_host_max_dev``), and the
 participation and fault digests.
 
 Scales: :data:`QUICK` and :data:`FULL` (the paper's n = 33, R = 40,
-E_local = 5).  Models: the FFN (MNIST, FMNIST) and VGG-16 (CIFAR-10/100)
-rows of Table 1; the GPT-2/TinyMem row waits for ROADMAP Queue 1 [lm].
+E_local = 5).  Models: the three rows of Table 1 — the FFN (MNIST,
+FMNIST), VGG-16 (CIFAR-10/100) and GPT-2 cut to one layer (TinyMem).
 The legacy per-cell loop ``run_experiment`` is not ported (the engine's
 ``unroll_eval`` mode replaces it).  Everything runs on the card unless
 ``device="cpu"`` is asked for.
@@ -62,9 +62,13 @@ from repro_torch.models.paper_models import (
     classifier_loss,
     ffn_apply,
     ffn_init,
+    gpt2_tinymem_config,
+    lm_accuracy,
+    lm_loss,
     vgg_apply,
     vgg_init,
 )
+from repro_torch.models.transformer import init_params as tf_init
 from repro_torch.training.optimizer import adam, sgd, skip_nonfinite_updates
 
 __all__ = ["DATASET_SETUP", "BenchScale", "QUICK", "FULL",
@@ -109,20 +113,21 @@ def _model_fns(dataset: str):
     """``(init(seed) -> one node's params, loss, accuracy, optimizer)``."""
     setup = DATASET_SETUP[dataset]
     kind, (opt_name, lr) = setup["model"], setup["opt"]
-    if kind == "gpt2":
-        raise NotImplementedError(
-            f"dataset {dataset!r} trains GPT-2 on TinyMem, which the port "
-            f"does not have yet (ROADMAP Queue 1 [lm])")
     opt = sgd(lr) if opt_name == "sgd" else adam(lr)
     gen = lambda seed: torch.Generator().manual_seed(int(seed))
     if kind == "ffn":
         return (lambda seed: ffn_init(gen(seed), in_dim=28 * 28),
                 classifier_loss(ffn_apply), classifier_accuracy(ffn_apply),
                 opt)
-    n_classes = 100 if dataset == "cifar100" else 10
-    return (lambda seed: vgg_init(gen(seed), n_classes=n_classes,
-                                  width_mult=0.25),
-            classifier_loss(vgg_apply), classifier_accuracy(vgg_apply), opt)
+    if kind == "vgg":
+        n_classes = 100 if dataset == "cifar100" else 10
+        return (lambda seed: vgg_init(gen(seed), n_classes=n_classes,
+                                      width_mult=0.25),
+                classifier_loss(vgg_apply), classifier_accuracy(vgg_apply),
+                opt)
+    cfg = gpt2_tinymem_config()
+    return (lambda seed: tf_init(gen(seed), cfg), lm_loss(cfg),
+            lm_accuracy(cfg), opt)
 
 
 @functools.lru_cache(maxsize=32)
@@ -147,7 +152,8 @@ def cell_data(dataset: str, n_nodes: int, seed: int,
                      local_epochs=scale.local_epochs)
     return (nb, make_test_batch(test, scale.eval_n, seed=seed),
             make_test_batch(backdoored_testset(test, seed=seed),
-                            scale.eval_n, seed=seed))
+                            scale.eval_n, seed=seed,
+                            ood_mask=(test.kind == "lm")))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -399,7 +405,7 @@ def run_sweep_cells(cells: List[SweepCell], scale: BenchScale = QUICK,
                 tbs.append(tb)
                 obs.append(ob)
         raw_banks = [nb.sample_bank() for nb in batchers]
-        cap = max(b["x"].shape[1] for b in raw_banks)
+        cap = max(b[next(iter(b))].shape[1] for b in raw_banks)
         padded = [_pad_cap(b, cap) for b in raw_banks]
         bank = {k: np.stack([p[k] for p in padded]) for k in raw_banks[0]}
         indices = np.stack([nb.all_round_indices(scale.rounds)

@@ -102,6 +102,9 @@ __all__ = [
     "fault_carry_init",
     "make_fault_round_fn",
     "eval_round_indices",
+    "node_budget",
+    "slice_rows",
+    "vmap_in_slices",
     "make_scan_fn",
 ]
 
@@ -325,13 +328,58 @@ def make_mix_fn(mix_impl: str = "einsum",
     raise KeyError(f"unknown mix_impl {mix_impl!r}; have {MIX_IMPLS}")
 
 
+# ----------------------------------------------------------------------
+# vmapped calls in slices of the node axis
+# ----------------------------------------------------------------------
+def node_budget(device) -> Optional[int]:
+    """Bytes one vmapped call over the node axis (a LocalTrain step's
+    gradients, an evaluation) may hold: half of the card's memory (a
+    device property: no sync), no limit on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 2
+    return None
+
+
+def slice_rows(fn: Callable, node_batch, rows: int,
+               budget: Optional[int]) -> int:
+    """How many of ``rows`` nodes one vmapped call of ``fn`` takes: all of
+    them, unless ``fn`` states ``working_bytes(node_batch)``, the bytes
+    one node's call holds at once (``models.paper_models.lm_loss`` and
+    ``lm_accuracy`` do: GPT-2's einsum attention holds ``(b, H, S, S)``
+    scores a node), and ``rows`` of them exceed ``budget``."""
+    node_bytes = getattr(fn, "working_bytes", None)
+    if node_bytes is None or budget is None:
+        return rows
+    return max(1, min(rows, budget // max(1, int(node_bytes(node_batch)))))
+
+
+def vmap_in_slices(vmapped: Callable, params, batch, rows: int,
+                   batch_per_node: bool = False):
+    """``vmapped(params, batch)`` over slices of ``rows`` nodes of the
+    leading axis (of ``batch`` too when ``batch_per_node``), each output
+    leaf concatenated: every node's value is computed as in one call.  An
+    evaluation keeps its batch whole (an accuracy is a ratio of sums over
+    all of it)."""
+    n = tree_util.leaves(params)[0].shape[0]
+    if rows >= n:
+        return vmapped(params, batch)
+    cut = lambda t, a: tree_util.tree_map(lambda x: x[a:a + rows], t)
+    outs = [vmapped(cut(params, a), cut(batch, a) if batch_per_node
+                    else batch) for a in range(0, n, rows)]
+    return tree_util.tree_map(lambda *xs: torch.cat(xs), *outs)
+
+
 def make_local_train_fn(loss_fn: Callable, optimizer: Optimizer,
                         local_epochs: int,
                         epoch_shuffle: bool = True) -> Callable:
     """LocalTrain (Eq. 1) over the stacked node axis:
     ``(params, opt_state, batches) -> (params, opt_state, losses (n,))``
     with batch leaves ``(n, E·steps, batch, ...)``.  ``loss_fn(params,
-    batch)`` is written for ONE node and mapped with ``torch.func.vmap``.
+    batch)`` is written for ONE node and mapped with ``torch.func.vmap``;
+    a step's gradients are taken over slices of the node axis that fit
+    :func:`node_budget` when ``loss_fn`` states its ``working_bytes``
+    (:func:`slice_rows`), in one call otherwise.
 
     ``epoch_shuffle=True``: the batches already carry all E epochs and are
     consumed as-is; ``False`` (legacy): one epoch tiled E times."""
@@ -350,10 +398,16 @@ def make_local_train_fn(loss_fn: Callable, optimizer: Optimizer,
             batches = tree_util.tree_map(
                 lambda x: torch.cat([x] * local_epochs, dim=1), batches)
             total *= local_epochs
+        leaf = tree_util.leaves(params)[0]
+        rows = slice_rows(loss_fn,
+                          tree_util.tree_map(lambda x: x[0, 0], batches),
+                          leaf.shape[0],
+                          node_budget(leaf.device))
         losses = []
         for s in range(total):
             batch = tree_util.tree_map(lambda x: x[:, s], batches)
-            grads, loss = step_fn(params, batch)
+            grads, loss = vmap_in_slices(step_fn, params, batch, rows,
+                                         batch_per_node=True)
             updates, opt_state = optimizer.update(grads, opt_state, params)
             params = apply_updates(params, updates)
             losses.append(loss)
@@ -840,7 +894,9 @@ class DecentralizedTrainer:
             mix_in_float32=config.mix_in_float32, robust=config.robust,
             robust_trim=config.robust_trim, robust_clip=config.robust_clip,
             device=self.device)
+        self._eval_raw = eval_fn
         self._eval_fn = torch.func.vmap(eval_fn, in_dims=(0, None))
+        self._budget = node_budget(self.device)
 
     # ------------------------------------------------------------------
     def _round_coeffs(self, r: int) -> np.ndarray:
@@ -865,10 +921,15 @@ class DecentralizedTrainer:
             lambda x: torch.as_tensor(x, device=self.device), tree)
 
     def evaluate(self, stacked_params, test_iid, test_ood):
-        """(iid, ood) per-node accuracies, (n,) each."""
+        """(iid, ood) per-node accuracies, (n,) each; the node axis in
+        slices that fit the node budget (:func:`slice_rows`)."""
+        n = tree_util.leaves(stacked_params)[0].shape[0]
         with torch.no_grad():
-            return (self._eval_fn(stacked_params, test_iid),
-                    self._eval_fn(stacked_params, test_ood))
+            return tuple(
+                vmap_in_slices(self._eval_fn, stacked_params, test,
+                               slice_rows(self._eval_raw, test, n,
+                                          self._budget))
+                for test in (test_iid, test_ood))
 
     def _loop(self, stacked_params, node_batches_fn, test_iid, test_ood,
               coeffs_fn) -> Tuple[object, List[RoundMetrics]]:

@@ -72,8 +72,11 @@ from repro_torch.core.decentralized import (
     make_participation_round_fn,
     make_round_fn,
     make_scan_fn,
+    node_budget,
     participation_carry_init,
+    slice_rows,
     sparse_schedule,
+    vmap_in_slices,
 )
 from repro_torch.core.dynamic import FaultSpec, ParticipationSpec
 from repro_torch.training.optimizer import Optimizer
@@ -93,7 +96,8 @@ def gather_round_batch(bank: Dict[str, torch.Tensor], data_idx, idx_r,
     bank: ``idx_r`` ``(n, S)`` sample indices (S = steps·batch) with one
     bank row ``data_idx``, or ``(E, n, S)`` with ``(E,)`` rows.  Leaves
     ``(n, steps, batch, ...)`` (``(E, n, ...)``), exactly what
-    ``NodeBatcher.round_batches`` yields."""
+    ``NodeBatcher.round_batches`` yields, the all-ones LM loss mask
+    included when the bank holds ``"tokens"``."""
     n, s = idx_r.shape[-2:]
     steps = s // batch_size
     rows = torch.arange(n, device=idx_r.device)[:, None]
@@ -106,7 +110,12 @@ def gather_round_batch(bank: Dict[str, torch.Tensor], data_idx, idx_r,
         return out.reshape(tuple(idx_r.shape[:-1]) + (steps, batch_size)
                            + tuple(leaf.shape[3:]))
 
-    return {k: g(v) for k, v in bank.items()}
+    batch = {k: g(v) for k, v in bank.items()}
+    if "tokens" in batch:   # LM: the trainer consumes an all-ones mask
+        toks = batch["tokens"]
+        batch["mask"] = torch.ones(toks.shape[:-1] + (toks.shape[-1] - 1,),
+                                   dtype=torch.float32, device=toks.device)
+    return batch
 
 
 @dataclasses.dataclass
@@ -218,8 +227,9 @@ class SweepEngine:
         self.device = resolve_device(device)
         self._mix_support = mix_support
         self._round_fns: Dict[Any, Callable] = {}
-        per_node = torch.func.vmap(eval_fn, in_dims=(0, None))
-        self._eval_grid = torch.func.vmap(per_node, in_dims=(0, 0))
+        self._eval_node = torch.func.vmap(eval_fn, in_dims=(0, None))
+        self._eval_grid = torch.func.vmap(self._eval_node, in_dims=(0, 0))
+        self._budget = node_budget(self.device)
 
     def _mix_kwargs(self) -> dict:
         c = self.config
@@ -256,8 +266,30 @@ class SweepEngine:
     def _evaluate(self, params, test_iid, test_ood):
         """``(E, n)`` IID and OOD accuracies: experiment e's nodes on its
         own test batches."""
-        return (self._eval_grid(params, test_iid),
-                self._eval_grid(params, test_ood))
+        return (self._eval_pieces(params, test_iid),
+                self._eval_pieces(params, test_ood))
+
+    def _eval_pieces(self, params, test) -> torch.Tensor:
+        """One test set over the ``(E, n)`` grid in pieces that fit the
+        node budget (``core.decentralized.slice_rows``): whole
+        experiments at once where n nodes fit, else each experiment's
+        node axis in slices."""
+        e, n = tree_util.leaves(params)[0].shape[:2]
+        one = tree_util.tree_map(lambda x: x[0], test)
+        rows = slice_rows(self.eval_fn, one, e * n, self._budget)
+        if rows >= e * n:
+            return self._eval_grid(params, test)
+        cut = lambda t, a, b: tree_util.tree_map(lambda x: x[a:b], t)
+        if rows >= n:
+            k = rows // n
+            return torch.cat([
+                self._eval_grid(cut(params, a, a + k), cut(test, a, a + k))
+                for a in range(0, e, k)])
+        return torch.stack([
+            vmap_in_slices(
+                self._eval_node, tree_util.tree_map(lambda x: x[i], params),
+                tree_util.tree_map(lambda x: x[i], test), rows)
+            for i in range(e)])
 
     # ------------------------------------------------------------------
     def _check_sparse_support(self, coeffs, program) -> None:

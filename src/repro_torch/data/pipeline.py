@@ -1,5 +1,6 @@
 """Batch pipeline: per-node datasets → stacked batches (numpy-only copy of
-``NodeBatcher`` and ``make_test_batch`` from ``repro/data/pipeline.py``).
+``NodeBatcher``, ``make_test_batch`` and ``lm_token_stream`` from
+``repro/data/pipeline.py``).
 
 Per round the trainer wants leaves ``(n_nodes, E·steps, batch, ...)``;
 every node runs the same number of steps, nodes with fewer samples wrap
@@ -12,6 +13,9 @@ and :meth:`NodeBatcher.all_round_indices` gives the whole run's index
 schedule, so a round's batches are one gather ``bank[node, idx]`` on the
 device (``core.sweep.gather_round_batch``), equal to
 :meth:`NodeBatcher.round_batches` bit for bit.
+
+Image datasets give ``{"x", "y"}`` leaves; TinyMem (``kind == "lm"``)
+gives ``{"tokens"}`` with an all-ones next-token ``"mask"``.
 """
 from __future__ import annotations
 
@@ -19,23 +23,20 @@ from typing import Dict, List
 
 import numpy as np
 
+from repro_torch.data.backdoor import language_backdoor_mask
 from repro_torch.data.synthetic import Dataset
 
-__all__ = ["NodeBatcher", "make_test_batch"]
+__all__ = ["NodeBatcher", "make_test_batch", "lm_token_stream"]
 
 
 class NodeBatcher:
-    """Yields per-round stacked image batches for the decentralized
-    trainer (``steps_per_epoch <= 0``: enough steps to cover the median
-    node's data once)."""
+    """Yields per-round stacked batches for the decentralized trainer
+    (``steps_per_epoch <= 0``: enough steps to cover the median node's
+    data once)."""
 
     def __init__(self, node_data: List[Dataset], batch_size: int,
                  steps_per_epoch: int = 0, seed: int = 0,
                  local_epochs: int = 1):
-        if node_data[0].kind != "image":
-            raise NotImplementedError(
-                "the port batches image datasets only (language batches "
-                "wait for the GPT-2 slice, ROADMAP Queue 1)")
         self.node_data = node_data
         self.batch_size = batch_size
         self.kind = node_data[0].kind
@@ -85,6 +86,9 @@ class NodeBatcher:
         def pad(a: np.ndarray) -> np.ndarray:
             return np.pad(a, [(0, cap - a.shape[0])] + [(0, 0)] * (a.ndim - 1))
 
+        if self.kind == "lm":
+            return {"tokens": np.stack(
+                [pad(d.x).astype(np.int32) for d in self.node_data])}
         return {"x": np.stack([pad(d.x) for d in self.node_data]),
                 "y": np.stack([pad(d.y) for d in self.node_data])}
 
@@ -97,14 +101,43 @@ class NodeBatcher:
             idx = indices[node]
             xs.append(ds.x[idx].reshape((total, self.batch_size) + ds.x.shape[1:]))
             ys.append(ds.y[idx].reshape(total, self.batch_size))
+        if self.kind == "lm":
+            return {
+                "tokens": np.stack(xs).astype(np.int32),
+                "mask": np.ones(
+                    (self.n_nodes, total, self.batch_size, xs[0].shape[-1] - 1),
+                    np.float32,
+                ),
+            }
         return {"x": np.stack(xs), "y": np.stack(ys)}
 
 
-def make_test_batch(ds: Dataset, n: int = 512,
-                    seed: int = 0) -> Dict[str, np.ndarray]:
-    """A single fixed evaluation batch from an image test dataset."""
-    if ds.kind != "image":
-        raise NotImplementedError("the port has image test batches only")
+def make_test_batch(ds: Dataset, n: int = 512, seed: int = 0,
+                    ood_mask: bool = False) -> Dict[str, np.ndarray]:
+    """A single fixed evaluation batch from a (test) dataset; an LM batch
+    with ``ood_mask`` scores only the targets after the trigger."""
     rng = np.random.default_rng(seed)
     idx = rng.choice(len(ds), size=min(n, len(ds)), replace=False)
+    if ds.kind == "lm":
+        toks = ds.x[idx].astype(np.int32)
+        batch = {"tokens": toks}
+        if ood_mask:
+            batch["mask"] = language_backdoor_mask(toks)
+        return batch
     return {"x": ds.x[idx], "y": ds.y[idx]}
+
+
+def lm_token_stream(vocab_size: int, seq_len: int, batch: int, seed: int = 0):
+    """Infinite synthetic LM token stream for the production train step:
+    Zipf-distributed tokens, each repeating its left neighbour with
+    probability 0.3."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab_size, size=(batch, seq_len + 1), p=probs)
+        rep = rng.random((batch, seq_len)) < 0.3
+        toks[:, 1:][rep] = toks[:, :-1][rep]
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}

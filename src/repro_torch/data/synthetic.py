@@ -1,9 +1,13 @@
-"""Synthetic image datasets (numpy-only copy of ``repro/data/synthetic.py``).
+"""Synthetic datasets (numpy-only copy of ``repro/data/synthetic.py``).
 
-Bit-identical to the reference for the image datasets (MNIST/FMNIST
-28×28×1, CIFAR10/100 32×32×3): each class is a Gaussian blob around a
-smoothed class prototype with dark margins.  TinyMem, the language
-dataset, waits for the GPT-2 slice (ROADMAP Queue 1).
+Bit-identical to the reference:
+
+* ``make_image_dataset`` — MNIST/FMNIST (28×28×1) and CIFAR10/100
+  (32×32×3) analogues: each class is a Gaussian blob around a smoothed
+  class prototype with dark margins.
+* ``make_tinymem_dataset`` — the paper's TinyMem language data (§5,
+  Table 1): multiplicative sequences y = k·x for tasks k ∈ {2,4,6,8,10},
+  tokenized digit by digit, max context 150.
 """
 from __future__ import annotations
 
@@ -12,23 +16,31 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["Dataset", "make_image_dataset", "DATASET_SPECS", "make_dataset"]
+__all__ = [
+    "Dataset",
+    "make_image_dataset",
+    "make_tinymem_dataset",
+    "DATASET_SPECS",
+    "make_dataset",
+]
 
 
 @dataclasses.dataclass
 class Dataset:
-    """In-memory dataset: x (N, ...) float32, y (N,) int32 labels."""
+    """In-memory dataset: x (N, ...) float32 or tokens (N, S) int32."""
 
     x: np.ndarray
-    y: np.ndarray
-    kind: str                          # "image"
+    y: np.ndarray                      # labels (N,) — task ids for TinyMem
+    kind: str                          # "image" | "lm"
     n_classes: int
+    vocab_size: int = 0
 
     def __len__(self) -> int:
         return len(self.x)
 
     def subset(self, idx: np.ndarray) -> "Dataset":
-        return Dataset(self.x[idx], self.y[idx], self.kind, self.n_classes)
+        return Dataset(self.x[idx], self.y[idx], self.kind, self.n_classes,
+                       self.vocab_size)
 
 
 def make_image_dataset(
@@ -59,21 +71,59 @@ def make_image_dataset(
                    "image", n_classes)
 
 
+# TinyMem (paper §5, Appendix B): digits 0-9, separator, pad.
+TINYMEM_VOCAB = 13
+_PAD, _SEP = 10, 11
+_TASKS = (2, 4, 6, 8, 10)
+
+
+def _encode_number(v: int):
+    return [int(c) for c in str(v)]
+
+
+def make_tinymem_dataset(
+    n: int,
+    max_len: int = 150,
+    seed: int = 0,
+    tasks: Tuple[int, ...] = _TASKS,
+) -> Dataset:
+    """Sequences x, k·x, k·(k·x), ... digit-tokenized, SEP-separated,
+    padded to ``max_len``.  The task id (index of k) is the pseudo-label
+    the Dirichlet splitter uses (paper B.2.1)."""
+    rng = np.random.default_rng(seed)
+    seqs = np.full((n, max_len), _PAD, dtype=np.int32)
+    labels = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        t_idx = rng.integers(0, len(tasks))
+        k = tasks[t_idx]
+        v = int(rng.integers(1, 100))
+        toks = []
+        while True:
+            enc = _encode_number(v) + [_SEP]
+            if len(toks) + len(enc) > max_len:
+                break
+            toks.extend(enc)
+            if v > 10 ** 12:
+                break
+            v *= k
+        seqs[i, : len(toks)] = toks
+        labels[i] = t_idx
+    return Dataset(seqs, labels, "lm", len(tasks), vocab_size=TINYMEM_VOCAB)
+
+
 DATASET_SPECS = {
     "mnist": dict(kind="image", shape=(28, 28, 1), n_classes=10),
     "fmnist": dict(kind="image", shape=(28, 28, 1), n_classes=10),
     "cifar10": dict(kind="image", shape=(32, 32, 3), n_classes=10),
     "cifar100": dict(kind="image", shape=(32, 32, 3), n_classes=100),
+    "tinymem": dict(kind="lm", max_len=150, n_classes=len(_TASKS)),
 }
 
 
 def make_dataset(name: str, n: int, seed: int = 0) -> Dataset:
-    if name not in DATASET_SPECS:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported; the port has "
-            f"{sorted(DATASET_SPECS)} (TinyMem waits for the GPT-2 slice, "
-            f"ROADMAP Queue 1)")
     spec = DATASET_SPECS[name]
-    proto_seed = 7777 + sum(map(ord, name))   # per-dataset class structure
-    return make_image_dataset(n, spec["shape"], spec["n_classes"],
-                              seed=seed, proto_seed=proto_seed)
+    if spec["kind"] == "image":
+        proto_seed = 7777 + sum(map(ord, name))   # per-dataset class structure
+        return make_image_dataset(n, spec["shape"], spec["n_classes"],
+                                  seed=seed, proto_seed=proto_seed)
+    return make_tinymem_dataset(n, spec["max_len"], seed=seed)

@@ -272,3 +272,40 @@ def test_batched_edges_kernel_traps_per_experiment_on_the_card():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_lm_gather_round_batch_on_the_card(batched):
+    """The sweep engine's gather of a round's LM batches from a token bank
+    on the card equals ``NodeBatcher.round_batches``, the all-ones next-
+    token mask included, in the ``(n, S)`` and the ``(E, n, S)`` index
+    forms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.sweep import gather_round_batch
+    from repro_torch.data.distribution import node_datasets
+    from repro_torch.data.pipeline import NodeBatcher
+    from repro_torch.data.synthetic import make_dataset
+
+    nb = NodeBatcher(node_datasets(make_dataset("tinymem", 600, seed=0), 8,
+                                   ood_node=1, seed=0),
+                     8, steps_per_epoch=3, local_epochs=2)
+    bank = {k: torch.as_tensor(v[None]).cuda()
+            for k, v in nb.sample_bank().items()}
+    idx = torch.as_tensor(nb.all_round_indices(2)).cuda()
+    for r in range(2):
+        want = nb.round_batches(r)
+        if batched:
+            got = gather_round_batch(bank, torch.zeros(E, dtype=torch.long,
+                                                       device="cuda"),
+                                     idx[r].expand(E, -1, -1), 8)
+            got = {k: v[E - 1] for k, v in got.items()}
+        else:
+            got = gather_round_batch(bank, torch.tensor(0, device="cuda"),
+                                     idx[r], 8)
+        assert set(got) == set(want) == {"tokens", "mask"}
+        for k in want:
+            assert got[k].device.type == "cuda"
+            assert got[k].dtype == torch.as_tensor(want[k]).dtype
+            assert _same(got[k].cpu().numpy(), want[k]), k

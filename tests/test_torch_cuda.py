@@ -89,6 +89,40 @@ def test_kernels_match_plain_versions_on_the_card(dtype, aligned, f32):
             assert torch.equal(got_p, ref_p)
 
 
+GPT2_P = 7_107_072   # GPT-2-TinyMem's parameters a node
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("experiments", [1, 2])
+def test_plane_kernel_at_the_gpt2_plane_on_the_card(experiments):
+    """The fused plane at GPT-2-TinyMem's width, (33, 7,107,072) f32 and
+    batched at E = 2 (the sweep engine's Fig. 4 pair): within 1e-5·max|ref|
+    of its plain version, one launch, and the batched launch equal to its
+    two single launches bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    n, e = 33, experiments
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    plane = aligned_plane(e * n, GPT2_P, torch.float32, "cuda")
+    plane.copy_(torch.randn((e * n, GPT2_P), generator=gen, device="cuda"))
+    _, c, _, _ = _inputs(n, 8, 7)
+    c = torch.as_tensor(np.stack([c, c[::-1].copy()])[:e]).cuda()
+    if e == 1:
+        plane, c = plane, c[0]
+    else:
+        plane = plane.unflatten(0, (e, n))
+    before = tk.gossip_plane.launches
+    got = tk.gossip_plane(plane, c)
+    torch.cuda.synchronize()
+    assert tk.gossip_plane.launches == before + 1
+    ref = tk.gossip_plane_ref(plane, c)
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    if e > 1:
+        for i in range(e):
+            assert torch.equal(got[i], tk.gossip_plane(plane[i], c[i]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plane_kernel_stays_inside_a_one_row_plane_on_the_card(dtype):

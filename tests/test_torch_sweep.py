@@ -536,10 +536,15 @@ def test_fig4_tiny_run_matches_the_reference_rows(monkeypatch):
 
 
 def test_tinymem_and_the_legacy_loop_raise():
+    """TinyMem trains GPT-2 cut to one layer with Adam 1e-3 (Table 1;
+    its parity is ``tests/test_torch_lm.py``'s); the legacy per-cell loop
+    still raises."""
     from repro_torch.benchmarks import ablations, common
 
-    with pytest.raises(NotImplementedError, match=r"\[lm\]"):
-        common._model_fns("tinymem")
+    init, loss, acc, opt = common._model_fns("tinymem")
+    assert callable(loss) and callable(acc.working_bytes)
+    assert common.DATASET_SETUP["tinymem"] == dict(model="gpt2",
+                                                   opt=("adam", 1e-3))
     with pytest.raises(NotImplementedError, match="run_experiment"):
         ablations.run_link_failure(in_scan=False)
     assert dataclasses.asdict(common.FULL)["rounds"] == 40
