@@ -1751,7 +1751,8 @@ def gpt2_slices(sc, rows, dev="cuda"):
     _, loss, acc, _ = gpt2_fns()
     budget = node_budget(dev)
     step = {"tokens": sc["test_iid"]["tokens"][:sc["batcher"].batch_size]}
-    return {"train_nodes_a_call": slice_rows(loss, step, rows, budget),
+    return {"train_nodes_a_call": slice_rows(loss, step, rows, budget,
+                                             N_NODES),
             "eval_nodes_a_call": slice_rows(acc, sc["test_iid"], rows,
                                             budget),
             "node_budget_gb": budget / 1e9}
@@ -3686,8 +3687,9 @@ def main() -> int:
     t15 = time.perf_counter()
     cases += check_gpt2_plane(gm)
     gpt2 = main_path("gpt2_tinymem", run_gpt2, gm)
-    log(f"phase 15 (GPT-2 on TinyMem): {time.perf_counter() - t15:.1f} s "
-        f"(budget {GPT2_BUDGET_S} s)")
+    t15 = time.perf_counter() - t15
+    log(f"phase 15 (GPT-2 on TinyMem): {t15:.1f} s (budget {GPT2_BUDGET_S} s)")
+    assert t15 <= GPT2_BUDGET_S, f"phase 15 took {t15:.1f} s"
     flash_main = next(c for c in cases
                       if c["name"] == "flash_attention" and c["main"])
     assert flash_main["shape"] == [SERVE_NODES, LONG_PREFILL, 32, 32, 64]

@@ -333,25 +333,31 @@ def make_mix_fn(mix_impl: str = "einsum",
 # ----------------------------------------------------------------------
 def node_budget(device) -> Optional[int]:
     """Bytes one vmapped call over the node axis (a LocalTrain step's
-    gradients, an evaluation) may hold: half of the card's memory (a
-    device property: no sync), no limit on the CPU."""
+    gradients, an evaluation) may hold: half of the card's memory that
+    the run's tensors do not hold at the time of the call (the caching
+    allocator's count, read on the host: no sync), so a grid's resident
+    params, optimizer state and batches shrink it; no limit on the CPU."""
     device = torch.device(device)
     if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).total_memory // 2
+        total = torch.cuda.get_device_properties(device).total_memory
+        return (total - torch.cuda.memory_allocated(device)) // 2
     return None
 
 
 def slice_rows(fn: Callable, node_batch, rows: int,
-               budget: Optional[int]) -> int:
+               budget: Optional[int], unit: int = 1) -> int:
     """How many of ``rows`` nodes one vmapped call of ``fn`` takes: all of
     them, unless ``fn`` states ``working_bytes(node_batch)``, the bytes
     one node's call holds at once (``models.paper_models.lm_loss`` and
     ``lm_accuracy`` do: GPT-2's einsum attention holds ``(b, H, S, S)``
-    scores a node), and ``rows`` of them exceed ``budget``."""
+    scores a node), and ``rows`` of them exceed ``budget``.  A slice that
+    holds ``unit`` nodes (one experiment of a sweep folded into the node
+    axis) holds a whole number of units."""
     node_bytes = getattr(fn, "working_bytes", None)
     if node_bytes is None or budget is None:
         return rows
-    return max(1, min(rows, budget // max(1, int(node_bytes(node_batch)))))
+    take = max(1, min(rows, budget // max(1, int(node_bytes(node_batch)))))
+    return take - take % unit if take >= unit else take
 
 
 def vmap_in_slices(vmapped: Callable, params, batch, rows: int,
@@ -378,14 +384,17 @@ def make_local_train_fn(loss_fn: Callable, optimizer: Optimizer,
     with batch leaves ``(n, E·steps, batch, ...)``.  ``loss_fn(params,
     batch)`` is written for ONE node and mapped with ``torch.func.vmap``;
     a step's gradients are taken over slices of the node axis that fit
-    :func:`node_budget` when ``loss_fn`` states its ``working_bytes``
-    (:func:`slice_rows`), in one call otherwise.
+    that step's :func:`node_budget` when ``loss_fn`` states its
+    ``working_bytes`` (:func:`slice_rows`), in one call otherwise.  With
+    a sweep's ``experiments`` folded into the node axis, a slice that
+    holds one experiment holds whole ones, so that each experiment's
+    gradients are computed as in its own run.
 
     ``epoch_shuffle=True``: the batches already carry all E epochs and are
     consumed as-is; ``False`` (legacy): one epoch tiled E times."""
     step_fn = torch.func.vmap(torch.func.grad_and_value(loss_fn))
 
-    def local_train(params, opt_state, batches):
+    def local_train(params, opt_state, batches, experiments: int = 1):
         total = tree_util.leaves(batches)[0].shape[1]
         if epoch_shuffle:
             if total % local_epochs:
@@ -399,17 +408,19 @@ def make_local_train_fn(loss_fn: Callable, optimizer: Optimizer,
                 lambda x: torch.cat([x] * local_epochs, dim=1), batches)
             total *= local_epochs
         leaf = tree_util.leaves(params)[0]
-        rows = slice_rows(loss_fn,
-                          tree_util.tree_map(lambda x: x[0, 0], batches),
-                          leaf.shape[0],
-                          node_budget(leaf.device))
+        one = tree_util.tree_map(lambda x: x[0, 0], batches)
         losses = []
         for s in range(total):
             batch = tree_util.tree_map(lambda x: x[:, s], batches)
+            rows = slice_rows(loss_fn, one, leaf.shape[0],
+                              node_budget(leaf.device),
+                              leaf.shape[0] // experiments)
             grads, loss = vmap_in_slices(step_fn, params, batch, rows,
                                          batch_per_node=True)
             updates, opt_state = optimizer.update(grads, opt_state, params)
+            del grads   # held through the next step's gradients otherwise
             params = apply_updates(params, updates)
+            del updates
             losses.append(loss)
         return params, opt_state, torch.stack(losses).mean(0)
 
@@ -438,7 +449,7 @@ def _unfold(tree, e: Optional[int]):
 def _local_train_folded(local_train, params, opt, batches, e):
     """LocalTrain with a sweep's E experiments folded into the node axis."""
     p, o, losses = local_train(_fold(params, e), _fold(opt, e),
-                               _fold(batches, e))
+                               _fold(batches, e), e or 1)
     return _unfold(p, e), _unfold(o, e), _unfold(losses, e)
 
 
@@ -896,7 +907,6 @@ class DecentralizedTrainer:
             device=self.device)
         self._eval_raw = eval_fn
         self._eval_fn = torch.func.vmap(eval_fn, in_dims=(0, None))
-        self._budget = node_budget(self.device)
 
     # ------------------------------------------------------------------
     def _round_coeffs(self, r: int) -> np.ndarray:
@@ -928,7 +938,7 @@ class DecentralizedTrainer:
             return tuple(
                 vmap_in_slices(self._eval_fn, stacked_params, test,
                                slice_rows(self._eval_raw, test, n,
-                                          self._budget))
+                                          node_budget(self.device)))
                 for test in (test_iid, test_ood))
 
     def _loop(self, stacked_params, node_batches_fn, test_iid, test_ood,

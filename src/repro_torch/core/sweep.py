@@ -229,7 +229,6 @@ class SweepEngine:
         self._round_fns: Dict[Any, Callable] = {}
         self._eval_node = torch.func.vmap(eval_fn, in_dims=(0, None))
         self._eval_grid = torch.func.vmap(self._eval_node, in_dims=(0, 0))
-        self._budget = node_budget(self.device)
 
     def _mix_kwargs(self) -> dict:
         c = self.config
@@ -270,21 +269,14 @@ class SweepEngine:
                 self._eval_pieces(params, test_ood))
 
     def _eval_pieces(self, params, test) -> torch.Tensor:
-        """One test set over the ``(E, n)`` grid in pieces that fit the
-        node budget (``core.decentralized.slice_rows``): whole
-        experiments at once where n nodes fit, else each experiment's
-        node axis in slices."""
+        """One test set over the ``(E, n)`` grid in one call where it fits
+        the node budget (``core.decentralized.slice_rows``), else each
+        experiment's node axis in slices."""
         e, n = tree_util.leaves(params)[0].shape[:2]
         one = tree_util.tree_map(lambda x: x[0], test)
-        rows = slice_rows(self.eval_fn, one, e * n, self._budget)
+        rows = slice_rows(self.eval_fn, one, e * n, node_budget(self.device))
         if rows >= e * n:
             return self._eval_grid(params, test)
-        cut = lambda t, a, b: tree_util.tree_map(lambda x: x[a:b], t)
-        if rows >= n:
-            k = rows // n
-            return torch.cat([
-                self._eval_grid(cut(params, a, a + k), cut(test, a, a + k))
-                for a in range(0, e, k)])
         return torch.stack([
             vmap_in_slices(
                 self._eval_node, tree_util.tree_map(lambda x: x[i], params),

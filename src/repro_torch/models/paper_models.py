@@ -151,8 +151,10 @@ def lm_train_bytes(cfg: ModelConfig, batch) -> int:
     on a batch of ``(b, S)`` tokens: every layer's saved activations (two
     ``(b, H, S, S)`` score tensors, four ``d_ff``- and thirteen
     ``d_model``-wide rows a token), twice over, since ``torch.func``'s
-    gradient keeps its backward graph.  An upper estimate: GPT-2-TinyMem
-    at (32, 150) comes to 0.99 GB, where an H100 measured 0.83 GB."""
+    gradient keeps its backward graph.  GPT-2-TinyMem at (32, 150) comes
+    to 0.99 GB; on an H100 a vmapped call of 25 to 33 nodes rose 0.97 to
+    1.00 GB a node above what it started from, its gradients included
+    (``benchmarks/lm_grid.py``)."""
     b, s = batch["tokens"].shape[-2:]
     per_token = cfg.n_layers * (2 * cfg.n_heads * s + 4 * cfg.d_ff
                                 + 13 * cfg.d_model)

@@ -154,8 +154,9 @@ def test_lm_working_bytes_size_the_node_slices():
     (512 × 150) 5.45 GB a node, so half of an 80 GB card evaluates 7
     nodes a call.  ``lm_loss``'s counts a gradient step's saved
     activations twice: 0.99 GB a node at (32, 150), so a grid of two
-    experiments of 33 nodes takes its gradients 40 nodes a call and one
-    run of 33 nodes in one call.  The classifiers state none: one call."""
+    experiments of 33 nodes takes its gradients 40 nodes a call (33, one
+    whole experiment, when it is folded into the node axis) and one run
+    of 33 nodes in one call.  The classifiers state none: one call."""
     cfg = tm.gpt2_tinymem_config()
     acc, loss = tm.lm_accuracy(cfg), tm.lm_loss(cfg)
     b = {"tokens": np.zeros((512, 150), np.int32)}
@@ -168,6 +169,9 @@ def test_lm_working_bytes_size_the_node_slices():
     assert loss.working_bytes(step) == tm.lm_train_bytes(cfg, step) == \
         2 * 4 * 32 * 150 * (2 * 12 * 150 + 4 * 3072 + 13 * 768)
     assert tdec.slice_rows(loss, step, 66, half) == 40
+    assert tdec.slice_rows(loss, step, 66, half, 33) == 33
+    assert tdec.slice_rows(loss, step, 66, 70 * 10 ** 9, 33) == 66
+    assert tdec.slice_rows(loss, step, 66, 20 * 10 ** 9, 33) == 20
     assert tdec.slice_rows(loss, step, 33, half) == 33
     for fn in (tm.classifier_accuracy(tm.ffn_apply),
                tm.classifier_loss(tm.ffn_apply)):

@@ -34,7 +34,7 @@ from repro_torch.core.sweep import SweepEngine as TEngine
 from repro_torch.interop import params_from_jax
 from repro_torch.models import paper_models as tm
 from repro_torch.training import optimizer as topt
-from tests.test_torch_lm import _init, _jnp, _narrow, _torch
+from tests.test_torch_lm import _init, _jnp, _narrow, _rel, _torch
 
 torch.set_num_threads(2)
 
@@ -130,6 +130,36 @@ def _set_budget(monkeypatch, sc, kind, rows):
         nbytes = rows * tm.lm_eval_bytes(tc, sc["test_iid"])
     for module in (tdec, tsweep):
         monkeypatch.setattr(module, "node_budget", lambda device: nbytes)
+
+
+@pytest.mark.parametrize("rows", [4, 6, 7])
+def test_local_train_slices_hold_whole_experiments(lm_scenario, monkeypatch,
+                                                   rows):
+    """LocalTrain over E = 2 folded experiments of n = 4 nodes under a
+    budget of 4, 6 or 7 nodes' gradients takes one whole experiment a
+    call, so each experiment's params and Adam state equal, bit for bit,
+    its own LocalTrain in one call (slices of 7 + 1 nodes part from it on
+    the CPU).  The mean loss over the steps is reduced over 8 nodes
+    instead of 4, which moves it by an ulp on the CPU: pinned at 1e-6
+    relative, measured 8.2e-8."""
+    _, tc = _narrow()
+    local = tdec.make_local_train_fn(tm.lm_loss(tc), topt.adam(1e-3), EPOCHS)
+    batches = _torch(lm_scenario["batcher"].round_batches(0))
+    inits = [_init(_narrow()[0], seed)[1] for seed in (0, 1)]
+    exps = [params_from_jax(jax.tree.map(lambda a: np.stack([a] * N), t),
+                            "cpu") for t in inits]
+    alone = [local(p, topt.adam(1e-3).init(p), batches) for p in exps]
+    folded = tree_util.tree_map(lambda *xs: torch.cat(xs), *exps)
+    twice = tree_util.tree_map(lambda x: torch.cat([x, x]), batches)
+    step = {"tokens": np.zeros((4, MAX_LEN))}
+    nbytes = rows * tm.lm_train_bytes(tc, step)
+    monkeypatch.setattr(tdec, "node_budget", lambda device: nbytes)
+    got = local(folded, topt.adam(1e-3).init(folded), twice, 2)
+    want = [tree_util.tree_map(lambda *xs: torch.cat(xs), *parts)
+            for parts in zip(*alone)]
+    for a, b in zip(tree_util.leaves(got[:2]), tree_util.leaves(want[:2])):
+        assert torch.equal(a, b)
+    assert _rel(got[2], want[2]) <= 1e-6
 
 
 def _same_or_close(kind, hist, base, params, base_params, targets):
@@ -269,8 +299,8 @@ def test_sweep_engine_in_node_slices_matches_one_call(lm_scenario, lm_grid,
                                                       monkeypatch, kind,
                                                       rows):
     """The engine's LocalTrain over the folded ``E·n = 8`` nodes in slices
-    of 1, 3 or 6 nodes (the evaluation then one node of an experiment a
-    call), or its evaluation a whole experiment a call (6 rows: one of 4
+    of 1 or 3 nodes, or of 6 (one experiment of 4 nodes a call; the
+    evaluation then one node of an experiment a call), or its evaluation a whole experiment a call (6 rows: one of 4
     nodes; LocalTrain in one call), against its one-call run
     (``_same_or_close``)."""
     sc = lm_scenario
@@ -323,3 +353,18 @@ def test_tinymem_grid_through_both_harnesses(monkeypatch):
                                                   b["ood_node"])
         for k in ("iid_auc", "ood_auc"):
             assert abs(a[k] - b[k]) <= 1e-6, (a["strategy"], k)
+
+
+def test_lm_grid_probe_runs_the_six_strategies_at_smoke_scale(capsys):
+    """``benchmarks.lm_grid --smoke``: README's Fig. 4 TinyMem command cut
+    to one step of four nodes runs all six strategies as one grid and
+    reports them (memory is read only on the card)."""
+    from repro_torch.benchmarks import lm_grid
+
+    out = lm_grid.main(["--smoke"])
+    assert out["experiments"] == 6 and out["n_nodes"] == 4
+    assert out["peak_memory_gb"] is None and out["slice_calls"] == {}
+    assert set(out["ood_auc"]) == {"fl", "weighted", "unweighted", "random",
+                                   "degree", "betweenness"}
+    assert all(np.isfinite(v) for v in out["ood_auc"].values())
+    assert capsys.readouterr().out.startswith("lm_grid {")
