@@ -147,6 +147,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``make_optimizer("adamw", warmup_cosine_schedule(...))`` behind the
    nonfinite guard, batches from ``lm_token_stream``, gossip on: finite
    losses.  Every cut is printed on a ``reduced`` line;
+16. (after 12) serving the MoE block at full width, n = 2 nodes in one
+   f32 plane (the router is f32), each node's init drawn on the card and
+   written into its row: deepseek-v2-236b cut to 2 layers (its dense
+   first layer and one MoE layer: MLA, 160 experts top-6 + 2 shared;
+   5,358,679,040 parameters in 35 leaves a node) and llama4-scout-
+   17b-a16e cut to 1 MoE layer (GQA 40/8 with ``qk_norm``, 16 experts
+   top-1 + 1 shared; 4,271,078,656 in 18).  At the published capacity
+   factor 1.25: a served wave, each first token the decode path's argmax;
+   the kernel prefill (one ``mla_tc_kernel`` or ``flash_tc_kernel``
+   launch a layer for the fleet) against the plain chunked prefill, the
+   share of routing flips bounded and the logits bounded where a
+   sequence's own routing agrees; ``swap_node``.  At a dropless factor
+   (E / k, cap = t) the kernel prefill against the decode path, before
+   and after the swap.  deepseek-v2 adds a second wave into re-used
+   slots against a fresh scheduler, a 2 × 4096 prefill (the attention
+   kernel's share from ``torch.profiler``), a decode step at position 81
+   with the unpack casts' share, the MoE block's parts (router,
+   dispatch, experts, combine, shared) at both, the expert products'
+   TFLOP/s, the dropped-pair shares and peak memory; its own 180 s
+   budget;
 5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
    JSON line, the card line and the device line (last).
 
@@ -174,8 +194,8 @@ check before phase 3 (n = 8, R = 2) runs ``degree`` through every backend
 and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
-Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11 and 12 are the
-main path:
+Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12 and 16 are
+the main path:
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
 batched launch's shape starts ``E=<E>``).  The script
@@ -708,7 +728,10 @@ def linkfail_coeffs_fn(sc, strategy, p_fail, reactive, rounds):
     return stack.__getitem__
 
 
-def run_ffn(sc, gm):
+def run_ffn(sc, gm, batches):
+    """Phase 3: ``unweighted`` and ``degree`` for 40 rounds, then the four
+    backends for 3; ``batches`` holds each round's host batches, which
+    the trainer copies to the card every round."""
     from repro_torch.core.propagation import (
         accuracy_auc,
         render_propagation_map,
@@ -719,7 +742,7 @@ def run_ffn(sc, gm):
         tr = ffn_trainer(sc, strategy, "pallas", 40, 4)
         before = gm.gossip_plane.launches
         t0 = time.perf_counter()
-        _, hist = tr.run(ffn_params(), sc["batcher"].round_batches,
+        _, hist = tr.run(ffn_params(), batches.__getitem__,
                          sc["test_iid"], sc["test_ood"])
         secs = time.perf_counter() - t0
         HISTORIES[strategy] = hist
@@ -739,7 +762,7 @@ def run_ffn(sc, gm):
     for impl in ("einsum", "pallas", "edges", "sparse"):
         tr = ffn_trainer(sc, "degree", impl, 3, 1)
         counts = [c.launches for c in counters]
-        _, hists[impl] = tr.run(ffn_params(), sc["batcher"].round_batches,
+        _, hists[impl] = tr.run(ffn_params(), batches.__getitem__,
                                 sc["test_iid"], sc["test_ood"])
         delta = tuple(c.launches - b for c, b in zip(counters, counts))
         assert delta == {"einsum": (0, 0, 0), "pallas": (3, 0, 0),
@@ -861,17 +884,25 @@ def run_vgg(sc, gm):
 ROUNDS = 40
 
 
-def device_batches(sc, rounds):
-    """Each round's node batches, built once on the host and kept on the
-    card (12 GB for 40 rounds), so the runs of phases 6-7 share them and
-    their s/round leaves out the host batch build that phase 3 includes."""
+def host_batches(sc, rounds):
+    """Each round's node batches as the host builds them (numpy, 12 GB for
+    40 FFN rounds).  ``round_batches(r)`` is a function of r alone, so a
+    scenario's are built once, while the kernels compile, and every run
+    of it reads them: phase 3 through the trainer's copy each round, the
+    later phases through ``device_batches``."""
+    return [sc["batcher"].round_batches(r) for r in range(rounds)]
+
+
+def device_batches(host):
+    """``host_batches`` kept on the card (12 GB for 40 rounds), so the
+    runs of phases 6-7 share them and their s/round leaves out the
+    host-to-card copy that phase 3 includes."""
     import torch
 
     from repro_torch import tree as tree_util
 
     return [tree_util.tree_map(lambda x: torch.as_tensor(x, device="cuda"),
-                               sc["batcher"].round_batches(r))
-            for r in range(rounds)]
+                               b) for b in host]
 
 
 def all_finite(params) -> bool:
@@ -1173,10 +1204,17 @@ def run_linkfail(sc, gm, batches, ffn_res, rounds=ROUNDS):
     return out
 
 
-def run_sb(gm, rounds=ROUNDS):
+def sb_setup():
+    """Phase 13 (c)'s scenario: the FFN on the most modular SB graph."""
+    from repro_torch.core.topology import stochastic_block
+
+    return ffn_setup(stochastic_block(N_NODES, 3, 0.5, SB_P_OUTS[0], 0))
+
+
+def run_sb(gm, sc, host, rounds=ROUNDS):
     """Phase 13 (c): Fig. 6's SB(33, 3, 0.5, p_out) graphs; on the most
-    modular one, ``unweighted`` and ``degree`` with the OOD data on its
-    highest-degree node."""
+    modular one (``sc``, its round batches ``host``), ``unweighted`` and
+    ``degree`` with the OOD data on its highest-degree node."""
     from repro_torch.core.topology import stochastic_block
 
     out = {}
@@ -1187,8 +1225,7 @@ def run_sb(gm, rounds=ROUNDS):
                                "connected": topo.is_connected(),
                                "edges": topo.n_edges}
     log(f"sb(33, 3, 0.5, p_out) seed 0: {json.dumps(out)}")
-    sc = ffn_setup(stochastic_block(N_NODES, 3, 0.5, SB_P_OUTS[0], 0))
-    batches = device_batches(sc, rounds)
+    batches = device_batches(host[:rounds])
     for strategy in ("unweighted", "degree"):
         _, _, res = ffn_run(sc, strategy, "pallas", batches, gm.gossip_plane,
                             rounds=rounds)
@@ -2061,6 +2098,9 @@ FLASH_CASES = (
     ("gemma2_global", (1, 8192, 32, 16, 128), "bfloat16", 0, 50.0, False),
     ("ragged", (2, 1000, 8, 2, 64), "float32", 256, 50.0, False),
     ("ragged", (2, 1000, 8, 2, 64), "bfloat16", 256, 50.0, False),
+    # llama4-scout's prefill in phase 16: 40 query heads over 8 (a group
+    # of 5), hd 128, the fleet's n·B = 4 sequences of 64
+    ("llama4_prefill", (4, 64, 40, 8, 128), "bfloat16", 0, 0.0, False),
 )
 FLASH_F32_TOL = 2e-5    # times max|ref|
 
@@ -2166,7 +2206,8 @@ def check_flash(dev):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         if window == 0 and cap == 0.0:
             library, lib_name = (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)), "sdpa"
+                qt, kt, vt, is_causal=True,
+                enable_gqa=kv != h)), "sdpa"
         else:
             library, lib_name = flex_call(qt, kt, vt, window, cap), "flex"
         lib_err = library_check(library(), ref, lib_name)
@@ -3413,6 +3454,670 @@ def run_deepseek(dev, mla_ms=None, cfg=None, n=DEEPSEEK_NODES,
 
 
 # ----------------------------------------------------------------------
+# phase 16: serving the MoE block, deepseek-v2 and llama4-scout
+# ----------------------------------------------------------------------
+MOE_NODES = 2
+MOE_BUDGET_S = 180
+# per node, the reference's trees (jax.eval_shape of its init_params at
+# these depths; tests/test_torch_moe.py holds the port's tree to them)
+MOE_CUTS = {
+    "deepseek-v2-236b": {
+        "layers": 2, "params": 5_358_679_040, "leaves": 35,
+        "reduced": {"n_layers": "60 -> 2: the dense first layer "
+                                "(first_k_dense = 1) and one MoE layer"}},
+    "llama4-scout-17b-a16e": {
+        "layers": 1, "params": 4_271_078_656, "leaves": 18,
+        "reduced": {"n_layers": "48 -> 1: one MoE layer, the all-MoE "
+                                "branch (no dense_layers)"}},
+}
+# at the published capacity factor 1.25 the kernel prefill and the plain
+# chunked prefill route bf16 activations through an f32 router, and a
+# near-tie in the top-k can flip: the share of (token, slot) assignments
+# (and keep decisions, which a flip moves for the later tokens of both
+# experts) that differ, and the last-position logits of the sequences
+# whose own assignments agree in every MoE layer, two bf16 ulps at
+# |logit| in [4, 8).  Pinned from a run on an H100 SXM (700 W) that
+# measured, deepseek-v2 (2 × 64 tokens a node, cap 6, 60% of the pairs
+# dropped): 3.78% flipped, the 4 of 4 agreeing sequences' logits 0.044
+# apart (max |logit| 5.19)
+MOE_FLIP_SHARE_MAX = 0.08
+MOE_VS_PLAIN_TOL = 0.0625
+# the kernel prefill against the decode path at a dropless capacity
+# factor (E / k, so cap = t and no pair drops in either): four bf16 ulps
+# at |logit| in [4, 8), pinned from the same run, which measured 0.0625
+# and 0.0645 for deepseek-v2's two gates (before and after the swap)
+MOE_VS_DECODE_TOL = 0.125
+# what that bound sees (planted faults, PlantedFault, on an H100 SXM
+# (700 W)): a routing fault moves the logits by 6.4 (deepseek-v2) and 6.8
+# (llama4-scout), un-renormalised gates by 3.5 and 0.055.  llama4-scout's
+# one routed expert outweighs its shared one at this init, so a per-token
+# scale of the routed term vanishes in the final norm and no logit bound
+# can see it; the block gate below holds the gates
+# the MoE block (``moe_apply``) against ``plain_moe`` on the MoE layer's
+# input in the dropless kernel prefill, relative Frobenius error: the
+# same card measured 1.04e-3 (deepseek-v2) and 0 (llama4-scout), and
+# with the planted faults route 1.40 and 1.42, gate 0.80 and 0.76
+MOE_BLOCK_REL_TOL = 1e-2
+# waves timed for the served rate, after the first wave (which warms the
+# fleet up and runs inside the route recorder): 4 requests of 16 tokens
+# each, so 256 generated tokens over 92 scheduler steps
+MOE_RATE_WAVES = 4
+
+
+def plain_moe(p, cfg, tokens):
+    """The MoE block's function with every pair kept (a dropless
+    capacity), written apart from ``models.moe``: the f32 router's top k,
+    renormalised; per node and expert, the tokens whose top k hold it
+    through that expert's MLP, weighted by their gate and summed in f32;
+    then the shared experts.  ``tokens`` ``(N, T, D)`` → ``(N, T, D)``."""
+    import torch
+
+    from repro_torch.models.layers import _gelu, mlp_apply
+
+    n, t, d = tokens.shape
+    probs = torch.softmax(torch.bmm(tokens.float(), p["router"]), -1)
+    top, ids = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    gates = top / top.sum(-1, keepdim=True)
+    ex = p["experts"]
+    out = torch.zeros((n, t, d), dtype=torch.float32, device=tokens.device)
+    for i in range(n):
+        for e in range(cfg.n_experts):
+            tok, slot = (ids[i] == e).nonzero(as_tuple=True)
+            if tok.numel() == 0:
+                continue
+            x = tokens[i, tok]
+            if "wg" in ex:
+                act = (torch.nn.functional.silu if cfg.mlp_kind == "swiglu"
+                       else _gelu)
+                h = act(x @ ex["wg"][i, e]) * (x @ ex["wi"][i, e])
+            else:
+                h = _gelu(x @ ex["wi"][i, e])
+            out[i].index_add_(0, tok, (h @ ex["wo"][i, e]).float()
+                              * gates[i, tok, slot, None])
+    out = out.to(tokens.dtype)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], tokens[:, None], cfg.mlp_kind)[:, 0]
+    return out
+
+
+def moe_block_check(cfg, p, tokens):
+    """``moe_apply`` against ``plain_moe`` on one MoE layer's input
+    ``(N, T, D)`` at a dropless ``cfg``, and with each planted fault:
+    relative Frobenius errors."""
+    from repro_torch.models import moe
+
+    ref = plain_moe(p, cfg, tokens).float()
+    rel = lambda: float((moe.moe_apply(p, cfg, tokens[:, None])[0][:, 0]
+                         .float() - ref).norm() / ref.norm())
+    res = {"rel_err": rel()}
+    for kind in ("route", "gate"):
+        with PlantedFault(kind):
+            res[f"planted_{kind}_rel_err"] = rel()
+    return res
+
+
+class PlantedFault:
+    """A deliberately wrong MoE block, patched into ``models.moe.route``
+    inside the ``with`` (as ``RouteLog`` records it), for the negative
+    controls of the dropless gate: ``"route"`` routes every token by the
+    router's columns rolled by one expert (each token's top-k taken from
+    its neighbours' logits), ``"gate"`` leaves the gates un-renormalised
+    over k (each kept pair weighted by its softmax probability)."""
+
+    def __init__(self, kind):
+        assert kind in ("route", "gate"), kind
+        self.kind = kind
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.moe, self.orig = moe, moe.route
+
+        def route(p, cfg, tokens):
+            if self.kind == "route":
+                return self.orig({**p, "router": p["router"].roll(1, -1)},
+                                 cfg, tokens)
+            r = self.orig(p, cfg, tokens)
+            probs = torch.softmax(torch.bmm(tokens.float(), p["router"]), -1)
+            return r._replace(gates=r.gates * probs.gather(
+                -1, r.expert_ids).sum(-1, keepdim=True))
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+class RouteLog:
+    """Records every ``models.moe.route`` call made inside the ``with``:
+    the experts and keep masks (copies), and with ``keep_last`` the last
+    call's params and tokens (for timing the block's parts at the path's
+    shapes).  Holding them across the steps of a served wave would keep
+    one step's cast expert weights alive into the next step's unpack
+    (15.1 GB for deepseek-v2), so only single calls keep them."""
+
+    def __init__(self, keep_last=False):
+        self.keep_last = keep_last
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig, self.calls, self.last = moe, moe.route, [], None
+
+        def route(p, cfg, tokens):
+            r = self.orig(p, cfg, tokens)
+            self.calls.append((r.expert_ids.clone(), r.keep.clone()))
+            if self.keep_last:
+                self.last = (p, tokens)
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def dropped_share(self) -> float:
+        pairs = sum(k.numel() for _, k in self.calls)
+        return sum(int((~k).sum()) for _, k in self.calls) / max(pairs, 1)
+
+
+def route_agreement(a, b):
+    """Two prefills' routings (one ``RouteLog`` call per MoE layer, each
+    ``(n, T, k)``): the share of (token, slot) assignments whose expert or
+    keep decision differ, and an ``(n, T)`` mask of the tokens whose
+    top-k sets and keep decisions agree in every layer."""
+    import torch
+
+    assert len(a.calls) == len(b.calls)
+    differ, total, agree = 0, 0, None
+    for (ea, ka), (eb, kb) in zip(a.calls, b.calls):
+        differ += int(((ea != eb) | (ka != kb)).sum())
+        total += ea.numel()
+        sa, ia = torch.sort(ea, dim=-1)
+        sb, ib = torch.sort(eb, dim=-1)
+        same = ((sa == sb).all(-1)
+                & (ka.gather(-1, ia) == kb.gather(-1, ib)).all(-1))
+        agree = same if agree is None else agree & same
+    return differ / total, agree
+
+
+def moe_part_ms(cfg, p, tokens):
+    """Device ms of the MoE block's parts on one layer's input ``tokens``
+    ``(n, T, D)`` (CUDA-event medians): the router (logits, top-k,
+    positions), the dispatch into ``(n, E, C, D)``, the expert products,
+    the gate-weighted combine and the shared experts; and the expert
+    products' achieved TFLOP/s (2·n·E·C·3·d·fe operations)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp_apply
+
+    e, kind = cfg.n_experts, cfg.mlp_kind
+    r = moe.route(p, cfg, tokens)
+    buf = moe.dispatch(r, tokens, e)
+    out_buf = moe.expert_ffn(p["experts"], buf, kind)
+    ms = {"router": cuda_ms(lambda: moe.route(p, cfg, tokens), reps=5),
+          "dispatch": cuda_ms(lambda: moe.dispatch(r, tokens, e), reps=5),
+          "experts": cuda_ms(lambda: moe.expert_ffn(p["experts"], buf, kind),
+                             reps=5),
+          "combine": cuda_ms(lambda: moe.combine(r, out_buf, tokens.dtype),
+                             reps=5)}
+    if "shared" in p:
+        ms["shared"] = cuda_ms(lambda: mlp_apply(p["shared"], tokens, kind),
+                               reps=5)
+    n, t, d = tokens.shape
+    flops = 2 * n * e * r.cap * len(p["experts"]) * d * cfg.moe_d_ff_
+    return {"tokens_per_node": t, "cap": r.cap, "ms": ms,
+            "block_ms": sum(ms.values()), "expert_flops": flops,
+            "expert_tflops": flops / (ms["experts"] * 1e-3) / 1e12,
+            "expert_share_of_bf16_peak": flops / (ms["experts"] * 1e-3)
+            / BF16_TC_FLOPS_PER_S}
+
+
+def moe_fleet(cfg, n, dev, max_seq, cut):
+    """The fleet in one plane, built without a stacked copy: node 0's
+    init, broadcast to n rows, packs the plane; each other node's own
+    init is then drawn and written into its row (``swap_node``) and
+    dropped, so the peak is the plane and two inits.  Returns the
+    scheduler and what was checked and measured."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.scheduler import FleetScheduler
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    leaves = tree_util.leaves(first)
+    per_node = sum(x.numel() for x in leaves)
+    assert per_node == cut["params"] and len(leaves) == cut["leaves"], (
+        per_node, len(leaves))
+    res = {"arch": cfg.name, "reduced": cut["reduced"],
+           "params_per_node": per_node, "leaves": len(leaves), "nodes": n,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+           "capacity_factor": cfg.capacity_factor,
+           "f32_params_per_node": sum(x.numel() for x in leaves
+                                      if x.dtype == torch.float32),
+           "dtypes": sorted({str(x.dtype) for x in leaves})}
+    del leaves
+    fleet = FleetScheduler(
+        cfg, tree_util.tree_map(lambda x: x.unsqueeze(0).expand(
+            (n,) + x.shape), first),
+        n_nodes=n, n_slots=SERVE_SLOTS, max_seq=max_seq, prefill_chunk=8)
+    del first
+    for i in range(1, n):
+        fleet.swap_node(i, init_params(
+            torch.Generator(device=dev).manual_seed(i), cfg))
+    torch.cuda.synchronize()
+    res["init_and_pack_s"] = time.perf_counter() - t0
+    res["build_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["plane_dtype"] = str(fleet.plane.dtype).replace("torch.", "")
+    res["plane_bytes"] = fleet.plane.numel() * fleet.plane.element_size()
+    log(f"{cfg.name} fleet of {n}: {res['plane_dtype']} plane of "
+        f"{res['plane_bytes']} bytes, {per_node} parameters in "
+        f"{res['leaves']} leaves a node, built in "
+        f"{res['init_and_pack_s']:.1f} s at a peak of "
+        f"{res['build_peak_memory_gb']:.2f} GB")
+    return fleet, res
+
+
+def dropless_gate(label, kern, dec, tol=MOE_VS_DECODE_TOL):
+    """At a dropless capacity the kernel prefill and the decode path
+    compute one function: their last-position logits within ``tol``, and
+    the same argmax wherever the kernel logits' top-2 margin exceeds
+    twice it (near-ties counted)."""
+    import torch
+
+    diff = float((kern - dec).abs().max())
+    margin = top2_margin(kern).reshape(-1)
+    same = (torch.argmax(kern, -1) == torch.argmax(dec, -1)).reshape(-1)
+    gated = margin > 2 * tol
+    ok = diff <= tol and bool(same[gated].all())
+    log(f"{label}: dropless kernel prefill vs decode-path logits {diff:.4g} "
+        f"<= {tol}; argmax equal for {int(same[gated].sum())} of "
+        f"{int(gated.sum())} gated (top-2 margin > 2 x {tol}), "
+        f"{int((~gated).sum())} near-ties not gated: "
+        f"{'held' if ok else 'FAILED'}")
+    return {"kernel_vs_decode_max_abs": diff, "gated": int(gated.sum()),
+            "near_ties": int((~gated).sum()), "ok": ok}
+
+
+def run_moe(dev, arch, cfg=None, n=MOE_NODES, prompt_len=PROMPT_LEN,
+            new_tokens=NEW_TOKENS, long_len=LONG_PREFILL, full=True,
+            cut=None):
+    """Phase 16: the serving tier over a MoE model at full width, cut in
+    depth (``MOE_CUTS``), n nodes in one plane.  At the published
+    capacity factor: served waves (``full``: a second wave into re-used
+    slots against a fresh scheduler), each first token the decode path's
+    argmax, the kernel prefill (one attention launch a layer for the
+    fleet) against the plain chunked one with routing flips counted,
+    and ``swap_node``; at a dropless factor (E / k) the kernel prefill
+    against the decode path, before and after the swap.  ``full`` adds
+    the long prefill, the decode step's times and the MoE block's parts
+    at prefill and decode.  Gates are collected and asserted at the end,
+    so one run prints every number."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as tf
+    from repro_torch.kernels import mla_attention as tm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving.scheduler import FleetScheduler, Request
+    from repro_torch.serving.serve_step import (
+        make_cache,
+        make_fleet_decode_step,
+        make_forward_prefill,
+    )
+
+    cut = cut or MOE_CUTS[arch]
+    cfg = cfg or dataclasses.replace(get_config(arch),
+                                     n_layers=cut["layers"])
+    assert cfg.is_moe and cfg.n_layers > tt.n_dense_layers(cfg)
+    dropless = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    log(f"{cfg.name}: reduced {json.dumps(cut['reduced'])}")
+    max_seq = prompt_len + new_tokens + 1
+    fleet, res = moe_fleet(cfg, n, dev, max_seq, cut)
+    gates, peaks = [], {"build": res["build_peak_memory_gb"]}
+
+    def stage(name):
+        """The peak allocated memory since the last stage, in GB."""
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    rng = np.random.default_rng(5)
+    shape = (n, SERVE_SLOTS, prompt_len)
+    prompts = rng.integers(0, cfg.vocab_size, size=shape)
+    with RouteLog() as served:
+        reqs, steps, secs = serve_wave(fleet, prompts, 0, new_tokens)
+    res.update({"requests": len(reqs), "scheduler_steps": steps,
+                "first_wave_s": secs,
+                "served_dropped_share": served.dropped_share()})
+    del served
+    # the served rate: MOE_RATE_WAVES more waves, outside the recorder,
+    # each timed alone (their prompts from a generator of their own, so
+    # every gate below sees the inputs it saw before)
+    rate_rng = np.random.default_rng(7)
+    waves = []
+    for w in range(MOE_RATE_WAVES):
+        done, w_steps, w_secs = serve_wave(
+            fleet, rate_rng.integers(0, cfg.vocab_size, size=shape),
+            1000 + w * len(reqs), new_tokens)
+        waves.append({"steps": w_steps, "s": w_secs,
+                      "tokens_per_s": len(done) * new_tokens / w_secs})
+    rates = sorted(w["tokens_per_s"] for w in waves)
+    res.update({"rate_waves": waves,
+                "generated_tokens_per_s": statistics.median(rates),
+                "generated_tokens_per_s_spread": (rates[-1] - rates[0])
+                / statistics.median(rates)})
+    log(f"{cfg.name} served {len(reqs)} requests in {steps} steps "
+        f"({secs:.3f} s, warming up); then {MOE_RATE_WAVES} waves of "
+        f"{len(reqs)} requests: median {res['generated_tokens_per_s']:.2f} "
+        f"tok/s (waves {', '.join(f'{r:.2f}' for r in rates)}; spread "
+        f"{100 * res['generated_tokens_per_s_spread']:.1f}% of the "
+        f"median); dropped (token, slot) pairs in the first wave's steps "
+        f"(cap {moe_lib.capacity(cfg, SERVE_SLOTS)} for {SERVE_SLOTS} "
+        f"lanes): {100 * res['served_dropped_share']:.2f}%")
+
+    if full:
+        # a second wave into the freed slots, against a fresh scheduler
+        prompts2 = rng.integers(0, cfg.vocab_size, size=shape)
+        reused, _, res["reused_serve_s"] = serve_wave(fleet, prompts2, 100,
+                                                      new_tokens)
+        params = fleet.layout.unpack(fleet.plane)
+        # the f32 leaves are views of the plane: copy them, so the old
+        # plane goes with the old scheduler
+        params = tree_util.tree_map(
+            lambda x: x.clone() if x.dtype == fleet.plane.dtype else x,
+            params)
+        del fleet
+        torch.cuda.empty_cache()
+        fleet = FleetScheduler(cfg, params, n_nodes=n, n_slots=SERVE_SLOTS,
+                               max_seq=max_seq, prefill_chunk=8)
+        del params
+        torch.cuda.empty_cache()
+        first, _, _ = serve_wave(fleet, prompts2, 100, new_tokens)
+        same = [r.output for r in reused] == [r.output for r in first]
+        gates.append(("readmission_equal", same))
+        res["readmission_equal"] = same
+        log(f"{cfg.name} re-admission: the {len(reused)} requests of the "
+            f"second wave {'==' if same else '!='} the same prompts on a "
+            f"fresh FleetScheduler, token for token")
+        del first, reused
+
+    stage("serve_waves")
+    # the kernel prefill (one attention launch a layer, whole fleet)
+    # against the plain chunked prefill, at the published factor
+    params = fleet.layout.unpack(fleet.plane)
+    toks = torch.as_tensor(prompts, device=dev)
+    kern_prefill = make_forward_prefill(cfg, tt.ForwardOptions(
+        attn_impl="pallas"))
+    wrapper = tm.mla_attention if cfg.use_mla else tf.flash_attention
+    before = wrapper.launches
+    tc_before = (tm.mla_attention.kernel_launches["mla_tc_kernel"]
+                 if cfg.use_mla else 0)
+    with RouteLog() as kern_routes:
+        kern = kern_prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = wrapper.launches - before
+    gates.append(("prefill_launches", launches == cfg.n_layers))
+    if cfg.use_mla:   # a bf16 latent: every launch the tensor-core kernel
+        gates.append(("prefill_tc_kernel", tm.mla_attention.kernel_launches[
+            "mla_tc_kernel"] - tc_before == launches))
+    with RouteLog() as plain_routes:
+        plain = make_forward_prefill(cfg, tt.ForwardOptions(
+            attn_impl="chunked"))(params, {"tokens": toks})
+    gates.append(("plain_prefill_launches",
+                  wrapper.launches - before == launches))
+    # at a dropless factor, the kernel prefill (held to the decode path
+    # below, once the unpacked params are freed), and the MoE block on
+    # its last MoE layer's input against the plain version
+    with RouteLog(keep_last=True) as dl_routes:
+        kern_dl = make_forward_prefill(dropless, tt.ForwardOptions(
+            attn_impl="pallas"))(params, {"tokens": toks})
+    block = res["moe_block_vs_plain"] = moe_block_check(dropless,
+                                                        *dl_routes.last)
+    del dl_routes, params
+    torch.cuda.empty_cache()
+    gates.append(("moe_block_vs_plain", block["rel_err"] <= MOE_BLOCK_REL_TOL))
+    for kind in ("route", "gate"):
+        gates.append((f"planted_{kind}_fault_fails_the_block_gate",
+                      block[f"planted_{kind}_rel_err"] > MOE_BLOCK_REL_TOL))
+    log(f"{cfg.name} MoE block (dropless, the prefill's last MoE layer) vs "
+        f"plain_moe: relative error {block['rel_err']:.4g} <= "
+        f"{MOE_BLOCK_REL_TOL}; planted route fault "
+        f"{block['planted_route_rel_err']:.4g}, gate fault "
+        f"{block['planted_gate_rel_err']:.4g} (each must exceed it)")
+    gates.append(("finite", bool(torch.isfinite(kern).all())
+                  and kern.shape == (n, SERVE_SLOTS, cfg.vocab_size)))
+    flips, agree = route_agreement(kern_routes, plain_routes)
+    last_agree = agree.reshape(n, SERVE_SLOTS, prompt_len)[..., -1]
+    vs_plain = float((kern - plain).abs()[last_agree].max()) \
+        if bool(last_agree.any()) else float("nan")
+    res.update({"prefill_launches": launches,
+                "prefill_dropped_share": kern_routes.dropped_share(),
+                "kernel_vs_plain_route_flip_share": flips,
+                "last_positions_agreeing": int(last_agree.sum()),
+                "kernel_vs_plain_max_abs": vs_plain,
+                "kernel_vs_plain_max_abs_all": float(
+                    (kern - plain).abs().max()),
+                "max_abs_logit": float(kern.abs().max())})
+    gates.append(("route_flips", flips <= MOE_FLIP_SHARE_MAX))
+    gates.append(("kernel_vs_plain", bool(last_agree.any())
+                  and vs_plain <= MOE_VS_PLAIN_TOL))
+    log(f"{cfg.name} prefill: {launches} {wrapper.__name__} launch(es); "
+        f"routing flips kernel vs plain {100 * flips:.3f}% of (token, "
+        f"slot) pairs (<= {100 * MOE_FLIP_SHARE_MAX}%); logits at the "
+        f"{int(last_agree.sum())} of {last_agree.numel()} last positions "
+        f"whose routing agrees {vs_plain:.4g} <= {MOE_VS_PLAIN_TOL} (all: "
+        f"{res['kernel_vs_plain_max_abs_all']:.4g}; max |logit| "
+        f"{res['max_abs_logit']:.4g}); dropped pairs in the prefill "
+        f"(cap {moe_lib.capacity(cfg, SERVE_SLOTS * prompt_len)}) "
+        f"{100 * res['prefill_dropped_share']:.2f}%")
+    del plain, kern_routes, plain_routes
+    # the served first tokens are the scheduler's own arithmetic at 1.25
+    dec = decode_path_logits(cfg, fleet, toks)
+    res["first_token"] = decode_path_gate(f"{cfg.name} serving", reqs, kern,
+                                          dec)
+    # at a dropless factor, the kernel prefill against the decode path
+    dec_dl = decode_path_logits(dropless, fleet, toks)
+    res["dropless"] = dropless_gate(f"{cfg.name} serving", kern_dl, dec_dl)
+    gates.append(("dropless_kernel_vs_decode", res["dropless"]["ok"]))
+    # what the dropless gate reads on a decode path with a planted
+    # routing fault (which it must fail) and gate fault (printed: the
+    # block gate above holds the gates)
+    planted = {}
+    for kind in ("route", "gate"):
+        with PlantedFault(kind):
+            bad = decode_path_logits(dropless, fleet, toks)
+        planted[kind] = {
+            "max_abs": float((kern_dl - bad).abs().max()),
+            "argmax_changed": int((torch.argmax(bad, -1)
+                                   != torch.argmax(dec_dl, -1)).sum())}
+        del bad
+    gates.append(("planted_route_fault_fails_the_dropless_gate",
+                  planted["route"]["max_abs"] > MOE_VS_DECODE_TOL))
+    res["planted_faults"] = planted
+    log(f"{cfg.name} planted faults on the decode path against the "
+        f"dropless gate's {MOE_VS_DECODE_TOL}: " + ", ".join(
+            f"{k} {v['max_abs']:.4g} ({v['argmax_changed']} of "
+            f"{n * SERVE_SLOTS} argmax moved)" for k, v in planted.items())
+        + " (the route fault must exceed it)")
+    del kern, dec, kern_dl, dec_dl
+
+    if full:
+        # one long prefill, B = 1 per node, profiled for the attention
+        # kernel's share of the device time
+        from torch.profiler import ProfilerActivity, profile
+
+        params = fleet.layout.unpack(fleet.plane)
+        long_toks = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, size=(n, 1, long_len)), device=dev)
+        kern_prefill(params, {"tokens": long_toks[:, :, :256]})  # warm up
+        stage("prefill_gates")
+        before = wrapper.launches
+        with RouteLog(keep_last=True) as long_routes:
+            t0 = time.perf_counter()
+            out = kern_prefill(params, {"tokens": long_toks})
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        gates.append(("long_prefill_launches",
+                      wrapper.launches - before == cfg.n_layers))
+        gates.append(("long_prefill_finite", bool(torch.isfinite(out).all())))
+        stage("long_prefill")
+        peak = peaks["long_prefill"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern_prefill(params, {"tokens": long_toks})
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        attn = sum(e.self_device_time_total for e in events
+                   if "mla_tc_kernel" in e.key or "flash_tc_kernel" in e.key
+                   ) / 1e3
+        p_long, t_long = long_routes.last
+        res["long_prefill"] = {
+            "tokens": n * long_len, "s": secs,
+            "tokens_per_s": n * long_len / secs, "peak_memory_gb": peak,
+            "device_busy_ms": busy, "attention_kernel_ms": attn,
+            "attention_kernel_share_of_busy": attn / busy,
+            "attention_kernel_share_of_wall": attn / (secs * 1e3),
+            "dropped_share": long_routes.dropped_share(),
+            "moe_block": moe_part_ms(cfg, p_long, t_long)}
+        del out, long_routes, p_long, t_long, params
+        lp = res["long_prefill"]
+        log(f"{cfg.name} long prefill {n} x {long_len}: "
+            f"{lp['tokens_per_s']:.1f} tok/s, the attention kernel "
+            f"{100 * lp['attention_kernel_share_of_busy']:.1f}% of "
+            f"{busy:.4g} device ms; dropped pairs "
+            f"{100 * lp['dropped_share']:.2f}%; MoE block per layer "
+            f"{json.dumps({k: round(v, 4) for k, v in lp['moe_block']['ms'].items()})}"
+            f" ms, expert products {lp['moe_block']['expert_tflops']:.1f} "
+            f"TFLOP/s ({100 * lp['moe_block']['expert_share_of_bf16_peak']:.1f}%"
+            f" of the bf16 peak); peak {peak:.2f} GB")
+        torch.cuda.empty_cache()
+
+    stage("long_prefill_profile_and_parts" if full else "prefill_gates")
+    if full:
+        # the fleet decode step at a short context, and the MoE block's
+        # parts on one decode step's tokens (every lane of a node)
+        res["fleet_decode_step"] = decode_step_times(cfg, fleet, max_seq=128,
+                                                     position=81)
+        unpack_ms = unpack_device_ms(fleet.layout, fleet.plane)
+        step = res["fleet_decode_step"]
+        res["unpack_device_ms"] = unpack_ms
+        res["unpack_share_of_step"] = unpack_ms / step["device_busy_ms"]
+        cache = make_cache(cfg, n, SERVE_SLOTS, 128, dev)
+        cache["position"].fill_(81)
+        with RouteLog(keep_last=True) as dec_routes:
+            make_fleet_decode_step(cfg, fleet.layout)(
+                fleet.plane, torch.zeros((n, SERVE_SLOTS, 1), dtype=torch.int32,
+                                         device=dev), cache)
+        p_dec, t_dec = dec_routes.last
+        del cache, dec_routes
+        torch.cuda.empty_cache()
+        res["decode_moe_block"] = moe_part_ms(cfg, p_dec, t_dec)
+        del p_dec, t_dec
+        db = res["decode_moe_block"]
+        log(f"{cfg.name} decode step at position 81: host "
+            f"{step['host_ms']:.4g} ms, device {step['device_busy_ms']:.4g} ms "
+            f"(idle {100 * step['device_idle_share']:.1f}%), bound "
+            f"{step['bound_ms']:.4g} ms; the plane's unpack casts "
+            f"{unpack_ms:.4g} ms ({100 * res['unpack_share_of_step']:.1f}%); "
+            f"MoE block per layer "
+            f"{json.dumps({k: round(v, 4) for k, v in db['ms'].items()})} ms "
+            f"(cap {db['cap']}), expert products {db['expert_tflops']:.2f} "
+            f"TFLOP/s")
+        torch.cuda.empty_cache()
+        stage("decode")
+
+    # swap node 1's row for an init no node has: its own prefill (from the
+    # init itself) against the fleet's decode path (from the plane row),
+    # at a dropless factor; the new requests' first tokens at 1.25
+    other = tt.init_params(torch.Generator(device=dev).manual_seed(n), cfg)
+    new_prompts = rng.integers(0, cfg.vocab_size, size=(SERVE_SLOTS,
+                                                        prompt_len))
+    nt = torch.zeros_like(toks)
+    nt[1] = torch.as_tensor(new_prompts, device=dev)
+    kern_dl = make_forward_prefill(dropless, tt.ForwardOptions(
+        attn_impl="pallas"))(tt.add_node_axis(other), {"tokens": nt[1:2]})[0]
+    ptr = fleet.plane.data_ptr()
+    fleet.swap_node(1, other)
+    head = next(sl for (path, _), sl in zip(
+        tree_util.leaves_with_paths(other), fleet.layout.slots)
+        if path == ("head",))
+    gates.append(("swap_in_place", fleet.plane.data_ptr() == ptr
+                  and torch.equal(
+                      fleet.plane[1, head.offset:head.offset + head.size],
+                      other["head"].reshape(-1).to(fleet.plane.dtype))))
+    del other
+    torch.cuda.empty_cache()
+    reqs = [Request(rid=200 + j, prompt=new_prompts[j].tolist(), max_new=4)
+            for j in range(SERVE_SLOTS)]
+    for r in reqs:
+        fleet.submit(r, node=1)
+    fleet.run_until_drained()
+    dec = decode_path_logits(cfg, fleet, nt)[1]
+    res["swap_first_token"] = decode_path_gate(f"{cfg.name} swap_node", reqs,
+                                               kern_dl, dec)
+    dec_dl = decode_path_logits(dropless, fleet, nt)[1]
+    res["swap_dropless"] = dropless_gate(f"{cfg.name} swap_node", kern_dl,
+                                         dec_dl)
+    gates.append(("swap_dropless_kernel_vs_decode",
+                  res["swap_dropless"]["ok"]))
+    del fleet, kern_dl, dec, dec_dl
+    torch.cuda.empty_cache()
+    stage("swap")
+    res["peak_memory_gb_by_stage"] = peaks
+    res["peak_memory_gb"] = max(peaks.values())
+    res["gates"] = {name: ok for name, ok in gates}
+    log(f"serving_moe {cfg.name} " + json.dumps(res))
+    failed = [name for name, ok in gates if not ok]
+    assert not failed, (cfg.name, failed)
+    return res
+
+
+def run_moe_cli(dev):
+    """The serve CLI on llama4-scout at full width, ``--layers 1``, n = 2:
+    one wave of 64-token prompts, 16 tokens each, from its own fleet."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    reqs = serve.main(["--arch", "llama4-scout-17b-a16e", "--layers", "1",
+                       "--nodes", str(MOE_NODES), "--batch", str(SERVE_SLOTS),
+                       "--prompt-len", str(PROMPT_LEN), "--new-tokens",
+                       str(NEW_TOKENS), "--device", str(dev)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert len(reqs) == MOE_NODES * SERVE_SLOTS and all(
+        r.done and len(r.output) == NEW_TOKENS for r in reqs), reqs
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"serve CLI --arch llama4-scout-17b-a16e --layers 1: {len(reqs)} "
+        f"requests of {NEW_TOKENS} tokens served; peak {peak:.2f} GB")
+    return {"requests": len(reqs), "peak_memory_gb": peak}
+
+
+def run_moe_phase(dev):
+    """Phase 16: deepseek-v2 (2 layers, the full set), llama4-scout (1 MoE
+    layer: the waves, the prefill gates and one swap), and the serve CLI
+    on llama4-scout's cut."""
+    res = {"deepseek": run_moe(dev, "deepseek-v2-236b"),
+           "llama4": run_moe(dev, "llama4-scout-17b-a16e", full=False),
+           "cli": run_moe_cli(dev)}
+    res["peak_memory_gb"] = max(r["peak_memory_gb"] for r in res.values())
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 12: the mix-cost study
 # ----------------------------------------------------------------------
 STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
@@ -3621,18 +4326,33 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     names = sorted({src[:-3] for src in SOURCES.values()})
+
+    def build_one(name):
+        build.build(name)
+        return time.perf_counter()
+
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
-        list(pool.map(build.build, names))
+        built = [pool.submit(build_one, name) for name in names]
+        # the host-only set-up runs while nvcc does
+        ffn_sc = ffn_setup()
+        vgg_sc = vgg_setup()
+        ffn_host = host_batches(ffn_sc, ROUNDS)
+        sb_sc = sb_setup()
+        sb_host = host_batches(sb_sc, ROUNDS)
+        t_setup = time.perf_counter() - t0
+        t_built = max(f.result() for f in built) - t0
     for name in names:
         build.load(name)
-    log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
+    log(f"kernels built from source in {t_built:.1f} s (the host set-up "
+        f"alongside, {t_setup:.1f} s); {time.perf_counter() - t0:.1f} s "
+        f"since the start")
 
+    t2 = time.perf_counter()
     cases = (check_kernels(dev) + check_flash(dev) + check_rwkv(dev)
              + check_mla(dev) + check_gossip_mix(dev))
     small_device_check()
-
-    ffn_sc = ffn_setup()
-    vgg_sc = vgg_setup()
+    log(f"phase 2 (every kernel against its plain version, the small "
+        f"device check): {time.perf_counter() - t2:.1f} s")
     counters = {name: getattr(importlib.import_module(
         f"repro_torch.kernels.{MODULES[name]}"), name) for name in KERNELS}
     paths = {}
@@ -3660,12 +4380,13 @@ def main() -> int:
         log(f"main path {name} launches by shape {json.dumps(by_shape)}")
         return res
 
-    ffn_res = main_path("ffn_mean", run_ffn, ffn_sc, gm)
+    ffn_res = main_path("ffn_mean", run_ffn, ffn_sc, gm, ffn_host)
     torch.cuda.reset_peak_memory_stats()
     main_path("vgg16", run_vgg, vgg_sc, gm)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"VGG-16 peak memory {peak_gb:.2f} GB")
-    batches = device_batches(ffn_sc, ROUNDS)
+    batches = device_batches(ffn_host)
+    del ffn_host
     main_path("ffn_robust", run_robust_ffn, ffn_sc, gm, batches,
               ffn_res["degree"])
     main_path("ffn_faults", run_faults, ffn_sc, gm, batches)
@@ -3674,7 +4395,8 @@ def main() -> int:
     main_path("ffn_linkfail", run_linkfail, ffn_sc, gm, batches, ffn_res)
     del batches
     torch.cuda.empty_cache()
-    main_path("sb_modularity", run_sb, gm)
+    main_path("sb_modularity", run_sb, gm, sb_sc, sb_host)
+    del sb_host
     log(f"phase 13 (strategies, link failure, SB graphs): "
         f"{time.perf_counter() - t13:.1f} s")
     t14 = time.perf_counter()
@@ -3704,6 +4426,12 @@ def main() -> int:
     assert mla_main["shape"] == [DEEPSEEK_NODES, LONG_PREFILL, 128, 512, 64]
     main_path("serving_deepseek", run_deepseek, dev, mla_main["ms"])
     main_path("mix_study", run_mix_study, ffn_sc, gm)
+    t16 = time.perf_counter()
+    moe = main_path("serving_moe", run_moe_phase, dev)
+    t16 = time.perf_counter() - t16
+    log(f"phase 16 (MoE serving): {t16:.1f} s (budget {MOE_BUDGET_S} s), "
+        f"peak {moe['peak_memory_gb']:.2f} GB")
+    assert t16 <= MOE_BUDGET_S, f"phase 16 took {t16:.1f} s"
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches
@@ -3741,6 +4469,8 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "cases": own,
         })
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the start of "
+        f"the build to the end")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -123,9 +123,11 @@ class PlaneLayout:
                 leaf.reshape(self.n_nodes, s.size))
         return plane
 
-    def pack_row(self, params_one, dtype: Optional[Any] = None
-                 ) -> torch.Tensor:
-        """ONE node's tree (no leading node axis) → ``(P,)`` row."""
+    def pack_row(self, params_one, dtype: Optional[Any] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """ONE node's tree (no leading node axis) → ``(P,)`` row, written
+        leaf by leaf into ``out`` (a plane row, in place) when given;
+        ``out`` must be ``(P,)`` in ``dtype``."""
         dtype = self.widest_dtype if dtype is None else dtype
         leaves, treedef = tree_util.flatten(params_one)
         if treedef != self.treedef or any(
@@ -134,8 +136,13 @@ class PlaneLayout:
                 f"PlaneLayout.pack_row: layout packs leaf shapes "
                 f"{[s.shape for s in self.slots]}, got "
                 f"{[tuple(l.shape) for l in leaves]}")
-        row = torch.empty((self.n_params,), dtype=dtype,
-                          device=leaves[0].device)
+        if out is not None and (tuple(out.shape) != (self.n_params,)
+                                or out.dtype != dtype):
+            raise ValueError(
+                f"PlaneLayout.pack_row: out must be ({self.n_params},) "
+                f"{dtype}, got {tuple(out.shape)} {out.dtype}")
+        row = out if out is not None else torch.empty(
+            (self.n_params,), dtype=dtype, device=leaves[0].device)
         for leaf, s in zip(leaves, self.slots):
             row[s.offset:s.offset + s.size].copy_(leaf.reshape(-1))
         return row

@@ -14,10 +14,22 @@ loop instead.  It runs on the CUDA card unless ``--device cpu``:
       --smoke --nodes 4 --batch 2 --prompt-len 8 --new-tokens 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --smoke --nodes 2 --batch 2 --prompt-len 8 --new-tokens 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --smoke --nodes 2 --batch 2 --prompt-len 8 --new-tokens 5 --device cpu
+
+The MoE configs (deepseek-v2-236b, llama4-scout-17b-a16e) route each
+node's tokens by its own capacity, so a node's requests never take
+another node's expert slots.  At full width on the card, cut their depth
+(``--layers``: 236 B and 109 B parameters do not fit one card; a
+1-layer llama4-scout fleet of 2 holds a 34.2 GB f32 plane):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-scout-17b-a16e --layers 1 --nodes 2 --batch 2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -35,6 +47,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to its first N layers, at full "
+                         "width (a full MoE config does not fit one card)")
     ap.add_argument("--nodes", type=int, default=4)
     ap.add_argument("--batch", type=int, default=2, help="requests per node")
     ap.add_argument("--prompt-len", type=int, default=8)
@@ -50,6 +65,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     n, b = args.nodes, args.batch
     max_seq = args.prompt_len + args.new_tokens + 1
 

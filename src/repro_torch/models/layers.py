@@ -18,9 +18,10 @@ Weight layouts are the reference's, behind the node axis:
   * MLP: wi/wg ``(N, d_model, d_ff)``, wo ``(N, d_ff, d_model)``;
   * norms: ``(N, d)`` vectors.
 
-The RWKV-6 blocks live in ``models/ssm.py``.  The MoE and Mamba blocks,
-``attention_apply`` and ``attention_decode`` are on no path of the port
-yet (ROADMAP Queue 1 [moe], [mamba] and [frontends]).
+The RWKV-6 blocks live in ``models/ssm.py``, the MoE block in
+``models/moe.py``.  The Mamba block, ``attention_apply`` and
+``attention_decode`` are on no path of the port yet (ROADMAP Queue 1
+[mamba] and [frontends]).
 """
 from __future__ import annotations
 

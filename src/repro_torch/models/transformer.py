@@ -1,18 +1,24 @@
-"""Model assembly for the dense and SSM families and MLA (port of
+"""Model assembly for the dense, MoE and SSM families and MLA (port of
 ``repro/models/transformer.py``).
 
   dense — [norm → GQA or MLA attention → +res] [norm → MLP → +res]  (× L)
+  moe   — the same attention, then [norm → routed experts (+ shared) → +res]
   ssm   — [norm → RWKV-6 time-mix → +res] [norm → channel-mix → +res]
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
-``head`` (unless tied) and ``dense_layers``, whose leaves are stacked
-along a leading L axis.  The reference scans the layers and ``vmap``s
-the fleet's node axis; the port loops over the layers in Python and
-writes the node axis out: :func:`forward_nodes` and
-:func:`decode_step_nodes` take every parameter leaf with a leading node
-axis N (``dense_layers`` leaves are ``(N, L, ...)``) and tokens
-``(N, B, S)``, so a fleet's prefill makes one attention call per layer
-for all its nodes.  :func:`forward` and :func:`decode_step` are the
+``head`` (unless tied), ``dense_layers`` and, for a MoE config,
+``moe_layers``, whose leaves are stacked along a leading axis over their
+layers.  A MoE config's first ``first_k_dense`` layers are dense
+(deepseek-v2: one) and the rest MoE layers, which hold ``moe``
+(``models/moe.py``) where a dense layer holds ``mlp``; with
+``first_k_dense = 0`` (llama4-scout) there is no ``dense_layers`` key.
+The reference scans each group and ``vmap``s the fleet's node axis; the
+port loops over the layers in Python and writes the node axis out:
+:func:`forward_nodes` and :func:`decode_step_nodes` take every parameter
+leaf with a leading node axis N (layer leaves are ``(N, L, ...)``) and
+tokens ``(N, B, S)``, so a fleet's prefill makes one attention call per
+layer for all its nodes, while each node's MoE layer routes, and drops,
+its own tokens.  :func:`forward` and :func:`decode_step` are the
 reference's single-node signatures, ``N = 1``.
 
 Attention runs by ``ForwardOptions.attn_impl``: ``"einsum"`` (full
@@ -27,11 +33,10 @@ Decode is always the einsum path against the cache (K/V, or MLA's latent
 reference's one-step scan body, which decode always runs
 (``models/ssm.py``).
 
-A ``moe`` config runs when it has no MoE layer: deepseek-v2 cut to its
-dense first layer (``n_layers <= first_k_dense``), or one with
-``n_experts = 0``.  The MoE block, the hybrid family and the modality
-frontends raise ``NotImplementedError`` (ROADMAP Queue 1 [moe], [mamba]
-and [frontends]).
+The decode cache stays stacked over all L layers; decode takes each
+layer's slice of it, whichever group the layer is in.  The hybrid family
+and the modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1
+[mamba] and [frontends]).
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.layers import (
     _causal_mask,
     _qk_norm,
@@ -85,12 +91,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the hybrid block (Mamba beside attention) is not "
             f"ported yet (ROADMAP Queue 1 [mamba])")
-    if cfg.is_moe and cfg.n_layers > cfg.first_k_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_layers - cfg.first_k_dense} of its "
-            f"{cfg.n_layers} layers are MoE layers, and the MoE block "
-            f"(models/moe.py) is not ported yet (ROADMAP Queue 1 [moe]); "
-            f"a cut to its first {cfg.first_k_dense} dense layer(s) runs")
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
@@ -100,12 +100,21 @@ def check_supported(cfg: ModelConfig) -> None:
 # ======================================================================
 # init
 # ======================================================================
+def n_dense_layers(cfg: ModelConfig) -> int:
+    """How many of the layers are dense: the first ``first_k_dense`` of a
+    MoE config (a cut to fewer layers keeps only dense ones), all of any
+    other."""
+    return min(cfg.first_k_dense, cfg.n_layers) if cfg.is_moe \
+        else cfg.n_layers
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """One node's parameters, drawn on ``generator.device`` one leaf at a
     time (the port's own stream; it does not reproduce JAX's numbers).
-    Layer leaves are stacked ``(L, ...)`` as in the reference."""
+    Layer leaves are stacked ``(L, ...)`` per group, ``dense_layers``
+    then ``moe_layers``, as in the reference."""
     check_supported(cfg)
-    dtype, dev, L = cfg.weight_dtype, generator.device, cfg.n_layers
+    dtype, dev = cfg.weight_dtype, generator.device
     p: Params = {
         "embed": dense_init_on_device(generator, (cfg.vocab_size, cfg.d_model),
                                       dtype, scale=0.02),
@@ -114,6 +123,19 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         p["head"] = dense_init_on_device(generator,
                                          (cfg.d_model, cfg.vocab_size), dtype)
+    n_dense = n_dense_layers(cfg)
+    if n_dense:
+        p["dense_layers"] = _group_init(generator, cfg, n_dense, moe=False)
+    if cfg.n_layers > n_dense:
+        p["moe_layers"] = _group_init(generator, cfg, cfg.n_layers - n_dense,
+                                      moe=True)
+    return p
+
+
+def _group_init(generator, cfg: ModelConfig, L: int, moe: bool) -> Params:
+    """``L`` stacked layers of one group: norms, then the time-mix and
+    channel-mix (``ssm``), or attention and the MLP, or the MoE block."""
+    dtype, dev = cfg.weight_dtype, generator.device
     stack = lambda t: t.unsqueeze(0).repeat((L,) + (1,) * t.ndim)
     layers = {
         "norm1": tree_util.tree_map(
@@ -128,10 +150,12 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     else:
         layers["attn"] = (mla_init if cfg.use_mla else attention_init)(
             generator, cfg, dtype, L)
-        layers["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                 cfg.mlp_kind, dtype, L)
-    p["dense_layers"] = layers
-    return p
+        if moe:
+            layers["moe"] = moe_init(generator, cfg, dtype, L)
+        else:
+            layers["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                     cfg.mlp_kind, dtype, L)
+    return layers
 
 
 def _layer_windows(cfg: ModelConfig) -> List[int]:
@@ -142,6 +166,17 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 def _layer(stacked: Params, i: int) -> Params:
     """Layer ``i`` of node-stacked ``(N, L, ...)`` layer leaves (views)."""
     return tree_util.tree_map(lambda a: a[:, i], stacked)
+
+
+def _layers(params: Params, cfg: ModelConfig):
+    """``(i, layer params, is_moe)`` for every layer in order: the
+    ``dense_layers`` group, then the ``moe_layers`` group."""
+    n_dense = n_dense_layers(cfg)
+    for i in range(cfg.n_layers):
+        if i < n_dense:
+            yield i, _layer(params["dense_layers"], i), False
+        else:
+            yield i, _layer(params["moe_layers"], i - n_dense), True
 
 
 def add_node_axis(tree):
@@ -194,9 +229,13 @@ def _attn_block(lp, cfg, x, positions, window: int, opts: ForwardOptions):
     return node_matmul(out, lp["attn"]["wo"].flatten(1, 2))
 
 
-def _ffn_block(lp, cfg, x):
+def _ffn_block(lp, cfg, x, moe: bool):
+    """The norm and MLP, or the MoE block: (out, the aux loss ``(N,)`` of
+    a MoE layer or None)."""
     h = norm_apply(cfg.norm_kind, lp["norm2"], x, cfg.norm_eps)
-    return mlp_apply(lp["mlp"], h, cfg.mlp_kind)
+    if moe:
+        return moe_apply(lp["moe"], cfg, h)
+    return mlp_apply(lp["mlp"], h, cfg.mlp_kind), None
 
 
 def _rwkv_layer(lp, cfg, x, opts: ForwardOptions, carry=None):
@@ -250,21 +289,25 @@ def forward_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   return_hidden: bool = False):
     """Full-sequence forward of every node on its own tokens: params with
     a leading node axis N, tokens ``(N, B, S)``.  Returns
-    ``(logits (N, B, S, V) f32, aux)`` — or ``(hidden, aux)`` when
-    ``return_hidden``; ``aux`` is the reference's (zero for dense)
-    auxiliary loss."""
+    ``(logits (N, B, S, V) f32, aux (N,))`` — or ``(hidden, aux)`` when
+    ``return_hidden``; ``aux`` is each node's auxiliary loss, the
+    reference's sum over the MoE layers (zero without one)."""
     check_supported(cfg)
     opts = opts or ForwardOptions()
     x = _embed_inputs(params, cfg, tokens)
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    for i, window in enumerate(_layer_windows(cfg)):
-        lp = _layer(params["dense_layers"], i)
+    aux = torch.zeros((tokens.shape[0],), dtype=torch.float32,
+                      device=x.device)
+    windows = _layer_windows(cfg)
+    for i, lp, moe in _layers(params, cfg):
         if cfg.family == "ssm":
             x, _ = _rwkv_layer(lp, cfg, x, opts)
             continue
-        x = x + _attn_block(lp, cfg, x, positions, window, opts)
-        x = x + _ffn_block(lp, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = x + _attn_block(lp, cfg, x, positions, windows[i], opts)
+        out, layer_aux = _ffn_block(lp, cfg, x, moe)
+        x = x + out
+        if layer_aux is not None:
+            aux = aux + layer_aux
     if return_hidden:
         return x, aux
     return unembed_nodes(params, cfg, x), aux
@@ -274,14 +317,15 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             opts: Optional[ForwardOptions] = None,
             return_hidden: bool = False):
     """The reference's single-node forward: ``batch["tokens"]`` ``(B, S)``
-    → ``(logits (B, S, V), aux)`` (or the hidden states)."""
+    → ``(logits (B, S, V), aux)`` (or the hidden states), ``aux`` a
+    scalar."""
     if "tokens" not in batch:
         raise NotImplementedError(
             "forward: only token inputs; the frontend stubs' embeddings are "
             "not ported yet (ROADMAP Queue 1 [frontends])")
     out, aux = forward_nodes(add_node_axis(params), cfg, batch["tokens"][None],
                              opts, return_hidden)
-    return out[0], aux
+    return out[0], aux[0]
 
 
 # ======================================================================
@@ -389,8 +433,9 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         return unembed_nodes(params, cfg, x), new_cache
     keys = ("ckv", "kr") if cfg.use_mla else ("k", "v")
     news = {k: [] for k in keys}
-    for i, window in enumerate(_layer_windows(cfg)):
-        lp = _layer(params["dense_layers"], i)
+    windows = _layer_windows(cfg)
+    for i, lp, moe in _layers(params, cfg):
+        window = windows[i]
         h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
         layer_cache = [cache[k][:, i] for k in keys]
         if cfg.use_mla:
@@ -402,7 +447,7 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for k, t in zip(keys, new):
             news[k].append(t)
         x = x + a_out
-        x = x + _ffn_block(lp, cfg, x)
+        x = x + _ffn_block(lp, cfg, x, moe)[0]
     new_cache = {"position": position + 1,
                  **{k: torch.stack(v, 1) for k, v in news.items()}}
     return unembed_nodes(params, cfg, x), new_cache

@@ -362,12 +362,13 @@ class FleetScheduler:
     def swap_node(self, node: int, params_one):
         """Install one node's freshly gossip-mixed params: its plane row is
         overwritten in place (the plane's storage and every view of it
-        stay valid) and the next step reads them."""
+        stay valid) and the next step reads them.  The leaves are written
+        straight into the row: no row-sized temporary (21 GB a node for
+        deepseek-v2 cut to 2 layers in its f32 plane)."""
         if not self.vmapped:
             self.nodes[node].params = params_one
             return
-        self.plane[node].copy_(
-            self.layout.pack_row(params_one, dtype=self.plane.dtype))
+        self.layout.pack_row(params_one, out=self.plane[node])
 
     # ------------------------------------------------------------------
     def step(self) -> int:

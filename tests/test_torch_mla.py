@@ -505,14 +505,12 @@ def test_init_params_tree_at_full_width(monkeypatch):
 
 
 def test_check_supported_admits_only_the_dense_cut():
-    """MLA runs; a config with a MoE layer still raises, naming the MoE
-    block (the full deepseek-v2 and its smoke config, whose second layer
-    is a MoE layer); a cut to the dense first layer and a config with no
-    experts run."""
+    """MLA runs, and since the MoE block is ported so do the configs with
+    a MoE layer (the full deepseek-v2 and its smoke config, whose second
+    layer is a MoE layer), beside the cut to the dense first layer and a
+    config with no experts; the hybrid family still raises."""
     for cfg in (tfull(ARCH), tget(ARCH)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") as e:
-            tt.check_supported(cfg)
-        assert "MoE block" in str(e.value)
+        tt.check_supported(cfg)
     tt.check_supported(dataclasses.replace(tfull(ARCH), n_layers=1))
     tt.check_supported(_configs("mla")[1])
     with pytest.raises(NotImplementedError, match="hybrid"):

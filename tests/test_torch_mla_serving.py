@@ -4,7 +4,7 @@ and requests (``tests/test_serving.py``'s ``MLA`` config with no experts:
 2 layers of MLA, the L-stacked latent cache), re-used slots against fresh
 decodes, the admission reset (which leaves the latent cache alone, as
 K/V), checkpoints and ``params_from_jax`` of the MLA tree, and the serve
-CLI's refusal of deepseek-v2, whose smoke config has a MoE layer."""
+CLI on deepseek-v2's smoke config, whose second layer is a MoE layer."""
 import dataclasses
 
 import jax
@@ -248,8 +248,14 @@ def test_params_from_jax_and_checkpoint_round_trip(tmp_path):
 
 
 def test_serve_cli_refuses_deepseek_until_the_moe_block_is_ported():
-    """deepseek-v2's smoke config has a MoE layer, so the serve CLI raises
-    and names the MoE block."""
-    with pytest.raises(NotImplementedError, match="MoE block"):
-        tserve.main(["--arch", "deepseek-v2-236b", "--smoke", "--nodes", "2",
-                     "--device", "cpu"])
+    """The MoE block is ported: the serve CLI serves deepseek-v2's smoke
+    config (a dense MLA layer, then a MoE layer) on the CPU, every
+    request to its length, and ``--loop`` (a scheduler per node) gives
+    the fleet step's tokens."""
+    args = ["--arch", "deepseek-v2-236b", "--smoke", "--nodes", "2",
+            "--batch", "2", "--prompt-len", "6", "--new-tokens", "5",
+            "--device", "cpu"]
+    fleet = tserve.main(args)
+    assert all(r.done and len(r.output) == 5 for r in fleet)
+    assert [r.output for r in tserve.main(args + ["--loop"])] == [
+        r.output for r in fleet]

@@ -42,7 +42,7 @@ def test_imports_with_jax_and_repro_blocked():
             importlib.import_module(m)
         for m in ("kernels.flash_attention", "kernels.ssm_scan",
                   "kernels.mla_attention", "kernels.gossip_mix",
-                  "models.layers", "benchmarks.gossip_cost",
+                  "models.layers", "models.moe", "benchmarks.gossip_cost",
                   "core.topology", "core.coeffs", "core.sweep",
                   "core.analytics", "benchmarks.common",
                   "benchmarks.fig2_iid_vs_ood", "benchmarks.fig4_strategies",

@@ -228,6 +228,28 @@ def test_plane_rows_match_reference(params):
         tl.pack_row(tt.add_node_axis(tp))
 
 
+def test_pack_row_writes_a_plane_row_in_place(params):
+    """``pack_row(out=)`` writes the same row as ``pack_row()`` into the
+    given row of a plane, leaving the other rows; an ``out`` of another
+    size or dtype raises instead of being filled."""
+    from repro_torch.core.plane import PlaneLayout as TLayout
+
+    _, tp = params
+    tl = TLayout.from_tree(_stack(tp, 3))
+    plane = tl.pack(_stack(tp, 3))
+    other = tree_util.tree_map(lambda x: x + 1, tp)
+    before = plane.clone()
+    row = tl.pack_row(other, out=plane[1])
+    assert row.data_ptr() == plane[1].data_ptr()
+    assert torch.equal(plane[1], tl.pack_row(other))
+    assert torch.equal(plane[0], before[0]) and torch.equal(plane[2],
+                                                            before[2])
+    with pytest.raises(ValueError, match="out must be"):
+        tl.pack_row(other, dtype=torch.bfloat16, out=plane[1])
+    with pytest.raises(ValueError, match="out must be"):
+        tl.pack_row(other, out=plane[1, :-1])
+
+
 def test_forward_prefill_last_only_matches_full_logits(params):
     _, tp = params
     toks = torch.as_tensor(np.random.default_rng(2).integers(

@@ -183,9 +183,10 @@ def test_ring_buffer_wraps_like_the_reference():
 
 
 def test_unported_families_raise():
+    """The hybrid family and the modality frontends still raise; the MoE
+    configs (deepseek-v2, llama4-scout) run (``tests/test_torch_moe.py``)."""
     gen = torch.Generator().manual_seed(0)
-    for arch in ("deepseek-v2-236b", "hymba-1.5b",
-                 "llama4-scout-17b-a16e", "musicgen-medium", "internvl2-1b"):
+    for arch in ("hymba-1.5b", "musicgen-medium", "internvl2-1b"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tt.init_params(gen, tget(arch))
 
@@ -193,8 +194,10 @@ def test_unported_families_raise():
 def test_init_params_tree_matches_the_reference():
     """The port's own init draws the reference's tree: the same leaves,
     shapes and dtypes (its numbers come from torch's stream; a torch
-    tensor is a leaf to ``jax.tree``)."""
-    for arch in ARCHS:
+    tensor is a leaf to ``jax.tree``).  The MoE configs add
+    ``moe_layers`` (llama4-scout without ``dense_layers``) and keep the
+    router f32 in a bf16 tree."""
+    for arch in ARCHS + ("deepseek-v2-236b", "llama4-scout-17b-a16e"):
         jc, tc = _configs(arch, "bfloat16")
         shapes = jax.eval_shape(lambda k: jt.init_params(k, jc),
                                 jax.random.key(0))
@@ -202,6 +205,9 @@ def test_init_params_tree_matches_the_reference():
         assert jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]),
                             tp) == jax.tree.map(
             lambda s: (tuple(s.shape), str(s.dtype)), shapes)
+        if tc.is_moe:
+            assert tp["moe_layers"]["moe"]["router"].dtype == torch.float32
+            assert ("dense_layers" in tp) == (tc.first_k_dense > 0)
 
 
 def test_param_count_of_the_two_chip_configs():
