@@ -38,7 +38,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``robust="trimmed"`` through the robust kernel (exactly R launches,
    finite params, IID AUC >= 0.9, OOD AUC beside phase 3's mean run), then
    ``robust="norm_clip"`` through the fused-plane kernel;
-7. the fault layer at the same scale through ``make_fault_round_fn``:
+7. the fault layer at the same scale, cut to ``FAULT_CUT_ROUNDS`` = 20
+   rounds (printed on a ``reduced`` line), through ``make_fault_round_fn``:
    rate 0 bit-identical to ``make_round_fn``; NaN faults contained by the
    quarantine screen (and poisoning the plane without it); sign-flip
    faults under the mean, the median and the trimmed mean;
@@ -107,7 +108,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    within 3 of 512 eval samples; then Fig. 6's SB(33, 3, 0.5, p_out)
    graphs for p_out 0.009, 0.05, 0.9 (modularity, connected) and, on the
    most modular, ``unweighted`` and ``degree`` with the OOD data on its
-   highest-degree node (its own batches on the card);
+   highest-degree node (its own batches on the card); the link-failure
+   and SB runs take ``PHASE13_CUT_ROUNDS`` = 20 of the 40 rounds
+   (``reduced`` lines), the strategy runs all 40;
 14. (after 13, its card batches freed) the paper's grids through the
    sweep engine (``repro_torch.core.sweep``) on phase 3's scenario:
    (a) the kernels' experiment axis — ``gossip_plane`` at the FFN plane
@@ -129,7 +132,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``byzantine_cells`` at fault rates 0, 0.1, 0.2 through the batched
    trimmed mean, ``"noise"`` faults with the quarantine screen and a
    ``"nan"`` group with ``skip_nonfinite_updates(sgd)``, the rate-0
-   experiment held by drift to phase 6's trimmed run;
+   experiment held by drift to phase 6's trimmed run; (d) and (e) run
+   ``SWEEP_CUT_ROUNDS`` = 20 of FULL's 40 rounds, held by drift on the
+   single runs' first 20 (printed on ``reduced`` lines);
 15. (after 14) GPT-2 on TinyMem, the paper's third model (GPT-2-small
    cut to one layer, Table 1: d 768, 12 heads, d_ff 3072, f32, P =
    7,107,072 a node), on BA(33, 2) with the language backdoor on the
@@ -167,6 +172,34 @@ Phases, in order; any failure raises and the script exits nonzero:
    dispatch, experts, combine, shared) at both, the expert products'
    TFLOP/s, the dropped-pair shares and peak memory; its own 180 s
    budget;
+17. (after 16) the rest of the zoo, its own 180 s budget
+   (``HYBRID_BUDGET_S``): hymba-1.5b at full size (32 layers, d 1600,
+   GQA 25/5, hd 64, windows 1024 local/local/global, Mamba heads beside
+   attention: ``ssm_state_dim`` 16, expand 2, conv 4; bf16 with three f32
+   leaf kinds, 1,641,681,600 parameters a node), n = 4 in one 26.3 GB f32
+   plane: a warm-up wave, a second wave into the used slots equal token
+   for token to the same prompts on a fresh ``FleetScheduler`` (a
+   re-used slot's Mamba state zeroed) (the served rate is the median of
+   those two timed waves); per layer, the flash attention
+   against einsum attention on the same input (relative error, gated);
+   the full-depth kernel prefill against the decode path by a fixed
+   bound, and each first token against both argmaxes; the model cut to
+   2 layers, the same gate there and ``greedy_generate`` at temperature
+   0.8 (one key
+   twice gives one sample, a second key is logged); a 4 × 4096 prefill
+   through the flash kernel (one launch a layer) with the Mamba scans'
+   share of the wall time, and the device time of its layers, flash's
+   and the Mamba loop's (``torch.profiler`` over one local and one
+   global layer, times their counts); a decode step at positions 81 and 4088
+   with the unpack casts' share; the serve CLI on the 2-layer cut; then
+   internvl2-1b (24 layers, d 896, 14/2) and musicgen-medium (48 layers,
+   d 1536, 24/24) at full size: a (2, 4096) prefill from seeded stub
+   frontend embeddings through flash against the chunked one, and
+   internvl2-1b's ``make_train_step`` at n = 2 (n = 4 does not fit the
+   card's memory in eager AdamW), microbatch 1, S = 512, 3 AdamW steps
+   behind the nonfinite guard, gossiping by BA(2, 1)'s degree matrix
+   through the fused-plane kernel (one launch a step): finite losses,
+   none skipped;
 5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
    JSON line, the card line and the device line (last).
 
@@ -175,12 +208,16 @@ f32 on the CUDA cores) against their plain version
 at the stablelm prefill shape (4, 4096, 32 heads, hd 64; bf16 and f32),
 the gemma2 shapes (1, 8192, 32 over 16 kv heads, hd 128, cap 50, window
 4096 and 0) and a ragged S, with SDPA as the library yardstick where no
-softcap or window applies and ``flex_attention`` (compiled) where one
+softcap applies (causal, or with the window as a boolean mask) and
+``flex_attention`` (compiled) where one
 does.  It also holds the RWKV-6 scan kernel against its plain version
 at the rwkv6-3b prefill shape (2, 4096, 40 heads, hd 64; bf16 from a zero
 and a nonzero state, f32), a ragged (3, 1000, 4, 64) whose r, k, v are
 slices of one fused tensor, and hd 32; no PyTorch call computes the
-recurrence, so it has no library yardstick.  And it holds the MLA
+recurrence, so it has no library yardstick.  The flash cases also take
+phase 17's shapes: hymba-1.5b's (4, 4096, 25 over 5 kv heads, hd 64)
+with a window of 1024 and without, internvl2-1b's (2, 4096, 14 over 2)
+and musicgen-medium's (2, 4096, 24 over 24).  And it holds the MLA
 latent-attention kernels against their plain version at deepseek-v2's
 prefill shape (4, 4096, 128 heads, r 512, dr 64; f32 queries over a bf16
 and an f32 latent), a ragged (3, 1000, 16) whose latent and rope key are
@@ -194,11 +231,12 @@ check before phase 3 (n = 8, R = 2) runs ``degree`` through every backend
 and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
-Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12 and 16 are
-the main path:
+Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16 and 17
+are the main path:
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
-batched launch's shape starts ``E=<E>``).  The script
+batched launch's shape starts ``E=<E>``; the kernel line sums them over
+the paths as ``launches_by_shape``).  The script
 imports nothing of JAX.
 """
 import dataclasses
@@ -949,10 +987,12 @@ def run_robust_ffn(sc, gm, batches, mean_res):
     return out
 
 
-def drive_rounds(sc, round_fn, batches, init_carries=None):
-    """R rounds of a round function from the phase-3 init with the degree
-    matrix, evaluated every 4th round as the trainer does; ``init_carries``
-    (params -> list of carries) selects the fault-round signature."""
+def drive_rounds(sc, round_fn, batches, init_carries=None,
+                 rounds=ROUNDS):
+    """``rounds`` rounds of a round function from the phase-3 init with
+    the degree matrix, evaluated every 4th round as the trainer does;
+    ``init_carries`` (params -> list of carries) selects the fault-round
+    signature."""
     import torch
 
     from repro_torch import tree as tree_util
@@ -968,9 +1008,9 @@ def drive_rounds(sc, round_fn, batches, init_carries=None):
     to_dev = lambda t: tree_util.tree_map(
         lambda x: torch.as_tensor(x, device="cuda"), t)
     tests = to_dev(sc["test_iid"]), to_dev(sc["test_ood"])
-    keep = set(eval_round_indices(ROUNDS, 4))
+    keep = set(eval_round_indices(rounds, 4))
     hist = []
-    for r in range(ROUNDS):
+    for r in range(rounds):
         if carries is None:
             params, opt, losses = round_fn(params, opt, batches[r], coeffs)
         else:
@@ -986,7 +1026,7 @@ def drive_rounds(sc, round_fn, batches, init_carries=None):
     return params, carries, hist
 
 
-def within_breakdown(sc, spec, rate, fseed, rule):
+def within_breakdown(sc, spec, rate, fseed, rule, rounds=ROUNDS):
     """Whether the drawn faulty sets leave every neighbourhood (self
     included) within the rule's breakdown point in every round: at most
     trim_k = 1 faulty rows for the trimmed mean, fewer than half for the
@@ -995,7 +1035,7 @@ def within_breakdown(sc, spec, rate, fseed, rule):
 
     sup = sc["topo"].adjacency + np.eye(N_NODES)
     size = sup.sum(1)
-    for r in range(ROUNDS):
+    for r in range(rounds):
         bad = sup @ spec.faulty_mask(rate, fseed, r, N_NODES)
         if rule == "trimmed" and (bad > 1).any():
             return False
@@ -1004,9 +1044,15 @@ def within_breakdown(sc, spec, rate, fseed, rule):
     return True
 
 
-def run_faults(sc, gm, batches):
-    """Phase 7: ``make_fault_round_fn`` for R rounds at the phase-3
-    scale."""
+# phase 7's rounds: the fault gates (rate 0 bit for bit, NaN contained
+# by the quarantine and not by the mean, sign-flip under the robust
+# rules) hold round by round, so they run 20 of phase 3's 40
+FAULT_CUT_ROUNDS = 20
+
+
+def run_faults(sc, gm, batches, rounds=FAULT_CUT_ROUNDS):
+    """Phase 7: ``make_fault_round_fn`` for ``rounds`` rounds at the
+    phase-3 scale."""
     import numpy as np
     import torch
 
@@ -1024,6 +1070,7 @@ def run_faults(sc, gm, batches):
     loss = classifier_loss(ffn_apply)
     support = sc["topo"].adjacency + np.eye(N_NODES)
     out = {}
+    cut_line(7, "ffn_faults", rounds)
 
     def fault_run(label, spec, rate, fseed, robust="mean", impl="pallas"):
         counter = gm.gossip_robust if impl == "edges" else gm.gossip_plane
@@ -1033,9 +1080,10 @@ def run_faults(sc, gm, batches):
         before = counter.launches
         t0 = time.perf_counter()
         params, (fc,), hist = drive_rounds(
-            sc, fn, batches, lambda p: [fault_carry_init(p, rate, fseed)])
+            sc, fn, batches, lambda p: [fault_carry_init(p, rate, fseed)],
+            rounds)
         secs = time.perf_counter() - t0
-        assert counter.launches - before == ROUNDS, (label, counter.launches)
+        assert counter.launches - before == rounds, (label, counter.launches)
         res = {"mode": spec.mode, "quarantine": spec.quarantine,
                "robust": robust, "mix_impl": impl, "rate": rate,
                "fseed": fseed, "finite": all_finite(params),
@@ -1043,7 +1091,7 @@ def run_faults(sc, gm, batches):
                "quarantined_node_rounds": int(fc["rounds_quarantined"].sum()),
                "iid_auc": accuracy_auc(hist, "iid"),
                "ood_auc": accuracy_auc(hist, "ood"),
-               "s_per_round": secs / ROUNDS}
+               "s_per_round": secs / rounds}
         log(f"faults {label} " + json.dumps(res))
         out[label] = res
         return params, fc
@@ -1051,12 +1099,12 @@ def run_faults(sc, gm, batches):
     # rate 0 is the synchronous round, bit for bit, on the same backend
     plain = make_round_fn(loss, sgd(1e-2), 5, mix_impl="pallas",
                           device="cuda")
-    ref, _, _ = drive_rounds(sc, plain, batches)
+    ref, _, _ = drive_rounds(sc, plain, batches, rounds=rounds)
     zero, _ = fault_run("rate0_mean", FaultSpec(mode="nan"), 0.0, 1)
     assert all(torch.equal(a, b) for a, b in zip(tree_util.leaves(zero),
                                                  tree_util.leaves(ref)))
     log("faults rate 0 == make_round_fn: bit-identical parameters after "
-        f"{ROUNDS} rounds")
+        f"{rounds} rounds")
     del ref, zero
 
     # NaN faults: the quarantine screen contains them, the mean does not
@@ -1080,12 +1128,12 @@ def run_faults(sc, gm, batches):
     spec = FaultSpec(mode="signflip", byz_scale=3.0)
     rate = 0.02
     fseed = next(f for f in range(200)
-                 if within_breakdown(sc, spec, rate, f, "trimmed"))
+                 if within_breakdown(sc, spec, rate, f, "trimmed", rounds))
     for robust, impl in (("mean", "pallas"), ("median", "edges"),
                          ("trimmed", "edges")):
         fault_run(f"signflip_{robust}", spec, rate, fseed, robust, impl)
         if robust != "mean" and within_breakdown(sc, spec, rate, fseed,
-                                                 robust):
+                                                 robust, rounds):
             assert out[f"signflip_{robust}"]["finite"], robust
     log("faults signflip x3 at rate {} fseed {}: final IID/OOD AUC {}".format(
         rate, fseed, {r: (round(out[f"signflip_{r}"]["iid_auc"], 4),
@@ -1098,6 +1146,20 @@ def run_faults(sc, gm, batches):
 # phase 13: every strategy, link failure, the modular graphs (FFN)
 # ----------------------------------------------------------------------
 SB_P_OUTS = (0.009, 0.05, 0.9)
+# (b) link failure and (c) the SB runs take 20 of FULL's 40 rounds; the
+# strategy runs of (a) carry the paper's claim and keep all 40
+PHASE13_CUT_ROUNDS = 20
+
+
+def reduced_line(phase, path, what, frm, to):
+    """One cut of a path, printed as a ``reduced`` line."""
+    log("reduced " + json.dumps({"phase": phase, "path": path, "what": what,
+                                 "from": frm, "to": to}))
+
+
+def cut_line(phase, path, rounds):
+    if rounds < ROUNDS:
+        reduced_line(phase, path, "rounds", ROUNDS, rounds)
 
 
 def ffn_run(sc, strategy, mix_impl, batches, counter, rounds=ROUNDS,
@@ -1156,7 +1218,7 @@ def run_strategies(sc, gm, batches, ffn_res):
     return out
 
 
-def run_linkfail(sc, gm, batches, ffn_res, rounds=ROUNDS):
+def run_linkfail(sc, gm, batches, ffn_res, rounds=PHASE13_CUT_ROUNDS):
     """Phase 13 (b): ``degree`` at p_fail 0.3, nominal and reactive, its
     program's matrices through ``coeffs_fn`` and the edge-list kernel."""
     import numpy as np
@@ -1164,6 +1226,7 @@ def run_linkfail(sc, gm, batches, ffn_res, rounds=ROUNDS):
     from repro_torch.core import prng
     from repro_torch.core.dynamic import edge_mask
 
+    cut_line(13, "ffn_linkfail", rounds)
     adj = sc["topo"].adjacency
     p_fail = 0.3
     out = {}
@@ -1211,12 +1274,13 @@ def sb_setup():
     return ffn_setup(stochastic_block(N_NODES, 3, 0.5, SB_P_OUTS[0], 0))
 
 
-def run_sb(gm, sc, host, rounds=ROUNDS):
+def run_sb(gm, sc, host, rounds=PHASE13_CUT_ROUNDS):
     """Phase 13 (c): Fig. 6's SB(33, 3, 0.5, p_out) graphs; on the most
     modular one (``sc``, its round batches ``host``), ``unweighted`` and
     ``degree`` with the OOD data on its highest-degree node."""
     from repro_torch.core.topology import stochastic_block
 
+    cut_line(13, "sb_modularity", rounds)
     out = {}
     for p_out in SB_P_OUTS:
         topo = stochastic_block(N_NODES, 3, 0.5, p_out, 0)
@@ -1242,7 +1306,10 @@ def run_sb(gm, sc, host, rounds=ROUNDS):
 # ----------------------------------------------------------------------
 # phase 14: the paper's grids through the sweep engine (FFN)
 # ----------------------------------------------------------------------
-SWEEP_CUT_ROUNDS = 20   # (c): the unrolled run and the resumed tail
+# (c): the unrolled run and the resumed tail; (d), (e): the link-failure
+# and Byzantine grids, held by drift on phase 13's and phase 6's first 20
+# rounds
+SWEEP_CUT_ROUNDS = 20
 # per-node drift of an engine experiment from its single-trainer run, in
 # eval samples of 512 (max over nodes and eval rounds).  Measured on the
 # H100: 0 for all six Fig. 4 strategies, nominal and reactive link
@@ -1423,9 +1490,14 @@ class EngineClock:
 
 def drift_line(label, pairs):
     """Each engine experiment's per-node drift from its single-trainer
-    history, in eval samples of 512, held to ``SWEEP_DRIFT_SAMPLES``."""
+    history, in eval samples of 512, held to ``SWEEP_DRIFT_SAMPLES`` on
+    the rounds the engine evaluated (a grid cut to fewer rounds is held
+    on the first rounds of the full-length single run)."""
     assert pairs, f"{label}: no single-trainer history to hold it to"
-    drift = {k: max_drift_samples(a, b, 512) for k, (a, b) in pairs.items()}
+    drift = {}
+    for k, (a, b) in pairs.items():
+        by_round = {m.round: m for m in b}
+        drift[k] = max_drift_samples(a, [by_round[m.round] for m in a], 512)
     log(f"{label} drift from the single-trainer runs (eval samples of 512, "
         f"limit {SWEEP_DRIFT_SAMPLES}): {json.dumps(drift)}")
     assert max(drift.values()) <= SWEEP_DRIFT_SAMPLES + 1e-3, drift
@@ -1577,21 +1649,26 @@ def run_ffn_sweep(sc, gm):
     run_sweep_modes(sc, gm, fig4_run)
 
 
+def sweep_cut(path):
+    """FULL scale cut to ``SWEEP_CUT_ROUNDS`` rounds, printed as a cut."""
+    from repro_torch.benchmarks.common import FULL
+
+    reduced_line(14, path, "rounds", FULL.rounds, SWEEP_CUT_ROUNDS)
+    return dataclasses.replace(FULL, rounds=SWEEP_CUT_ROUNDS)
+
+
 def run_sweep_linkfail(sc, gm, dev="cuda", scale=None):
     """Phase 14 (d): ``ablations.run_link_failure``'s grid — unweighted
     and degree at p_fail 0.3, nominal and reactive, ``coeff_mode=
     "program"`` (each round's matrices made in the round loop) through
     batched ``gossip_edges``; the nominal program equal bit for bit to its
     materialized stack; the reactive degree run held by drift to phase
-    13's ``ffn_linkfail``."""
+    13's ``ffn_linkfail``.  ``SWEEP_CUT_ROUNDS`` rounds unless ``scale``
+    says otherwise."""
     from repro_torch.benchmarks import ablations
-    from repro_torch.benchmarks.common import (
-        FULL,
-        linkfail_cells,
-        run_sweep_cells,
-    )
+    from repro_torch.benchmarks.common import linkfail_cells, run_sweep_cells
 
-    scale = scale or FULL
+    scale = scale or sweep_cut("ffn_sweep_linkfail")
     before = gm.gossip_edges.launches
     kw = dict(mix_impl="edges", **sweep_inputs(sc, dev))
     out = {}
@@ -1631,15 +1708,16 @@ def run_sweep_byzantine(sc, gm, dev="cuda", scale=None):
     batched ``gossip_robust``: ``"noise"`` faults with the quarantine
     screen, then a ``"nan"`` group with ``skip_nonfinite_updates(sgd)``;
     the quarantine digests and skipped-step counts; the rate-0 experiment
-    held by drift to phase 6's trimmed run."""
+    held by drift to phase 6's trimmed run.  ``SWEEP_CUT_ROUNDS`` rounds
+    unless ``scale`` says otherwise."""
     import numpy as np
 
-    from repro_torch.benchmarks.common import FULL, byzantine_cells, \
+    from repro_torch.benchmarks.common import byzantine_cells, \
         run_sweep_cells
     from repro_torch.core.dynamic import FaultSpec
     from repro_torch.core.topology import barabasi_albert
 
-    scale = scale or FULL
+    scale = scale or sweep_cut("ffn_sweep_byzantine")
     ba = barabasi_albert(N_NODES, 2, 0).name
     cells = [c for c in byzantine_cells(n_nodes=N_NODES,
                                         rates=(0.0, 0.1, 0.2),
@@ -2101,6 +2179,15 @@ FLASH_CASES = (
     # llama4-scout's prefill in phase 16: 40 query heads over 8 (a group
     # of 5), hd 128, the fleet's n·B = 4 sequences of 64
     ("llama4_prefill", (4, 64, 40, 8, 128), "bfloat16", 0, 0.0, False),
+    # hymba-1.5b's prefill in phase 17 (b): 25 query heads over 5 (a
+    # group of 5), hd 64, the fleet's n·B = 4 sequences of 4096; its local
+    # layers see a window of 1024, its global ones all
+    ("hymba_local", (4, 4096, 25, 5, 64), "bfloat16", 1024, 0.0, False),
+    ("hymba_global", (4, 4096, 25, 5, 64), "bfloat16", 0, 0.0, False),
+    # the frontends' (2, 4096) prefills in phase 17 (g): internvl2-1b's
+    # 14 query heads over 2 (a group of 7), musicgen-medium's 24 over 24
+    ("internvl2_prefill", (2, 4096, 14, 2, 64), "bfloat16", 0, 0.0, False),
+    ("musicgen_prefill", (2, 4096, 24, 24, 64), "bfloat16", 0, 0.0, False),
 )
 FLASH_F32_TOL = 2e-5    # times max|ref|
 
@@ -2164,8 +2251,9 @@ def check_flash(dev):
     path's shapes.  Gates: f32 max abs err <= 2e-5 max|ref|; bf16
     elementwise within one bf16 ulp of the plain version's output beyond
     that same f32 bound (each side rounds its own f32 value once); every
-    output finite.  SDPA (``is_causal``) is the library yardstick where
-    no softcap or window applies, ``flex_attention`` where one does.  The
+    output finite.  SDPA is the library yardstick where no softcap
+    applies (``is_causal``, or a boolean window mask), ``flex_attention``
+    where one does.  The
     bound takes bf16 cases (the tensor-core kernel) at the bf16
     tensor-core peak and f32 cases (the CUDA-core kernel) at the f32 one;
     ``achieved_tflops`` is the function's flops over the kernel's time."""
@@ -2204,10 +2292,16 @@ def check_flash(dev):
         del out, err
         assert ok, f"flash_attention {label} {dt}: {max_err} {tol_txt}"
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        if window == 0 and cap == 0.0:
+        if cap == 0.0:
+            # no cap: SDPA, causal, or with the window as a boolean mask
+            mask = None
+            if window > 0:
+                i = torch.arange(s, device=dev)
+                mask = (i[None] <= i[:, None]) & (i[:, None] - i[None]
+                                                  < window)
             library, lib_name = (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True,
-                enable_gqa=kv != h)), "sdpa"
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=kv != h)), "sdpa" if mask is None else "sdpa_mask"
         else:
             library, lib_name = flex_call(qt, kt, vt, window, cap), "flex"
         lib_err = library_check(library(), ref, lib_name)
@@ -2610,12 +2704,18 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
     copies (each from pageable memory waits for the stream), and the
     step's byte bound: the plane read once, plus the K/V entries up to
     ``position`` that attention must read (the one new entry written in
-    place is left out; MLA's latent and rope-key entries likewise), or for
-    the ``ssm`` family its state leaves read once (O(1) in the position)."""
+    place is left out; MLA's latent and rope-key entries likewise; a local
+    layer's only within its window), or for the ``ssm`` family its state
+    leaves read once (O(1) in the position); a hybrid config adds its
+    Mamba state and conv inputs, read once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.transformer import SSM_STATE_LEAVES
+    from repro_torch.models.transformer import (
+        MAMBA_STATE_LEAVES,
+        SSM_STATE_LEAVES,
+        _layer_windows,
+    )
     from repro_torch.serving.serve_step import make_cache, make_fleet_decode_step
 
     dev = fleet.plane.device
@@ -2644,7 +2744,9 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
     plane_bytes = fleet.plane.numel() * fleet.plane.element_size()
     if "k" in cache:
         kv = cache["k"]     # (n, L, B, T, KV, hd)
-        cache_bytes = 2 * (kv.numel() // kv.shape[3]) * (position + 1) \
+        entries = sum(min(position + 1, w) if w > 0 else position + 1
+                      for w in _layer_windows(cfg))
+        cache_bytes = 2 * (kv[:, 0].numel() // kv.shape[3]) * entries \
             * kv.element_size()
     elif "ckv" in cache:    # MLA: ckv (n, L, B, T, r), kr (n, L, B, T, dr)
         cache_bytes = sum((cache[k].numel() // cache[k].shape[3])
@@ -2653,6 +2755,8 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
     else:
         cache_bytes = sum(cache[k].numel() * cache[k].element_size()
                           for k in SSM_STATE_LEAVES)
+    cache_bytes += sum(cache[k].numel() * cache[k].element_size()
+                       for k in MAMBA_STATE_LEAVES if k in cache)
     del cache
     return {"max_seq": max_seq, "position": position, "host_ms": host_ms,
             "device_busy_ms": busy_ms,
@@ -4118,6 +4222,594 @@ def run_moe_phase(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 17: the rest of the zoo — hymba-1.5b, the frontends, temperature
+# ----------------------------------------------------------------------
+HYBRID_NODES = 4
+HYBRID_BUDGET_S = 180
+# per node, the reference's tree (tests/test_torch_hybrid.py holds the
+# port's to it): 19 leaves, three of them f32 (dt_bias, log_a, d_skip)
+HYBRID_CUT = {"params": 1_641_681_600, "leaves": 19,
+              "f32_params": 1_843_200, "reduced": {}}
+# each layer's attention output through the flash kernel against the
+# same layer's einsum attention on the same input (the plain path's
+# hidden state), relative Frobenius error (bf16 outputs rounded on both
+# sides): pinned from a run on an H100 SXM (700 W) that measured 2.0e-4
+# to 3.3e-4 over the 32 layers
+HYBRID_LAYER_REL_TOL = 2e-3
+HYBRID_CUT_LAYERS = 2
+# the kernel prefill's last-position logits against the decode path's
+# (phase 8's bound, two bf16 ulps at |logit| in [4, 8)), at full depth
+# and on the 2-layer cut: the same card measured 0.0547 at full depth
+# (max |logit| 4.75) and 0.0313 on the cut (4.41), so full depth is gated
+HYBRID_VS_DECODE_TOL = 0.0625
+TEMPERATURE = 0.8
+FRONTENDS = {"internvl2-1b": {"params": 630_553_728, "leaves": 13},
+             "musicgen-medium": {"params": 1_365_740_544, "leaves": 15}}
+FRONTEND_BATCH = 2             # (2, 4096) forward a frontend
+# internvl2-1b's train step: n = 2, as n = 4 does not fit the card in
+# eager PyTorch: AdamW behind the nonfinite guard holds ~10 f32 copies
+# of the nodes' 630.6 M parameters a node at its peak (the old and new
+# moments, the gradient sums, the zero-substituted gradients, the
+# updates), 2.5 GB each a node; n = 4 ran out of the 80 GB (PERF.md)
+TRAIN_NODES, TRAIN_MICRO, TRAIN_LOCAL, TRAIN_SEQ, TRAIN_STEPS = 2, 1, 2, 512, 3
+
+
+def hybrid_layer(cfg, lp, x, positions, window, opts):
+    """One hybrid layer of every node (``forward_nodes``'s body): the
+    norm, attention by ``opts`` and the Mamba block on it, averaged, then
+    the MLP.  Returns (the layer's output, its attention output)."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import norm_apply
+
+    h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
+    a = tt._attn_block(lp, cfg, h, positions, window, opts)
+    x = x + tt._mixer(lp, cfg, h, a)[0]
+    return x + tt._ffn_block(lp, cfg, x, False)[0], a
+
+
+def hybrid_layer_errors(cfg, params, toks):
+    """Each hybrid layer's attention output through the flash kernel
+    against einsum attention on the same input (the plain path's hidden
+    state): the relative Frobenius error of each layer.  Beside it, the
+    kernel path's own hidden state carried through the layers against the
+    plain path's (not gated: a random init grows a last-bit difference
+    layer by layer).  Its flash launches compare the kernel with the
+    einsum path, so they are taken back out of the count."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import norm_apply
+
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    launches, shapes = fa.flash_attention.launches, dict(
+        fa.flash_attention.shapes)
+    flash, plain = (tt.ForwardOptions(attn_impl=i)
+                    for i in ("pallas", "einsum"))
+    positions = torch.arange(toks.shape[-1], device=toks.device)
+    windows = tt._layer_windows(cfg)
+    x = xk = tt._embed_inputs(params, cfg, toks)
+    local, carried = [], []
+    for i, lp, _ in tt._layers(params, cfg):
+        h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
+        ak = tt._attn_block(lp, cfg, h, positions, windows[i], flash)
+        x, ap = hybrid_layer(cfg, lp, x, positions, windows[i], plain)
+        local.append(rel(ak, ap))
+        xk, _ = hybrid_layer(cfg, lp, xk, positions, windows[i], flash)
+        carried.append(rel(xk, x))
+    assert fa.flash_attention.launches - launches == 2 * cfg.n_layers
+    fa.flash_attention.launches = launches
+    fa.flash_attention.shapes.clear()
+    fa.flash_attention.shapes.update(shapes)
+    return local, carried
+
+
+def timed_scan():
+    """Wrap ``models.ssm._mamba_scan`` so each call's wall time (between
+    two synchronizations) is recorded; returns the list and an undo."""
+    import torch
+
+    from repro_torch.models import ssm as ssm_lib
+
+    orig, secs = ssm_lib._mamba_scan, []
+
+    def wrapped(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        return out
+
+    ssm_lib._mamba_scan = wrapped
+    return secs, lambda: setattr(ssm_lib, "_mamba_scan", orig)
+
+
+def kernel_ms(events, *needles):
+    """Device ms and count of the profiled kernels whose name holds any
+    of ``needles``; each matched name is logged with its count."""
+    hit = [e for e in events if any(n in e.key for n in needles)]
+    for e in hit:
+        log(f"profiled kernel {e.key[:120]!r}: {e.count} calls, "
+            f"{e.self_device_time_total / 1e3:.3f} ms")
+    return (sum(e.self_device_time_total for e in hit) / 1e3,
+            sum(e.count for e in hit))
+
+
+def hybrid_long_prefill(cfg, params, long_toks):
+    """(b): the (n, S) prefill through ``forward_nodes(attn_impl=
+    "pallas")``, one flash launch a layer: its wall time after a warm-up
+    at full length, then with each Mamba scan timed between
+    synchronizations, their share of the wall.  The device's time, per
+    kind of layer: one local and one global layer run alone on the
+    prefill's hidden state under ``torch.profiler`` (all of the layer's
+    kernels, flash's, and the Mamba loop's ``addcmul``), summed over the
+    layers of each kind; the embedding and the head are left out.  A
+    profile of the whole prefill would record its 131,072 loop launches,
+    whose processing takes tens of seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    prefill = make_forward_prefill(cfg, tt.ForwardOptions(attn_impl="pallas"))
+    n, _, s = long_toks.shape
+    prefill(params, {"tokens": long_toks})             # warm up, full length
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = fa.flash_attention.launches
+    t0 = time.perf_counter()
+    out = prefill(params, {"tokens": long_toks})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert fa.flash_attention.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(out).all()) and out.shape == (
+        n, 1, cfg.vocab_size)
+    res = {"tokens": n * s, "s": secs, "tokens_per_s": n * s / secs,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del out
+    scans, undo = timed_scan()
+    try:
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": long_toks})
+        torch.cuda.synchronize()
+        synced = time.perf_counter() - t0
+    finally:
+        undo()
+    assert len(scans) == cfg.n_layers, len(scans)
+    res.update({"mamba_scan_wall_s": sum(scans), "synced_run_s": synced,
+                "mamba_scan_share_of_wall": sum(scans) / synced})
+
+    kinds = cfg.layer_kinds()
+    windows = tt._layer_windows(cfg)
+    positions = torch.arange(s, device=long_toks.device)
+    x = tt._embed_inputs(params, cfg, long_toks)
+    device = {"busy": 0.0, "flash": 0.0, "addcmul": 0.0}
+    per_kind = {}
+    for kind in ("local", "global"):
+        i = kinds.index(kind)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hybrid_layer(cfg, tt._layer(params["dense_layers"], i), x,
+                         positions, windows[i], tt.ForwardOptions(
+                             attn_impl="pallas"))
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        fl_ms, fl_n = kernel_ms(events, "flash")
+        sc_ms, sc_n = kernel_ms(events, "addcmul")
+        assert fl_n == 1 and sc_n == s, (kind, fl_n, sc_n)
+        count = kinds.count(kind)
+        per_kind[kind] = {"layers": count, "busy_ms": busy, "flash_ms": fl_ms,
+                          "addcmul_ms": sc_ms}
+        for key, v in (("busy", busy), ("flash", fl_ms), ("addcmul", sc_ms)):
+            device[key] += count * v
+    del x
+    res.update({
+        "layers_device_ms": device["busy"], "per_layer_kind": per_kind,
+        "device_idle_share": max(0.0, 1 - device["busy"] / (secs * 1e3)),
+        "flash_device_ms": device["flash"],
+        "flash_share_of_device": device["flash"] / device["busy"],
+        "mamba_loop_device_ms": device["addcmul"],
+        "mamba_loop_share_of_device": device["addcmul"] / device["busy"]})
+    log(f"hymba-1.5b prefill {n} x {s}: {secs:.3f} s "
+        f"({res['tokens_per_s']:.0f} tok/s); the Mamba scans take "
+        f"{sum(scans):.3f} s of a {synced:.3f} s synchronized run "
+        f"({100 * res['mamba_scan_share_of_wall']:.1f}%); the layers' device "
+        f"time (one local and one global layer profiled, times their "
+        f"counts) {device['busy']:.1f} ms (idle "
+        f"{100 * res['device_idle_share']:.1f}%): flash {device['flash']:.1f}"
+        f" ms ({100 * res['flash_share_of_device']:.1f}%), the Mamba loop's "
+        f"addcmul {device['addcmul']:.1f} ms "
+        f"({100 * res['mamba_loop_share_of_device']:.1f}%); peak "
+        f"{res['peak_memory_gb']:.2f} GB")
+    return res
+
+
+def run_hybrid_cut(dev, cfg, n, prompts, new_tokens):
+    """(c), (f): hymba-1.5b at full width cut to ``HYBRID_CUT_LAYERS``
+    layers (bf16, n distinct inits): a served wave's first tokens, the
+    kernel prefill (one flash launch a layer) against the decode path
+    under ``HYBRID_VS_DECODE_TOL`` and each first token against both
+    argmaxes (``first_token_gate``); then node 0's ``greedy_generate`` at
+    ``TEMPERATURE`` with a key: the same key twice gives the same tokens,
+    every token lies in the vocabulary, a second key is logged."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.core import prng
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import ForwardOptions, init_params
+    from repro_torch.serving.scheduler import FleetScheduler
+    from repro_torch.serving.serve_step import (
+        greedy_generate,
+        make_forward_prefill,
+    )
+
+    cut = dataclasses.replace(cfg, n_layers=HYBRID_CUT_LAYERS)
+    reduced_line(17, "serving_hymba", "layers (the gates of (c), (f))",
+                 cfg.n_layers, cut.n_layers)
+    stacked = tree_util.tree_map(
+        lambda *xs: torch.stack(xs),
+        *[init_params(torch.Generator(device=dev).manual_seed(i), cut)
+          for i in range(n)])
+    fleet = FleetScheduler(cut, stacked, n_nodes=n, n_slots=SERVE_SLOTS,
+                           max_seq=prompts.shape[-1] + new_tokens + 1,
+                           prefill_chunk=8)
+    del stacked
+    reqs, _, _ = serve_wave(fleet, prompts, 300, new_tokens)
+    params = fleet.layout.unpack(fleet.plane)
+    toks = torch.as_tensor(prompts, device=dev)
+    before = fa.flash_attention.launches
+    kern = make_forward_prefill(cut, ForwardOptions(attn_impl="pallas"))(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == cut.n_layers
+    dec = decode_path_logits(cut, fleet, toks)
+    res = {"layers": cut.n_layers, "nodes": n,
+           "max_abs_logit": float(kern.abs().max()),
+           "first_token": first_token_gate(
+               f"hymba-1.5b cut to {cut.n_layers} layers", reqs, kern, dec,
+               HYBRID_VS_DECODE_TOL)}
+    del kern, dec
+
+    one = tree_util.tree_map(lambda a: a[0], params)
+    prompt = toks[0]                                    # (B, S)
+    draw = lambda seed: greedy_generate(
+        cut, one, prompt, new_tokens, temperature=TEMPERATURE,
+        rng=prng.key(seed))
+    t0 = time.perf_counter()
+    first = draw(0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    again, other = draw(0), draw(1)
+    greedy = greedy_generate(cut, one, prompt, new_tokens)
+    new = lambda t: t[:, prompt.shape[1]:].tolist()
+    assert torch.equal(first, again), "one key drew two samples"
+    assert int(first.min()) >= 0 and int(first.max()) < cut.vocab_size
+    assert int(other.min()) >= 0 and int(other.max()) < cut.vocab_size
+    res["temperature"] = {
+        "temperature": TEMPERATURE, "key0": new(first), "key1": new(other),
+        "greedy": new(greedy), "key0_twice_equal": True,
+        "keys_differ": not torch.equal(first, other),
+        "s_per_generate": secs}
+    log("hymba-1.5b temperature " + json.dumps(res["temperature"]))
+    del fleet, params, one
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_hymba(dev, cfg=None, n=HYBRID_NODES, prompt_len=PROMPT_LEN,
+              new_tokens=NEW_TOKENS, long_len=LONG_PREFILL,
+              decode_context=DECODE_CONTEXT, cut=None):
+    """Phase 17 (a)–(d): hymba-1.5b at full size, n nodes in one f32
+    plane: a warm-up wave, a second wave into the used slots held token
+    for token to the same prompts on a fresh ``FleetScheduler`` (the
+    served rate is the median of those two timed waves); per
+    layer the flash attention against einsum attention; the full-depth
+    kernel prefill against the decode path (``first_token_gate``); the
+    2-layer cut's gates and temperature sampling; the (n, 4096)
+    prefill's split; the decode step at positions 81 and 4088 with the
+    unpack casts' share; peak memory; the seconds of each part."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import ForwardOptions
+    from repro_torch.serving.scheduler import FleetScheduler
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = cfg or get_config("hymba-1.5b")
+    cut = cut or HYBRID_CUT
+    max_seq = prompt_len + new_tokens + 1
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    torch.cuda.reset_peak_memory_stats()
+    fleet, res = moe_fleet(cfg, n, dev, max_seq, cut)
+    assert res["f32_params_per_node"] == cut["f32_params"], res
+    assert res["plane_dtype"] == "float32", res
+    res["kinds"] = list(cfg.layer_kinds())
+    rng = np.random.default_rng(7)
+    shape = (n, SERVE_SLOTS, prompt_len)
+    prompts = rng.integers(0, cfg.vocab_size, size=shape)
+    warm, _, _ = serve_wave(fleet, prompts, 0, new_tokens)    # warm up
+    prompts2 = rng.integers(0, cfg.vocab_size, size=shape)
+    reused, _, wave_s = serve_wave(fleet, prompts2, 100, new_tokens)
+    waves = [wave_s]
+    lap("build_and_two_waves")
+    # the unpacked f32 leaves are views of the plane: copy them, so the
+    # old plane is freed before the fresh scheduler packs its own
+    params = tree_util.tree_map(
+        lambda t: t.clone() if t.dtype == torch.float32 else t,
+        fleet.layout.unpack(fleet.plane))
+    del fleet
+    torch.cuda.empty_cache()
+    fleet = FleetScheduler(cfg, params, n_nodes=n, n_slots=SERVE_SLOTS,
+                           max_seq=max_seq, prefill_chunk=8)
+    del params
+    torch.cuda.empty_cache()
+    first, _, wave_s = serve_wave(fleet, prompts2, 100, new_tokens)
+    waves.append(wave_s)
+    assert [r.output for r in reused] == [r.output for r in first], \
+        "a re-used hybrid slot served other tokens than a fresh scheduler"
+    res["readmission_equal"] = len(reused)
+    log(f"hymba-1.5b re-admission: the {len(reused)} requests of the "
+        f"second wave == the same prompts on a fresh FleetScheduler, token "
+        f"for token")
+    lap("fresh_scheduler_and_its_wave")
+    per_wave = n * SERVE_SLOTS * new_tokens
+    res.update({"wave_s": waves, "tokens_per_wave": per_wave,
+                "generated_tokens_per_s": per_wave / statistics.median(
+                    waves)})
+    log(f"hymba-1.5b served: {per_wave} tokens a wave, waves "
+        f"{[round(w, 3) for w in waves]} s, median rate "
+        f"{res['generated_tokens_per_s']:.1f} tok/s")
+
+    # (c) per layer, flash against einsum attention; the full depth's
+    # first tokens against the decode path
+    params = fleet.layout.unpack(fleet.plane)
+    toks = torch.as_tensor(prompts, device=dev)
+    local, carried = hybrid_layer_errors(cfg, params, toks)
+    worst = max(local)
+    before = fa.flash_attention.launches
+    kern = make_forward_prefill(cfg, ForwardOptions(attn_impl="pallas"))(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches - before
+    assert launches == cfg.n_layers, launches
+    assert bool(torch.isfinite(kern).all())
+    res.update({"prefill_launches": launches, "layer_rel_err_max": worst,
+                "layer_rel_err": local, "carried_rel_diff": carried})
+    log(f"hymba-1.5b prefill: {launches} flash launches; per layer, flash "
+        f"vs einsum attention on the same input: relative error <= "
+        f"{worst:.3g} (gate {HYBRID_LAYER_REL_TOL}); carried through the "
+        f"layers (not gated): {depth_samples(carried)}")
+    assert worst <= HYBRID_LAYER_REL_TOL, local
+    lap("layer_errors_and_prefill")
+    dec = decode_path_logits(cfg, fleet, toks)
+    res["first_token"] = first_token_gate(
+        "hymba-1.5b full depth", warm, kern, dec, HYBRID_VS_DECODE_TOL)
+    res["max_abs_logit"] = float(kern.abs().max())
+    del kern, dec, params
+    lap("decode_path")
+    res["cut"] = run_hybrid_cut(dev, cfg, n, prompts, new_tokens)
+    lap("cut_and_temperature")
+
+    # (b) the long prefill, B = 1 per node
+    params = fleet.layout.unpack(fleet.plane)
+    long_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             size=(n, 1, long_len)),
+                                device=dev)
+    res["long_prefill"] = hybrid_long_prefill(cfg, params, long_toks)
+    del params, long_toks
+    torch.cuda.empty_cache()
+    lap("long_prefill")
+
+    # (d) the decode step
+    res["fleet_decode_step"] = decode_step_times(cfg, fleet, position=81,
+                                                 reps=3)
+    res["fleet_decode_step_long"] = decode_step_times(
+        cfg, fleet, max_seq=decode_context, position=decode_context - 8,
+        reps=3)
+    unpack_ms = unpack_device_ms(fleet.layout, fleet.plane)
+    res["unpack_device_ms"] = unpack_ms
+    res["unpack_share_of_step"] = (
+        unpack_ms / res["fleet_decode_step"]["device_busy_ms"])
+    res["unpack_share_of_step_long"] = (
+        unpack_ms / res["fleet_decode_step_long"]["device_busy_ms"])
+    log(f"hymba-1.5b decode step: device "
+        f"{res['fleet_decode_step']['device_busy_ms']:.4g} ms, host "
+        f"{res['fleet_decode_step']['host_ms']:.4g} ms at position 81; "
+        f"device {res['fleet_decode_step_long']['device_busy_ms']:.4g} ms,"
+        f" host {res['fleet_decode_step_long']['host_ms']:.4g} ms at "
+        f"{decode_context - 8}; the plane's unpack casts {unpack_ms:.4g} "
+        f"ms ({100 * res['unpack_share_of_step']:.1f}% and "
+        f"{100 * res['unpack_share_of_step_long']:.1f}%)")
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    lap("decode_steps")
+    res["seconds"] = laps
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("serving_hymba " + json.dumps(res))
+    return res
+
+
+def run_frontend(dev, arch, cfg=None, seq=LONG_PREFILL, cut=None):
+    """(g): a frontend config at full size (bf16, one node): a
+    (FRONTEND_BATCH, seq) prefill from seeded stub embeddings through the
+    flash kernel (one launch a layer), its last-position logits held to
+    the chunked prefill's under ``FLASH_VS_CHUNKED_TOL``."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import (
+        ForwardOptions,
+        add_node_axis,
+        init_params,
+    )
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    cfg = cfg or get_config(arch)
+    cut = cut or FRONTENDS[arch]
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    leaves = tree_util.leaves(params)
+    res = {"arch": cfg.name, "params": sum(x.numel() for x in leaves),
+           "leaves": len(leaves), "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "frontend_dim": cfg.frontend_dim,
+           "batch": FRONTEND_BATCH, "seq": seq}
+    assert (res["params"], res["leaves"]) == (cut["params"],
+                                              cut["leaves"]), res
+    del leaves
+    params = add_node_axis(params)
+    emb = torch.randn((1, FRONTEND_BATCH, seq, cfg.frontend_dim),
+                      generator=torch.Generator(device=dev).manual_seed(1),
+                      device=dev)
+    out = {}
+    for impl in ("pallas", "chunked"):
+        prefill = make_forward_prefill(cfg, ForwardOptions(attn_impl=impl))
+        before = fa.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[impl] = prefill(params, {"embeddings": emb})
+        torch.cuda.synchronize()
+        res[f"{impl}_s"] = time.perf_counter() - t0
+        res[f"{impl}_launches"] = fa.flash_attention.launches - before
+    assert res["pallas_launches"] == cfg.n_layers, res
+    assert res["chunked_launches"] == 0, res
+    assert bool(torch.isfinite(out["pallas"]).all()) and out[
+        "pallas"].shape == (1, FRONTEND_BATCH, cfg.vocab_size)
+    diff = float((out["pallas"] - out["chunked"]).abs().max())
+    res.update({"flash_vs_chunked_max_abs": diff,
+                "max_abs_logit": float(out["pallas"].abs().max())})
+    log("frontend " + json.dumps(res))
+    assert diff <= FLASH_VS_CHUNKED_TOL, (arch, diff)
+    del params, emb, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_frontend_train(dev, cfg=None, n=TRAIN_NODES, seq=TRAIN_SEQ,
+                       steps=TRAIN_STEPS):
+    """(g): internvl2-1b's production train step at full size (bf16), n
+    distinct inits: ``make_train_step`` at microbatch 1 on stub
+    embeddings, AdamW behind the nonfinite guard, gossip by BA(n, 2)'s
+    degree matrix (BA(2, 1) at n = 2) through the fused-plane kernel (one
+    ``gossip_plane`` launch a step): every loss finite, no step skipped."""
+    import math
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.decentralized import round_coeffs
+    from repro_torch.core.strategies import AggregationStrategy
+    from repro_torch.core.topology import barabasi_albert
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import (make_train_step,
+                                                 reshape_for_microbatch)
+
+    cfg = cfg or get_config("internvl2-1b")
+    reduced_line(17, "frontend_train_step", "nodes", 16, n)
+    reduced_line(17, "frontend_train_step", "sequence", cfg.max_seq_len,
+                 seq)
+    torch.cuda.reset_peak_memory_stats()
+    params = tree_util.tree_map(
+        lambda *xs: torch.stack(xs),
+        *[init_params(torch.Generator(device=dev).manual_seed(i), cfg)
+          for i in range(n)])
+    opt = make_optimizer("adamw", 1e-4, skip_nonfinite=True)
+    step = make_train_step(cfg, ParallelConfig(n_nodes=n,
+                                               microbatch=TRAIN_MICRO), opt)
+    state = opt.init(params)
+    # BA(n, 2), or BA(2, 1) at n = 2
+    coeffs = torch.as_tensor(round_coeffs(
+        barabasi_albert(n, min(2, n - 1), 0), AggregationStrategy("degree"),
+        0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = n * TRAIN_MICRO * TRAIN_LOCAL
+    before = gm.gossip_plane.launches
+    losses, secs = [], []
+    for _ in range(steps):
+        batch = reshape_for_microbatch({
+            "embeddings": torch.randn((rows, seq, cfg.frontend_dim),
+                                      generator=gen, device=dev),
+            "labels": torch.randint(0, cfg.vocab_size, (rows, seq),
+                                    generator=gen, device=dev)},
+            n, TRAIN_MICRO)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch, coeffs)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+    launches = gm.gossip_plane.launches - before
+    skipped = state["skipped"].tolist()
+    res = {"arch": cfg.name, "nodes": n, "microbatch": TRAIN_MICRO,
+           "local_batch": TRAIN_LOCAL * TRAIN_MICRO, "seq": seq,
+           "steps": steps, "losses": losses, "s_per_step": secs,
+           "skipped": skipped, "gossip_plane_launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("frontend_train_step " + json.dumps(res))
+    assert all(math.isfinite(x) for x in losses), losses
+    assert skipped == [0] * n, skipped
+    assert launches == steps, launches
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_zoo_phase(dev):
+    """Phase 17: hymba-1.5b (a)–(f), the serve CLI on its 2-layer cut
+    (e), and the frontends (g)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    res = {"hymba": run_hymba(dev)}
+    seconds = {"hymba": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    reqs = serve.main(["--arch", "hymba-1.5b", "--layers",
+                       str(HYBRID_CUT_LAYERS), "--nodes", str(HYBRID_NODES),
+                       "--batch", str(SERVE_SLOTS), "--prompt-len",
+                       str(PROMPT_LEN), "--new-tokens", str(NEW_TOKENS),
+                       "--device", str(dev)])
+    assert len(reqs) == HYBRID_NODES * SERVE_SLOTS and all(
+        r.done and len(r.output) == NEW_TOKENS for r in reqs), reqs
+    res["cli"] = {"requests": len(reqs),
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"serve CLI --arch hymba-1.5b --layers {HYBRID_CUT_LAYERS}: "
+        f"{len(reqs)} requests of {NEW_TOKENS} tokens served")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["cli"] = time.perf_counter() - t0 - sum(seconds.values())
+    for arch in FRONTENDS:
+        torch.cuda.reset_peak_memory_stats()
+        res[arch] = run_frontend(dev, arch)
+        res[arch]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    seconds["frontends"] = time.perf_counter() - t0 - sum(seconds.values())
+    res["train_step"] = run_frontend_train(dev)
+    seconds["train_step"] = time.perf_counter() - t0 - sum(seconds.values())
+    res["peak_memory_gb"] = max(r["peak_memory_gb"] for r in res.values())
+    log("phase 17 seconds " + json.dumps(seconds))
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 12: the mix-cost study
 # ----------------------------------------------------------------------
 STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
@@ -4295,6 +4987,16 @@ def trainer_coeffs(sc):
                            device="cuda")
 
 
+def launches_by_shape(path_shapes, name):
+    """One kernel's main-path launches by operand shape, summed over the
+    paths."""
+    out = {}
+    for shapes in path_shapes.values():
+        for key, m in shapes.get(name, {}).items():
+            out[key] = out.get(key, 0) + m
+    return dict(sorted(out.items()))
+
+
 def main() -> int:
     import torch
 
@@ -4338,7 +5040,7 @@ def main() -> int:
         vgg_sc = vgg_setup()
         ffn_host = host_batches(ffn_sc, ROUNDS)
         sb_sc = sb_setup()
-        sb_host = host_batches(sb_sc, ROUNDS)
+        sb_host = host_batches(sb_sc, PHASE13_CUT_ROUNDS)
         t_setup = time.perf_counter() - t0
         t_built = max(f.result() for f in built) - t0
     for name in names:
@@ -4355,7 +5057,7 @@ def main() -> int:
         f"device check): {time.perf_counter() - t2:.1f} s")
     counters = {name: getattr(importlib.import_module(
         f"repro_torch.kernels.{MODULES[name]}"), name) for name in KERNELS}
-    paths = {}
+    paths, path_shapes = {}, {}
 
     def main_path(name, fn, *args):
         """One path of the main path: every count 0 just before, read just
@@ -4372,6 +5074,7 @@ def main() -> int:
         by_shape = {k: dict(sorted((" ".join(map(str, sh)), m)
                                    for sh, m in c.shapes.items()))
                     for k, c in counters.items() if getattr(c, "shapes", None)}
+        path_shapes[name] = by_shape
         gc.collect()
         torch.cuda.empty_cache()
         log(f"main path {name}: {time.perf_counter() - t:.1f} s, launches "
@@ -4432,6 +5135,16 @@ def main() -> int:
     log(f"phase 16 (MoE serving): {t16:.1f} s (budget {MOE_BUDGET_S} s), "
         f"peak {moe['peak_memory_gb']:.2f} GB")
     assert t16 <= MOE_BUDGET_S, f"phase 16 took {t16:.1f} s"
+    t17 = time.perf_counter()
+    zoo = main_path("serving_zoo", run_zoo_phase, dev)
+    t17 = time.perf_counter() - t17
+    log(f"phase 17 (the rest of the zoo): {t17:.1f} s (budget "
+        f"{HYBRID_BUDGET_S} s), peak {zoo['peak_memory_gb']:.2f} GB")
+    assert t17 <= HYBRID_BUDGET_S, f"phase 17 took {t17:.1f} s"
+    zoo_shapes = path_shapes["serving_zoo"].get("flash_attention", {})
+    for key in ("4 4096 25 5 64 bfloat16", "2 4096 14 2 64 bfloat16",
+                "2 4096 24 24 64 bfloat16"):
+        assert zoo_shapes.get(key, 0) > 0, (key, zoo_shapes)
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches
@@ -4467,6 +5180,7 @@ def main() -> int:
                                          "library_ms")},
             "shape": main_case["shape"], "dtype": main_case["dtype"],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "launches_by_shape": launches_by_shape(path_shapes, name),
             "cases": own,
         })
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the start of "

@@ -27,18 +27,27 @@ threefry2x32 stream here, matching jax 0.9.0 with
   key and ``i`` alone, so a subset equals the same entries of the whole
   draw bit for bit.
 
+* ``split(k, num)`` hashes the counters ``(0, i)``, i < num, and key i
+  is the pair of the two output words at i (the partitionable form's
+  fold-like split).
+* ``categorical(k, logits)`` is ``argmax(logits + gumbel)`` over the last
+  axis, ``gumbel = −log(−log(u))`` with ``u`` the uniform on ``[tiny,
+  1)`` from the same counters (``[0, 1)`` values times ``1 − tiny``,
+  which rounds to 1, plus ``tiny``, clamped to it).  The bits and ``u``
+  are the host's, bit for bit; the two logs run in torch on the logits'
+  device, where they may differ from XLA's in the last ulp
+  (``tests/test_torch_prng.py`` measures it).
+
 Masks (``(n,)`` node masks, the ``(n, n)`` edge mask of
 ``core.dynamic.edge_mask``) depend only on seeds and the round index, so
 drawing them on the host costs no device synchronisation.
-``categorical`` (temperature sampling) is not ported yet (ROADMAP Queue 1
-[serving]).
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["key", "fold_in", "uniform", "normal", "normal_at",
-           "threefry2x32"]
+__all__ = ["key", "fold_in", "split", "uniform", "normal", "normal_at",
+           "categorical", "threefry2x32"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -80,6 +89,13 @@ def fold_in(k: np.ndarray, data: int) -> np.ndarray:
     out0, out1 = threefry2x32(k, np.zeros(1, np.uint32),
                               np.array([data], np.uint32))
     return np.concatenate([out0, out1])
+
+
+def split(k: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(k, num)``: ``(num, 2)`` uint32 keys."""
+    out0, out1 = threefry2x32(k, np.zeros(num, np.uint32),
+                              np.arange(num, dtype=np.uint32))
+    return np.stack([out0, out1], axis=1)
 
 
 def _shape_size(shape):
@@ -150,3 +166,23 @@ def normal(k: np.ndarray, shape) -> np.ndarray:
     of ``erf_inv``; an int ``shape`` means ``(shape,)``."""
     shape, size = _shape_size(shape)
     return normal_at(k, np.arange(size, dtype=np.int64)).reshape(shape)
+
+
+_TINY = np.finfo(np.float32).tiny
+
+
+def categorical(k: np.ndarray, logits):
+    """``jax.random.categorical(k, logits)`` over the last axis of an f32
+    torch tensor: the index of ``logits + gumbel``'s maximum (the first
+    on a tie), int64 on the logits' device, of shape ``logits.shape[:-1]``.
+    The uniform is drawn on the host (one threefry hash per logit) and
+    copied to the device."""
+    import torch
+
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical: f32 logits expected, got "
+                        f"{logits.dtype}")
+    u = uniform(k, tuple(logits.shape))
+    u = np.maximum(_TINY, u * (np.float32(1.0) - _TINY) + _TINY)
+    u = torch.as_tensor(u, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)

@@ -25,6 +25,14 @@ another node's expert slots.  At full width on the card, cut their depth
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama4-scout-17b-a16e --layers 1 --nodes 2 --batch 2
+
+hymba-1.5b's hybrid layers carry the Mamba state in the cache beside
+K/V (admission zeroes it); its three f32 leaf kinds make the plane f32.
+The frontend configs (internvl2-1b, musicgen-medium) serve token prompts
+through the decode path, as the reference's CLI does:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --layers 2 --nodes 4 --batch 2
 """
 from __future__ import annotations
 

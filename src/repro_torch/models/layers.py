@@ -18,10 +18,10 @@ Weight layouts are the reference's, behind the node axis:
   * MLP: wi/wg ``(N, d_model, d_ff)``, wo ``(N, d_ff, d_model)``;
   * norms: ``(N, d)`` vectors.
 
-The RWKV-6 blocks live in ``models/ssm.py``, the MoE block in
-``models/moe.py``.  The Mamba block, ``attention_apply`` and
-``attention_decode`` are on no path of the port yet (ROADMAP Queue 1
-[mamba] and [frontends]).
+The RWKV-6 and Mamba blocks live in ``models/ssm.py``, the MoE block in
+``models/moe.py``.  The reference's ``attention_apply`` and
+``attention_decode`` are on no path of the port: its forward and decode
+call ``_qkv``, ``_sdpa`` and ``_attn_decode`` directly.
 """
 from __future__ import annotations
 

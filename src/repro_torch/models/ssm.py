@@ -1,5 +1,5 @@
-"""RWKV-6 ("Finch") time-mix and channel-mix (port of the RWKV half of
-``repro/models/ssm.py``).
+"""RWKV-6 ("Finch") time-mix and channel-mix, and the Mamba-style
+selective SSM (port of ``repro/models/ssm.py``).
 
 RWKV-6 time-mix (per head, head_dim N):
     S_t = diag(w_t) · S_{t-1} + k_t v_tᵀ            (state: N×N)
@@ -13,13 +13,23 @@ carries a leading node axis N (stacked layers ``(N, L, ...)``, one layer
 ``use_kernel``: the RWKV-6 CUDA kernel (``kernels.ssm_scan.rwkv_scan``)
 with the node axis folded into the batch, one launch for the fleet; or
 the reference's own one-step scan body in a Python loop over time, which
-is what decode runs.  The Mamba half of the reference module is not
-ported yet (ROADMAP Queue 1 [mamba]).
+is what decode runs.
+
+The Mamba block (the hybrid family's SSM heads, hymba-1.5b) is a diagonal
+selective scan per channel:
+    h_t = exp(Δ_t·A) ⊙ h_{t-1} + (Δ_t·B_t)·u_t      (state: di × n, f32)
+    y_t = h_t · C_t
+after a depthwise causal conv over time.  The reference runs the
+recurrence as a ``jax.lax.scan`` (no Pallas kernel); the port runs it as
+a plain loop over time on the node axis folded into the batch, with the
+elementwise ``exp(Δ·A)`` and ``(Δ·B)·u`` of every step computed before the
+loop, so each step is one fused multiply-add (:func:`_mamba_scan`).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +44,7 @@ from repro_torch.models.layers import (
 __all__ = [
     "rwkv_init", "rwkv_time_mix", "rwkv_time_mix_decode",
     "rwkv_channel_mix", "rwkv_channel_init",
+    "mamba_init", "mamba_apply", "mamba_decode",
 ]
 
 _LORA = 32  # low-rank dim of the RWKV-6 token-shift mixers
@@ -177,3 +188,134 @@ def rwkv_channel_mix(p, x, x_prev=None):
     xr = x + dx * _tail(p["mu_r"], x.ndim)
     v = node_matmul(torch.square(F.relu(node_matmul(xk, p["wk"]))), p["wv"])
     return torch.sigmoid(node_matmul(xr, p["wr"])) * v, x[:, :, -1]
+
+
+# ======================================================================
+# Mamba-style selective SSM (diagonal)
+# ======================================================================
+def mamba_init(generator: torch.Generator, cfg, dtype, layers: int):
+    """Stacked ``(layers, ...)`` Mamba weights drawn on the generator's
+    device, one leaf at a time.  ``dt_bias`` (zeros), ``log_a``
+    (``log(1..n)`` broadcast over the ``di`` channels) and ``d_skip``
+    (ones) are f32 in a bf16 model, as in the reference; ``log_a`` is
+    the correctly rounded f32 log, which the reference's jitted init
+    computes for ``n <= 16``."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state_dim
+    dev = generator.device
+    init = lambda shape, scale=None: dense_init_on_device(
+        generator, (layers,) + shape, dtype, scale=scale, stacked=1)
+    log_n = torch.as_tensor(
+        np.log(np.arange(1, n + 1, dtype=np.float64)).astype(np.float32),
+        device=dev)
+    f32 = lambda v: torch.full((layers, di), v, dtype=torch.float32,
+                               device=dev)
+    return {
+        "w_in": init((d, 2 * di)),                      # x and gate z
+        "conv_w": init((cfg.ssm_conv_dim, di), 0.2),
+        "w_bcdt": init((di, 2 * n + 1)),                # B, C, Δ-rank1
+        "dt_bias": f32(0.0),
+        "log_a": log_n.expand(layers, di, n).clone(),   # A = -exp(log_a)
+        "d_skip": f32(1.0),
+        "w_out": init((di, d)),
+    }
+
+
+def _mamba_conv(p, x, conv_state=None):
+    """Depthwise causal conv1d over time of every node: x ``(N, B, S,
+    di)``; ``conv_state`` ``(N, B, kdim − 1, di)`` holds the inputs before
+    position 0 (zeros when None).  The taps are summed in order, each
+    product and sum in the activation type.  Returns (out, the last
+    ``kdim − 1`` inputs: the next conv state)."""
+    kdim = p["conv_w"].shape[1]
+    n, b, s, di = x.shape
+    if conv_state is None:
+        conv_state = torch.zeros((n, b, kdim - 1, di), dtype=x.dtype,
+                                 device=x.device)
+    xp = torch.cat([conv_state, x], dim=2)
+    w = p["conv_w"][:, None, None]                      # (N, 1, 1, kdim, di)
+    out = xp[:, :, 0:s] * w[:, :, :, 0]
+    for i in range(1, kdim):
+        out = out + xp[:, :, i:i + s] * w[:, :, :, i]
+    return out, xp[:, :, -(kdim - 1):]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(−|x|))`` (torch's ``softplus`` takes ``log1p(exp(x))``)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _mamba_ssm_params(p, cfg, u):
+    """u ``(N, B, S, di)`` → B, C ``(N, B, S, n)`` in the activation type;
+    Δ ``(N, B, S, di)`` = softplus(Δ-rank1 + dt_bias) in f32; A = −exp(
+    log_a) ``(N, di, n)`` f32."""
+    n = cfg.ssm_state_dim
+    bcdt = node_matmul(u, p["w_bcdt"])
+    b_, c_, dt = bcdt[..., :n], bcdt[..., n:2 * n], bcdt[..., 2 * n:]
+    dt = _softplus(dt.float() + _tail(p["dt_bias"], bcdt.ndim))
+    a = -torch.exp(p["log_a"])
+    return b_, c_, dt, a
+
+
+def _mamba_scan(u, b_, c_, dt, a, h):
+    """The recurrence over time, folded batch ``M = N·B``: u ``(M, S,
+    di)``, B/C ``(M, S, n)``, Δ ``(M, S, di)``, A ``(M, di, n)``, h ``(M,
+    di, n)`` f32.  Every step's ``dA = exp(Δ·A)`` and ``dBu = (Δ·B)·u``
+    are elementwise in the inputs alone, so they are computed for all t
+    before the loop, the same values as per step: two passes over the
+    sequence where the reference's step makes five ops, leaving the loop
+    one fused ``h ← dA·h + dBu`` a step.  They are laid out time-major,
+    ``(S, M, di, n)`` in memory (their small inputs are transposed and
+    copied first; an elementwise op keeps its input's layout), so each
+    step reads two contiguous slices: one vectorized launch a step, where
+    a slice strided over S spans gigabytes at S = 4096, past 32-bit
+    offsets, and each ``addcmul`` splits in two strided launches.  Then
+    ``y_t = Σ_n h_t·C_t`` for all t in one batched product.  Returns
+    (y ``(M, S, di)`` f32, the final h)."""
+    tm = lambda t: t.transpose(0, 1).contiguous()       # (S, M, ...)
+    dt_t = tm(dt)[..., None]
+    da = torch.exp(dt_t * a[None])                      # (S, M, di, n)
+    dbu = (dt_t * tm(b_).float()[:, :, None, :]) * tm(u).float()[..., None]
+    del dt_t
+    hs = []
+    for t in range(u.shape[1]):
+        h = torch.addcmul(dbu[t], da[t], h)
+        hs.append(h)
+    del da, dbu
+    y = torch.einsum("smdn,msn->msd", torch.stack(hs), c_.float())
+    return y, h
+
+
+def mamba_apply(p, cfg, x, ssm_state=None, conv_state=None):
+    """Full-sequence Mamba of every node: x ``(N, B, S, d)``; states
+    ``ssm_state`` ``(N, B, di, n)`` f32 and ``conv_state`` ``(N, B,
+    kdim − 1, di)`` or None (zeros).  Returns (out ``(N, B, S, d)``,
+    (ssm_state, conv_state))."""
+    nn_, b, s, d = x.shape
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state_dim
+    xz = node_matmul(x, p["w_in"])
+    u, z = xz[..., :di], xz[..., di:]
+    u, conv_state = _mamba_conv(p, u, conv_state)
+    u = F.silu(u)
+    b_, c_, dt, a = _mamba_ssm_params(p, cfg, u)
+    if ssm_state is None:
+        ssm_state = torch.zeros((nn_, b, di, n), dtype=torch.float32,
+                                device=x.device)
+    fold = lambda t: t.reshape((nn_ * b,) + t.shape[2:])
+    a_m = a[:, None].expand(nn_, b, di, n).reshape(nn_ * b, di, n)
+    y, h = _mamba_scan(fold(u), fold(b_), fold(c_), fold(dt), a_m,
+                       fold(ssm_state))
+    y = y.reshape(nn_, b, s, di).to(x.dtype) \
+        + u * _tail(p["d_skip"].to(x.dtype), u.ndim)
+    y = y * F.silu(z)
+    return node_matmul(y, p["w_out"]), (h.reshape(nn_, b, di, n),
+                                        conv_state)
+
+
+def mamba_decode(p, cfg, x, ssm_state, conv_state):
+    """Single-token decode: x ``(N, B, 1, d)``; states threaded
+    explicitly."""
+    return mamba_apply(p, cfg, x, ssm_state, conv_state)

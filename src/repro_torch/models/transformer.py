@@ -1,25 +1,32 @@
-"""Model assembly for the dense, MoE and SSM families and MLA (port of
+"""Model assembly for every family of the zoo (port of
 ``repro/models/transformer.py``).
 
-  dense — [norm → GQA or MLA attention → +res] [norm → MLP → +res]  (× L)
-  moe   — the same attention, then [norm → routed experts (+ shared) → +res]
-  ssm   — [norm → RWKV-6 time-mix → +res] [norm → channel-mix → +res]
+  dense     — [norm → GQA or MLA attention → +res] [norm → MLP → +res]  (× L)
+  moe       — the same attention, then [norm → routed experts (+ shared)
+              → +res]
+  ssm       — [norm → RWKV-6 time-mix → +res] [norm → channel-mix → +res]
+  hybrid    — attention and Mamba heads side by side on the same norm,
+              their outputs averaged (hymba), then the MLP
+  vlm/audio — the dense stack fed by the modality frontend's embeddings
+              (``frontend_proj``) in place of token embeddings
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
-``head`` (unless tied), ``dense_layers`` and, for a MoE config,
-``moe_layers``, whose leaves are stacked along a leading axis over their
-layers.  A MoE config's first ``first_k_dense`` layers are dense
-(deepseek-v2: one) and the rest MoE layers, which hold ``moe``
-(``models/moe.py``) where a dense layer holds ``mlp``; with
+``head`` (unless tied), ``frontend_proj`` (frontend configs),
+``dense_layers`` and, for a MoE config, ``moe_layers``, whose leaves are
+stacked along a leading axis over their layers; a hybrid layer adds
+``mamba`` (``models/ssm.py``).  A MoE config's first ``first_k_dense``
+layers are dense (deepseek-v2: one) and the rest MoE layers, which hold
+``moe`` (``models/moe.py``) where a dense layer holds ``mlp``; with
 ``first_k_dense = 0`` (llama4-scout) there is no ``dense_layers`` key.
 The reference scans each group and ``vmap``s the fleet's node axis; the
 port loops over the layers in Python and writes the node axis out:
 :func:`forward_nodes` and :func:`decode_step_nodes` take every parameter
 leaf with a leading node axis N (layer leaves are ``(N, L, ...)``) and
-tokens ``(N, B, S)``, so a fleet's prefill makes one attention call per
-layer for all its nodes, while each node's MoE layer routes, and drops,
-its own tokens.  :func:`forward` and :func:`decode_step` are the
-reference's single-node signatures, ``N = 1``.
+tokens ``(N, B, S)`` (or frontend embeddings ``(N, B, S, F)``), so a
+fleet's prefill makes one attention call per layer for all its nodes,
+while each node's MoE layer routes, and drops, its own tokens.
+:func:`forward` and :func:`decode_step` are the reference's single-node
+signatures, ``N = 1``.
 
 Attention runs by ``ForwardOptions.attn_impl``: ``"einsum"`` (full
 ``(S, T)`` logits), ``"chunked"`` (the plain online-softmax scan) or
@@ -31,12 +38,11 @@ Decode is always the einsum path against the cache (K/V, or MLA's latent
 ``ForwardOptions.use_ssm_kernel``: the RWKV-6 CUDA kernel
 (``kernels.ssm_scan``, one launch per layer for the fleet) or the
 reference's one-step scan body, which decode always runs
-(``models/ssm.py``).
+(``models/ssm.py``).  The Mamba recurrence is a plain loop over time
+(the reference's is a ``lax.scan``, not a kernel).
 
 The decode cache stays stacked over all L layers; decode takes each
-layer's slice of it, whichever group the layer is in.  The hybrid family
-and the modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1
-[mamba] and [frontends]).
+layer's slice of it, whichever group the layer is in.
 """
 from __future__ import annotations
 
@@ -76,25 +82,18 @@ from repro_torch.models.layers import (
 
 __all__ = ["init_params", "forward", "forward_nodes", "init_cache",
            "decode_step", "decode_step_nodes", "unembed_nodes",
-           "ForwardOptions", "ATTN_IMPLS", "SSM_STATE_LEAVES"]
+           "ForwardOptions", "ATTN_IMPLS", "SSM_STATE_LEAVES",
+           "MAMBA_STATE_LEAVES", "STATE_LEAVES"]
 
 Params = Dict[str, Any]
 ATTN_IMPLS = ("einsum", "chunked", "pallas")
-# the cache leaves that carry state from one token to the next (the
-# ``ssm`` family's), in the order ``_rwkv_layer`` takes them
+# the ``ssm`` family's cache leaves, in the order ``_rwkv_layer`` takes them
 SSM_STATE_LEAVES = ("rwkv_state", "tm_prev", "cm_prev")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's transformer stack does not run yet."""
-    if cfg.family == "hybrid" or cfg.hybrid_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid block (Mamba beside attention) is not "
-            f"ported yet (ROADMAP Queue 1 [mamba])")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            f"(ROADMAP Queue 1 [frontends])")
+# the hybrid family's Mamba state and conv inputs
+MAMBA_STATE_LEAVES = ("ssm_state", "conv_state")
+# every cache leaf that carries state from one token to the next, which
+# no mask hides, so an admission must zero it
+STATE_LEAVES = SSM_STATE_LEAVES + MAMBA_STATE_LEAVES
 
 
 # ======================================================================
@@ -113,7 +112,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     time (the port's own stream; it does not reproduce JAX's numbers).
     Layer leaves are stacked ``(L, ...)`` per group, ``dense_layers``
     then ``moe_layers``, as in the reference."""
-    check_supported(cfg)
     dtype, dev = cfg.weight_dtype, generator.device
     p: Params = {
         "embed": dense_init_on_device(generator, (cfg.vocab_size, cfg.d_model),
@@ -123,6 +121,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         p["head"] = dense_init_on_device(generator,
                                          (cfg.d_model, cfg.vocab_size), dtype)
+    if cfg.frontend is not None:
+        p["frontend_proj"] = dense_init_on_device(
+            generator, (cfg.frontend_dim, cfg.d_model), dtype)
     n_dense = n_dense_layers(cfg)
     if n_dense:
         p["dense_layers"] = _group_init(generator, cfg, n_dense, moe=False)
@@ -134,7 +135,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _group_init(generator, cfg: ModelConfig, L: int, moe: bool) -> Params:
     """``L`` stacked layers of one group: norms, then the time-mix and
-    channel-mix (``ssm``), or attention and the MLP, or the MoE block."""
+    channel-mix (``ssm``), or attention (and the Mamba block of a hybrid
+    config) and the MLP, or the MoE block."""
     dtype, dev = cfg.weight_dtype, generator.device
     stack = lambda t: t.unsqueeze(0).repeat((L,) + (1,) * t.ndim)
     layers = {
@@ -150,6 +152,8 @@ def _group_init(generator, cfg: ModelConfig, L: int, moe: bool) -> Params:
     else:
         layers["attn"] = (mla_init if cfg.use_mla else attention_init)(
             generator, cfg, dtype, L)
+        if cfg.hybrid_ssm:
+            layers["mamba"] = ssm_lib.mamba_init(generator, cfg, dtype, L)
         if moe:
             layers["moe"] = moe_init(generator, cfg, dtype, L)
         else:
@@ -211,8 +215,8 @@ class ForwardOptions:
                              f"{ATTN_IMPLS}")
 
 
-def _attn_block(lp, cfg, x, positions, window: int, opts: ForwardOptions):
-    h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
+def _attn_block(lp, cfg, h, positions, window: int, opts: ForwardOptions):
+    """Attention of the normed input ``h`` ``(N, B, S, d)``."""
     if cfg.use_mla:
         return mla_apply(lp["attn"], cfg, h, positions, impl=opts.attn_impl)
     q, k, v = _qkv(lp["attn"], cfg, h, positions)
@@ -224,7 +228,7 @@ def _attn_block(lp, cfg, x, positions, window: int, opts: ForwardOptions):
     elif opts.attn_impl == "chunked":
         out = _sdpa_chunked(cfg, q, k, v, window=window)
     else:
-        out = _sdpa(cfg, q, k, v, _causal_mask(s, s, 0, window, x.device))
+        out = _sdpa(cfg, q, k, v, _causal_mask(s, s, 0, window, h.device))
     out = out.reshape(n, b, s, -1)
     return node_matmul(out, lp["attn"]["wo"].flatten(1, 2))
 
@@ -267,9 +271,15 @@ def _root_d(cfg: ModelConfig) -> float:
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
-    """The reference's ``_embed_inputs``: the rows times √d_model, the
-    root taken in f32 and rounded to the embedding's type first (the
-    product of two values of that type, rounded once)."""
+    """The reference's ``_embed_inputs``.  Tokens ``(N, B, S)``: the rows
+    times √d_model, the root taken in f32 and rounded to the embedding's
+    type first (the product of two values of that type, rounded once).  A
+    frontend's embeddings ``(N, B, S, F)`` (floating): cast to the
+    activation type and projected by ``frontend_proj``, no scale."""
+    if tokens.is_floating_point():
+        x = node_matmul(tokens.to(cfg.activation_dtype),
+                        params["frontend_proj"])
+        return x.to(cfg.activation_dtype)
     x = _node_rows(params, tokens)
     scale = torch.tensor(_root_d(cfg)).to(x.dtype).item()
     return (x * scale).to(cfg.activation_dtype)
@@ -284,26 +294,40 @@ def unembed_nodes(params: Params, cfg: ModelConfig, x: torch.Tensor):
     return softcap(node_matmul(x, head).float(), cfg.final_logit_softcap)
 
 
+def _mixer(lp, cfg, h, attn_out, carry=None):
+    """A hybrid layer's mix of its attention output with the Mamba block's
+    on the same normed input ``h``: ``0.5·(attn + mamba)`` in the
+    activation type.  ``carry`` is the decode cache's ``(ssm_state,
+    conv_state)`` of this layer or None (a prefill from zeros, whose
+    state is discarded); returns (out, the new carry)."""
+    m_out, carry = ssm_lib.mamba_apply(lp["mamba"], cfg, h,
+                                       *(carry or (None, None)))
+    return 0.5 * (attn_out + m_out), carry
+
+
 def forward_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   opts: Optional[ForwardOptions] = None,
                   return_hidden: bool = False):
-    """Full-sequence forward of every node on its own tokens: params with
-    a leading node axis N, tokens ``(N, B, S)``.  Returns
-    ``(logits (N, B, S, V) f32, aux (N,))`` — or ``(hidden, aux)`` when
-    ``return_hidden``; ``aux`` is each node's auxiliary loss, the
-    reference's sum over the MoE layers (zero without one)."""
-    check_supported(cfg)
+    """Full-sequence forward of every node on its own inputs: params with
+    a leading node axis N, tokens ``(N, B, S)`` or a frontend's
+    embeddings ``(N, B, S, F)``.  Returns ``(logits (N, B, S, V) f32,
+    aux (N,))`` — or ``(hidden, aux)`` when ``return_hidden``; ``aux`` is
+    each node's auxiliary loss, the reference's sum over the MoE layers
+    (zero without one)."""
     opts = opts or ForwardOptions()
     x = _embed_inputs(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    aux = torch.zeros((tokens.shape[0],), dtype=torch.float32,
-                      device=x.device)
+    positions = torch.arange(x.shape[2], device=x.device)
+    aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     windows = _layer_windows(cfg)
     for i, lp, moe in _layers(params, cfg):
         if cfg.family == "ssm":
             x, _ = _rwkv_layer(lp, cfg, x, opts)
             continue
-        x = x + _attn_block(lp, cfg, x, positions, windows[i], opts)
+        h = norm_apply(cfg.norm_kind, lp["norm1"], x, cfg.norm_eps)
+        attn_out = _attn_block(lp, cfg, h, positions, windows[i], opts)
+        if cfg.hybrid_ssm:
+            attn_out, _ = _mixer(lp, cfg, h, attn_out)
+        x = x + attn_out
         out, layer_aux = _ffn_block(lp, cfg, x, moe)
         x = x + out
         if layer_aux is not None:
@@ -317,13 +341,11 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             opts: Optional[ForwardOptions] = None,
             return_hidden: bool = False):
     """The reference's single-node forward: ``batch["tokens"]`` ``(B, S)``
-    → ``(logits (B, S, V), aux)`` (or the hidden states), ``aux`` a
-    scalar."""
-    if "tokens" not in batch:
-        raise NotImplementedError(
-            "forward: only token inputs; the frontend stubs' embeddings are "
-            "not ported yet (ROADMAP Queue 1 [frontends])")
-    out, aux = forward_nodes(add_node_axis(params), cfg, batch["tokens"][None],
+    or ``batch["embeddings"]`` ``(B, S, F)`` (which wins, as in the
+    reference) → ``(logits (B, S, V), aux)`` (or the hidden states),
+    ``aux`` a scalar."""
+    inputs = batch["embeddings"] if "embeddings" in batch else batch["tokens"]
+    out, aux = forward_nodes(add_node_axis(params), cfg, inputs[None],
                              opts, return_hidden)
     return out[0], aux[0]
 
@@ -342,8 +364,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     the token-shift carries ``tm_prev``/``cm_prev`` ``(L, B, D)``: O(1)
     in the sequence, ``max_seq`` unused.  MLA configs keep the latent
     ``ckv`` ``(L, B, T, r)`` and the rope key ``kr`` ``(L, B, T, dr)``
-    (T = max_seq) in the activation type."""
-    check_supported(cfg)
+    (T = max_seq) in the activation type.  A hybrid config adds to those
+    the Mamba state ``ssm_state`` ``(L, B, di, n)`` f32 and the conv inputs
+    ``conv_state`` ``(L, B, kdim − 1, di)`` in the activation type."""
     dev = resolve_device(device)
     position = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
     if cfg.family == "ssm":
@@ -354,20 +377,31 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                 "rwkv_state": torch.zeros((L, batch_size, d // hd, hd, hd),
                                           dtype=torch.float32, device=dev),
                 "tm_prev": carry(), "cm_prev": carry()}
+    act = cfg.activation_dtype
     if cfg.use_mla:
         latent = lambda w: torch.zeros((cfg.n_layers, batch_size, max_seq, w),
-                                       dtype=cfg.activation_dtype, device=dev)
-        return {"position": position, "ckv": latent(cfg.kv_lora_rank),
-                "kr": latent(cfg.qk_rope_head_dim)}
-    kinds = cfg.layer_kinds()
-    lens = [cfg.window_size if k == "local" else max_seq for k in kinds]
-    t = max(lens) if lens else max_seq
-    if all(k == "local" for k in kinds):
-        t = min(cfg.window_size, max_seq)
-    shape = (cfg.n_layers, batch_size, t, cfg.n_kv_heads, cfg.head_dim_)
-    return {"position": position,
-            "k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev)}
+                                       dtype=act, device=dev)
+        cache = {"position": position, "ckv": latent(cfg.kv_lora_rank),
+                 "kr": latent(cfg.qk_rope_head_dim)}
+    else:
+        kinds = cfg.layer_kinds()
+        lens = [cfg.window_size if k == "local" else max_seq for k in kinds]
+        t = max(lens) if lens else max_seq
+        if all(k == "local" for k in kinds):
+            t = min(cfg.window_size, max_seq)
+        shape = (cfg.n_layers, batch_size, t, cfg.n_kv_heads, cfg.head_dim_)
+        cache = {"position": position,
+                 "k": torch.zeros(shape, dtype=act, device=dev),
+                 "v": torch.zeros(shape, dtype=act, device=dev)}
+    if cfg.hybrid_ssm:
+        di = cfg.ssm_expand * cfg.d_model
+        cache["ssm_state"] = torch.zeros(
+            (cfg.n_layers, batch_size, di, cfg.ssm_state_dim),
+            dtype=torch.float32, device=dev)
+        cache["conv_state"] = torch.zeros(
+            (cfg.n_layers, batch_size, cfg.ssm_conv_dim - 1, di),
+            dtype=act, device=dev)
+    return cache
 
 
 def _attn_decode(p, cfg, x, cache_k, cache_v, position, window: int):
@@ -409,12 +443,12 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, Params]:
     """One decode step of every node: tokens ``(N, B, 1)``, the cache with
     a leading node axis (``position`` ``(N, B)``, K/V ``(N, L, B, T, KV,
-    hd)``, MLA's ``ckv``/``kr`` ``(N, L, B, T, ·)``, or the ``ssm``
-    family's state leaves) → (logits
+    hd)``, MLA's ``ckv``/``kr`` ``(N, L, B, T, ·)``, the ``ssm``
+    family's state leaves, and a hybrid config's ``ssm_state``/
+    ``conv_state`` ``(N, L, B, ·)`` beside K/V) → (logits
     ``(N, B, 1, V)``, new cache).  ``opts`` is accepted for the
     reference's signature; decode attention is always einsum and the
     RWKV scan always the one-step body."""
-    check_supported(cfg)
     x = _node_rows(params, tokens)
     # the reference multiplies the embedding by the f32 root here (an f32
     # product), where _embed_inputs rounds the root to the embedding's type
@@ -432,7 +466,8 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             new_cache[k] = torch.stack([c[j] for c in carries], 1)
         return unembed_nodes(params, cfg, x), new_cache
     keys = ("ckv", "kr") if cfg.use_mla else ("k", "v")
-    news = {k: [] for k in keys}
+    news = {k: [] for k in keys + (MAMBA_STATE_LEAVES if cfg.hybrid_ssm
+                                   else ())}
     windows = _layer_windows(cfg)
     for i, lp, moe in _layers(params, cfg):
         window = windows[i]
@@ -446,6 +481,11 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                        position, window)
         for k, t in zip(keys, new):
             news[k].append(t)
+        if cfg.hybrid_ssm:
+            a_out, carry = _mixer(lp, cfg, h, a_out, tuple(
+                cache[k][:, i] for k in MAMBA_STATE_LEAVES))
+            for k, t in zip(MAMBA_STATE_LEAVES, carry):
+                news[k].append(t)
         x = x + a_out
         x = x + _ffn_block(lp, cfg, x, moe)[0]
     new_cache = {"position": position + 1,

@@ -9,13 +9,14 @@ batching on top of the serving steps.
 
 Host-side state (queues, slot maps: :class:`Request`, ``_SlotBook``) is
 numpy, copied from the reference; device state is the stacked cache.
-Admission resets a slot's cache column (position ← 0, and the ``ssm``
-family's recurrent state and token-shift carries ← 0:
+Admission resets a slot's cache column (position ← 0, and every state
+leaf ← 0: the ``ssm`` family's recurrent state and token-shift carries,
+the hybrid family's Mamba state and conv inputs;
 ``serve_step.reset_slots``) and feeds the prompt through chunked prefill
 (``make_prefill_step``): one call advances up to ``prefill_chunk`` prompt
 tokens.  The reference resets only ``position``, so there a re-used slot
-of an RWKV model starts from the previous request's state (ROADMAP
-Queue 3).  The legacy token-by-token replay
+of an RWKV or a hybrid model starts from the previous request's state
+(ROADMAP Queue 3).  The legacy token-by-token replay
 stays behind ``prefill_chunk=None`` as the bit-equality reference.
 
 :class:`FleetScheduler` holds the whole fleet as ONE ``(n, P)`` parameter

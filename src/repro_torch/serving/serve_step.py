@@ -27,9 +27,9 @@ a model swap (a plane row write) is seen by the next step.  Eager PyTorch
 has no traced program to re-enter; the reference's retrace counters have
 no counterpart.
 
-Sampling is greedy; ``temperature > 0`` would draw from
-``jax.random.categorical``'s stream, which the port does not reproduce
-(it raises ``NotImplementedError``).
+Sampling is greedy, except in :func:`greedy_generate` given a temperature
+and a key, which draws from the reference's ``jax.random.categorical``
+stream (``core.prng.categorical``).
 """
 from __future__ import annotations
 
@@ -39,9 +39,10 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.core.plane import PlaneLayout
 from repro_torch.models.transformer import (
-    SSM_STATE_LEAVES,
+    STATE_LEAVES,
     ForwardOptions,
     add_node_axis,
     decode_step,
@@ -67,14 +68,16 @@ __all__ = [
 def make_forward_prefill(cfg: ModelConfig,
                          opts: Optional[ForwardOptions] = None,
                          last_only: bool = True):
-    """prefill(params (N, ...), batch {"tokens": (N, B, S)}) → logits.
+    """prefill(params (N, ...), batch {"tokens": (N, B, S)} or, for a
+    frontend config, {"embeddings": (N, B, S, F)}) → logits.
 
     ``last_only`` unembeds only the final position — ``(N, B, V)`` — which
     is what serving needs (the first sampled token)."""
     opts = opts or ForwardOptions()
 
     def prefill(stacked_params, batch):
-        tokens = batch["tokens"]
+        tokens = (batch["embeddings"] if "embeddings" in batch
+                  else batch["tokens"])
         if last_only:
             hidden, _ = forward_nodes(stacked_params, cfg, tokens, opts,
                                       return_hidden=True)
@@ -87,8 +90,10 @@ def make_forward_prefill(cfg: ModelConfig,
 
 def _slot_mask(valid: torch.Tensor, key: str, ref: torch.Tensor):
     """Broadcast an ``(N, B)`` validity mask against a node-stacked cache
-    leaf: ``position`` is ``(N, B)``, K/V and the ``ssm`` state leaves are
-    ``(N, L, B, ...)``."""
+    leaf: ``position`` is ``(N, B)``; K/V, MLA's latents and every state
+    leaf (RWKV's, and the hybrid family's ``ssm_state`` ``(N, L, B, di,
+    n)`` and ``conv_state`` ``(N, L, B, kdim − 1, di)``) are ``(N, L, B,
+    ...)``."""
     if key == "position":
         return valid
     n, b = valid.shape
@@ -147,7 +152,9 @@ def make_cache(cfg: ModelConfig, n_nodes: int, batch_per_node: int,
                max_seq: int, device=None):
     """Node-stacked decode cache: ``position`` ``(N, B)``, K/V
     ``(N, L, B, T, KV, hd)`` (``ssm``: ``rwkv_state``
-    ``(N, L, B, H, hd, hd)``, ``tm_prev``/``cm_prev`` ``(N, L, B, D)``)."""
+    ``(N, L, B, H, hd, hd)``, ``tm_prev``/``cm_prev`` ``(N, L, B, D)``;
+    hybrid: K/V, ``ssm_state`` ``(N, L, B, di, n)`` and ``conv_state``
+    ``(N, L, B, kdim − 1, di)``)."""
     one = init_cache(cfg, batch_per_node, max_seq, device)
     return tree_util.tree_map(
         lambda x: x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.ndim), one)
@@ -156,11 +163,12 @@ def make_cache(cfg: ModelConfig, n_nodes: int, batch_per_node: int,
 def reset_slots(cache, fresh: torch.Tensor):
     """Admission into the slots where ``fresh`` ``(N, B)`` is True: their
     ``position`` ← 0 and every leaf that carries state from token to
-    token (``SSM_STATE_LEAVES``) ← 0, so a request never inherits the
-    previous occupant's recurrent state.  K/V leaves are left alone: the
+    token (``STATE_LEAVES``: RWKV's state and carries, the hybrid
+    family's Mamba state and conv inputs) ← 0, so a request never
+    inherits the previous occupant's recurrent state.  K/V leaves are left alone: the
     mask hides entries past ``position``."""
     return {k: (v.masked_fill(_slot_mask(fresh, k, v), 0)
-                if k == "position" or k in SSM_STATE_LEAVES else v)
+                if k == "position" or k in STATE_LEAVES else v)
             for k, v in cache.items()}
 
 
@@ -202,14 +210,11 @@ def greedy_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
                     n_new: int, max_seq: Optional[int] = None,
                     temperature: float = 0.0, rng=None) -> torch.Tensor:
     """Single-node generator: prompt ``(B, S0)`` → ``(B, S0 + n_new)``,
-    the prompt fed token by token through the decode path.  Greedy; the
-    reference samples only when given both ``temperature > 0`` and an
-    ``rng``, which the port does not reproduce."""
-    if temperature > 0.0 and rng is not None:
-        raise NotImplementedError(
-            "greedy_generate: temperature sampling draws from "
-            "jax.random.categorical, whose stream the port does not "
-            "reproduce (ROADMAP Queue 1 [serving])")
+    the prompt fed token by token through the decode path.  Greedy, unless
+    given both ``temperature > 0`` and ``rng`` (a ``core.prng`` key, the
+    reference's ``jax.random`` key data): each new token is then drawn as
+    the reference draws it, ``rng, sub = split(rng)`` and
+    ``categorical(sub, logits / temperature)``."""
     b, s0 = prompt.shape
     max_seq = max_seq or (s0 + n_new)
     cache = init_cache(cfg, b, max_seq, device=prompt.device)
@@ -218,7 +223,12 @@ def greedy_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
     for i in range(s0):
         logits, cache = decode_step(params, cfg, prompt[:, i:i + 1], cache)
     for _ in range(n_new):
-        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
+        if temperature > 0.0 and rng is not None:
+            rng, sub = prng.split(rng)
+            nxt = prng.categorical(sub, logits[:, -1] / temperature)
+        else:
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+        nxt = nxt[:, None].to(prompt.dtype)
         tokens = torch.cat([tokens, nxt], dim=1)
         logits, cache = decode_step(params, cfg, nxt, cache)
     return tokens

@@ -54,8 +54,8 @@ def _chunked_xent(params, cfg: ModelConfig, hidden: torch.Tensor,
 def lm_loss_fn(cfg: ModelConfig, opts: Optional[ForwardOptions] = None,
                chunked_ce: int = 0):
     """→ ``loss(params, batch)`` for ONE node; batch ``{"tokens",
-    "labels"}`` (``(B, S)`` each; ``forward`` refuses the frontends'
-    ``"embeddings"``, ROADMAP Queue 1 [frontends])."""
+    "labels"}`` (``(B, S)`` each) or, for a frontend config,
+    ``{"embeddings" (B, S, F), "labels"}``."""
     opts = opts or ForwardOptions()
 
     def loss(params, batch) -> torch.Tensor:

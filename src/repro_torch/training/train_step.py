@@ -8,7 +8,10 @@ One step, with leaves ``(N, ...)`` everywhere:
      (LocalTrain's inner loop), divide by ``pcfg.microbatch``;
   2. per node: the optimizer update (Eq. 1);
   3. gossip: the stacked params times the ``(N, N)`` mixing matrix
-     (Eq. 2, ``core.mixing.mix_dense``).
+     (Eq. 2) through the fused-plane CUDA kernel over the packed
+     ``(N, P)`` plane (``kernels.gossip_mix.mix_plane``; its plain
+     version for CPU tensors).  The reference's ``mix_dense`` computes the
+     same f32 sums leaf by leaf.
 
 The reference checkpoints each layer (``pcfg.remat``) to shape its traced
 program's memory; the port runs eagerly, keeps autograd's saved tensors,
@@ -22,7 +25,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.core.mixing import mix_dense
+from repro_torch.kernels.gossip_mix import mix_plane
 from repro_torch.models.transformer import ForwardOptions
 from repro_torch.training.losses import lm_loss_fn
 from repro_torch.training.optimizer import (Optimizer, apply_updates,
@@ -77,7 +80,7 @@ def make_train_step(
                                             stacked_params)
         new_params = apply_updates(stacked_params, updates)
         if gossip:
-            new_params = mix_dense(new_params, coeffs)
+            new_params = mix_plane(new_params, coeffs)
         return new_params, new_opt, losses.mean()
 
     return train_step

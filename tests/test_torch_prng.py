@@ -1,8 +1,9 @@
 """The port's threefry2x32 (``repro_torch.core.prng``) against the
-installed ``jax.random``, bit for bit: keys, folds and uniform draws over
-seeds, rounds, the four fold indices of the reference's key convention,
-mask sizes from 1 to 1024 and 2-D and 3-D shapes (the edge mask's
-``(n, n)``)."""
+installed ``jax.random``, bit for bit: keys, folds, splits and uniform
+draws over seeds, rounds, the four fold indices of the reference's key
+convention, mask sizes from 1 to 1024 and 2-D and 3-D shapes (the edge
+mask's ``(n, n)``); normal draws and the Gumbel noise of ``categorical``
+to a measured tolerance, and its samples exactly."""
 import jax
 import numpy as np
 import pytest
@@ -122,3 +123,83 @@ def test_normal_at_equals_the_whole_draw_bit_for_bit():
                           whole[rows].view(np.uint32))
     with pytest.raises(ValueError, match="2\\*\\*32"):
         prng.normal_at(k, np.array([-1]))
+
+
+# ----------------------------------------------------------------------
+# split and categorical (temperature sampling)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("num", [2, 3, 7])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_matches_jax_bit_for_bit(seed, num):
+    """``split`` of a key, and a chain of ``rng, sub = split(rng)`` as the
+    generator draws it, equal ``jax.random.split``'s keys exactly."""
+    want = np.asarray(jax.random.key_data(jax.random.split(
+        jax.random.key(seed), num)))
+    got = prng.split(prng.key(seed), num)
+    assert got.dtype == np.uint32 and got.shape == (num, 2)
+    assert np.array_equal(got, want)
+    jrng, rng = jax.random.PRNGKey(seed), prng.key(seed)
+    for _ in range(4):
+        jrng, jsub = jax.random.split(jrng)
+        rng, sub = prng.split(rng)
+        assert np.array_equal(rng, np.asarray(jrng))
+        assert np.array_equal(sub, np.asarray(jsub))
+
+
+def _gumbel(k, shape):
+    """The Gumbel noise ``categorical`` adds: the uniform on ``[tiny, 1)``
+    from the host's bits, the two logs in torch."""
+    import torch
+
+    tiny = np.finfo(np.float32).tiny
+    u = np.maximum(tiny, prng.uniform(k, shape) * (np.float32(1) - tiny)
+                   + tiny)
+    return (-torch.log(-torch.log(torch.as_tensor(u)))).numpy()
+
+
+# Over a 10**6 draw (seed 7, fold 3) the port's Gumbel noise equals
+# jax.random.gumbel's in 77.1% of the values: the uniform is bit for bit
+# the same, and torch's f32 log differs from XLA's by at most 1 ulp (in
+# 14.1% of the values), twice.  The noise then differs by at most 2 ulps
+# where |g| >= 0.5 and by at most 9.5e-7 (8 ulps of 1) anywhere: near
+# g = 0 (u near 1/e) the outer log's input sits near 1, where one ulp of
+# the inner log is many ulps of the result.
+GUMBEL_MAX_ULPS, GUMBEL_MAX_ABS = 2, 2e-6
+
+
+def test_gumbel_noise_matches_jax_to_the_last_ulps():
+    import jax.numpy as jnp
+
+    n = 1_000_000
+    want = np.asarray(jax.random.gumbel(jax.random.fold_in(
+        jax.random.key(7), 3), (n,), jnp.float32))
+    got = _gumbel(prng.fold_in(prng.key(7), 3), (n,))
+    assert got.dtype == np.float32
+    far = np.abs(want) >= 0.5
+    ulps = np.abs(got - want)[far] / np.spacing(np.abs(want[far]))
+    assert ulps.max() <= GUMBEL_MAX_ULPS, ulps.max()
+    assert np.abs(got - want).max() <= GUMBEL_MAX_ABS
+    assert np.mean(got == want) > 0.75
+
+
+@pytest.mark.parametrize("temperature", [0.8, 1.0, 2.5])
+@pytest.mark.parametrize("shape", [(3, 7), (2, 128), (4, 32001)])
+def test_categorical_matches_jax(shape, temperature):
+    """``categorical(key, logits / temperature)`` draws the reference's
+    samples exactly, for 5 keys a case, at hymba-1.5b's vocabulary of
+    32,001 among them (a last-ulp difference in the noise can only flip
+    a sample whose top two noisy logits tie to that ulp)."""
+    import jax.numpy as jnp
+    import torch
+
+    for seed in range(5):
+        logits = 3 * np.random.default_rng(seed).standard_normal(
+            shape).astype(np.float32)
+        want = np.asarray(jax.random.categorical(
+            jax.random.key(seed), jnp.asarray(logits) / temperature))
+        got = prng.categorical(prng.key(seed),
+                               torch.as_tensor(logits) / temperature)
+        assert got.shape == shape[:-1]
+        assert np.array_equal(got.numpy(), want), seed
+    with pytest.raises(TypeError, match="f32"):
+        prng.categorical(prng.key(0), torch.zeros(2, 3, dtype=torch.float64))

@@ -18,6 +18,7 @@ from repro.training import checkpoint as jckpt
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig as TConfig
 from repro_torch.configs.registry import get_smoke_config as tget
+from repro_torch.core import prng
 from repro_torch.interop import params_from_jax
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as tt
@@ -127,9 +128,12 @@ def test_greedy_generate_matches_reference(params):
     want = np.asarray(jgreedy(JCFG, jp, jnp.asarray(prompt), 8))
     got = tss.greedy_generate(TCFG, tp, torch.as_tensor(prompt), 8)
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="categorical"):
-        tss.greedy_generate(TCFG, tp, torch.as_tensor(prompt), 2,
-                            temperature=0.7, rng=0)
+    # temperature sampling: the reference's jax.random stream, its tokens
+    want = np.asarray(jgreedy(JCFG, jp, jnp.asarray(prompt), 8,
+                              temperature=0.7, rng=jax.random.PRNGKey(3)))
+    got = tss.greedy_generate(TCFG, tp, torch.as_tensor(prompt), 8,
+                              temperature=0.7, rng=prng.key(3))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ----------------------------------------------------------------------
