@@ -34,11 +34,12 @@ Phases, in order; any failure raises and the script exits nonzero:
 4. VGG-16 at full width (P = 14,982,479 per node, n = 33): 2 rounds
    through the fused-plane kernel, 1 through the edge-list kernel and 1
    through the robust kernel (trimmed mean);
-6. the robust trainer at the phase-3 scale: ``degree`` with
+6. the robust trainer at the phase-3 scale, cut to
+   ``ROBUST_CUT_ROUNDS`` = 20 rounds: ``degree`` with
    ``robust="trimmed"`` through the robust kernel (exactly R launches,
    finite params, IID AUC >= 0.9, OOD AUC beside phase 3's mean run), then
    ``robust="norm_clip"`` through the fused-plane kernel;
-7. the fault layer at the same scale, cut to ``FAULT_CUT_ROUNDS`` = 20
+7. the fault layer at the same scale, cut to ``FAULT_CUT_ROUNDS`` = 10
    rounds (printed on a ``reduced`` line), through ``make_fault_round_fn``:
    rate 0 bit-identical to ``make_round_fn``; NaN faults contained by the
    quarantine screen (and poisoning the plane without it); sign-flip
@@ -99,18 +100,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    scale, on the card batches of phases 6-7: Fig. 4's ``fl``,
    ``weighted``, ``random`` and ``betweenness`` through the fused plane
    (exactly R launches each; ``random``'s R matrices row-stochastic on
-   adj + I and not all equal; betweenness's OOD AUC above phase 3's
-   unweighted), one line with all six OOD AUCs; ``degree`` at p_fail 0.3,
-   nominal and reactive, its coefficient program's matrices through
+   adj + I and not all equal), one line with all six OOD AUCs (phase 18
+   (a)'s grid holds betweenness above unweighted at R = 40); ``degree``
+   at p_fail 0.3, nominal and reactive, its coefficient program's matrices through
    ``coeffs_fn`` and the edge-list kernel (exactly R launches, every
    round row-stochastic with its support inside that round's survivors +
    I, edges dropped), the reactive program 3 rounds through both kernels
    within 3 of 512 eval samples; then Fig. 6's SB(33, 3, 0.5, p_out)
    graphs for p_out 0.009, 0.05, 0.9 (modularity, connected) and, on the
    most modular, ``unweighted`` and ``degree`` with the OOD data on its
-   highest-degree node (its own batches on the card); the link-failure
-   and SB runs take ``PHASE13_CUT_ROUNDS`` = 20 of the 40 rounds
-   (``reduced`` lines), the strategy runs all 40;
+   highest-degree node (its own batches on the card); every run takes
+   ``PHASE13_CUT_ROUNDS`` = 20 of the 40 rounds (``reduced`` lines):
+   the paper's claim at R = 40 is phase 3's (degree) and phase 18 (a)'s
+   (all six Fig. 4 strategies);
 14. (after 13, its card batches freed) the paper's grids through the
    sweep engine (``repro_torch.core.sweep``) on phase 3's scenario:
    (a) the kernels' experiment axis — ``gossip_plane`` at the FFN plane
@@ -124,17 +126,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``torch.cuda.set_sync_debug_mode``), peak memory, ``fig4.verdict``,
    each experiment's drift from its phase-3/13 single-trainer run; (c)
    the same grid chunked with a checkpoint at each boundary, resumed from
-   round 20, and unrolled (cut to R = 20), each bit for bit the scanned
-   run; (d) ``ablations.run_link_failure``'s grid (unweighted, degree at
+   its middle one, and unrolled (cut to half the rounds), each bit for
+   bit the scanned run; (d) ``ablations.run_link_failure``'s grid (unweighted, degree at
    p_fail 0.3, nominal and reactive, matrices made in the round loop)
    through batched ``gossip_edges``, the nominal program equal to its
    materialized stack bit for bit, degree held by drift to phase 13; (e)
    ``byzantine_cells`` at fault rates 0, 0.1, 0.2 through the batched
    trimmed mean, ``"noise"`` faults with the quarantine screen and a
    ``"nan"`` group with ``skip_nonfinite_updates(sgd)``, the rate-0
-   experiment held by drift to phase 6's trimmed run; (d) and (e) run
-   ``SWEEP_CUT_ROUNDS`` = 20 of FULL's 40 rounds, held by drift on the
-   single runs' first 20 (printed on ``reduced`` lines);
+   experiment held by drift to phase 6's trimmed run; (b) and (c) run
+   ``FIG4_GRID_ROUNDS`` = 24 and (d), (e) ``SWEEP_CUT_ROUNDS`` = 20 of
+   FULL's 40 rounds, held by drift on the single runs' first rounds
+   (printed on ``reduced`` lines; Fig. 4's grid at R = 40 is phase 18
+   (a)'s);
 15. (after 14) GPT-2 on TinyMem, the paper's third model (GPT-2-small
    cut to one layer, Table 1: d 768, 12 heads, d_ff 3072, f32, P =
    7,107,072 a node), on BA(33, 2) with the language backdoor on the
@@ -200,6 +204,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    behind the nonfinite guard, gossiping by BA(2, 1)'s degree matrix
    through the fused-plane kernel (one launch a step): finite losses,
    none skipped;
+18. (after 17) the entry points, its own 120 s budget
+   (``ENTRY_BUDGET_S``): (a) the sweep CLI (``python -m
+   repro_torch.benchmarks.sweep``): ``--list``, fig4's ``--full
+   --dry-run`` plan, fig4 ``--full`` at one seed (six strategies, n = 33,
+   R = 40, the paper's claim), ``edges`` at the smoke scale on BA(64, 2)
+   through ``edges_kernel`` (one launch a round), fig4 ``--smoke`` with
+   the legacy baseline (each cell alone, unrolled) held to the grid by
+   a measured drift bound; (b) the fleet serving benchmark at
+   stablelm-1.6b's full width and depth in f32, fleets of 2 and 4, 2
+   slots a node: tok/s,
+   p50/p95/p99 latency and slot occupancy of the fleet step and the
+   per-node loop, outputs identical, the swap check; (c) phi3-mini-3.8b
+   at full size (hd 96; 3,821,079,552 parameters a node) through the
+   serve CLI, n = 4 in one 30.6 GB bf16 plane, then a (4, 4096) prefill
+   through the flash kernel's hd-96 instantiation held to the chunked
+   prefill; (d) starcoder2-7b the same way (hd 128, GQA 36/4, windows of
+   4096 alternating local and global; 7,399,351,296 parameters), n = 2
+   (29.6 GB), a (2, 4096) prefill; (e) the train driver (``python -m
+   repro_torch.launch.train``) on internvl2-1b at full size through its
+   text embedding, n = 2, 2 rounds of 2 steps at S = 512, each round's
+   gossip one ``gossip_plane`` launch, and the smoke config's
+   ``--ckpt-dir``/``--resume`` round trip equal bit for bit to the
+   uninterrupted run.  Every cut is printed on a ``reduced`` line;
 5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
    JSON line, the card line and the device line (last).
 
@@ -217,7 +244,9 @@ slices of one fused tensor, and hd 32; no PyTorch call computes the
 recurrence, so it has no library yardstick.  The flash cases also take
 phase 17's shapes: hymba-1.5b's (4, 4096, 25 over 5 kv heads, hd 64)
 with a window of 1024 and without, internvl2-1b's (2, 4096, 14 over 2)
-and musicgen-medium's (2, 4096, 24 over 24).  And it holds the MLA
+and musicgen-medium's (2, 4096, 24 over 24), and phase 18's hd 96:
+phi3-mini-3.8b's (4, 4096, 32 over 32) and a ragged (3, 1000, 8 over 2),
+f32 and bf16.  And it holds the MLA
 latent-attention kernels against their plain version at deepseek-v2's
 prefill shape (4, 4096, 128 heads, r 512, dr 64; f32 queries over a bf16
 and an f32 latent), a ragged (3, 1000, 16) whose latent and rope key are
@@ -231,8 +260,8 @@ check before phase 3 (n = 8, R = 2) runs ``degree`` through every backend
 and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
-Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16 and 17
-are the main path:
+Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16, 17 and
+18 are the main path:
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
 batched launch's shape starts ``E=<E>``; the kernel line sums them over
@@ -952,16 +981,19 @@ def all_finite(params) -> bool:
                for x in tree_util.leaves(params))
 
 
-def run_robust_ffn(sc, gm, batches, mean_res):
-    """Phase 6: ``DecentralizedTrainer`` with the robust rules."""
+def run_robust_ffn(sc, gm, batches, mean_res, rounds=None):
+    """Phase 6: ``DecentralizedTrainer`` with the robust rules, cut to
+    ``ROBUST_CUT_ROUNDS`` rounds."""
     import torch
 
     from repro_torch.core.propagation import accuracy_auc
 
+    rounds = rounds or ROBUST_CUT_ROUNDS
+    cut_line(6, "ffn_robust", rounds)
     out = {}
     for robust, impl, counter in (("trimmed", "edges", gm.gossip_robust),
                                   ("norm_clip", "pallas", gm.gossip_plane)):
-        tr = ffn_trainer(sc, "degree", impl, ROUNDS, 4, robust=robust,
+        tr = ffn_trainer(sc, "degree", impl, rounds, 4, robust=robust,
                          robust_trim=1)
         before = counter.launches
         t0 = time.perf_counter()
@@ -971,17 +1003,18 @@ def run_robust_ffn(sc, gm, batches, mean_res):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = counter.launches - before
-        assert launches == ROUNDS, (robust, launches)  # one launch per mix
+        assert launches == rounds, (robust, launches)  # one launch per mix
         assert all_finite(params), robust
         res = {"mix_impl": impl, "iid_auc": accuracy_auc(hist, "iid"),
-               "ood_auc": accuracy_auc(hist, "ood"),
-               "s_per_round": secs / ROUNDS, "launches": launches,
+               "ood_auc": accuracy_auc(hist, "ood"), "rounds": rounds,
+               "s_per_round": secs / rounds, "launches": launches,
                "final_ood_acc": float(hist[-1].ood_acc.mean())}
         log(f"ffn degree robust={robust} " + json.dumps(res))
         out[robust] = res
     assert out["trimmed"]["iid_auc"] >= 0.9, out["trimmed"]
-    log("ffn degree OOD AUC, robustness against OOD propagation: mean "
-        f"(phase 3) {mean_res['ood_auc']:.4f}, trimmed "
+    log(f"ffn degree OOD AUC, robustness against OOD propagation: mean "
+        f"(phase 3, R = {ROUNDS}) {mean_res['ood_auc']:.4f}; R = {rounds}: "
+        f"trimmed "
         f"{out['trimmed']['ood_auc']:.4f}, norm_clip "
         f"{out['norm_clip']['ood_auc']:.4f}")
     return out
@@ -1046,8 +1079,11 @@ def within_breakdown(sc, spec, rate, fseed, rule, rounds=ROUNDS):
 
 # phase 7's rounds: the fault gates (rate 0 bit for bit, NaN contained
 # by the quarantine and not by the mean, sign-flip under the robust
-# rules) hold round by round, so they run 20 of phase 3's 40
-FAULT_CUT_ROUNDS = 20
+# rules) hold round by round, so they run 10 of phase 3's 40
+FAULT_CUT_ROUNDS = 10
+# phase 6's rounds: its trimmed run's IID AUC is 0.998 at 40 rounds,
+# far above its 0.9 gate, and phase 14 (e) holds its first 20 rounds
+ROBUST_CUT_ROUNDS = 20
 
 
 def run_faults(sc, gm, batches, rounds=FAULT_CUT_ROUNDS):
@@ -1146,8 +1182,9 @@ def run_faults(sc, gm, batches, rounds=FAULT_CUT_ROUNDS):
 # phase 13: every strategy, link failure, the modular graphs (FFN)
 # ----------------------------------------------------------------------
 SB_P_OUTS = (0.009, 0.05, 0.9)
-# (b) link failure and (c) the SB runs take 20 of FULL's 40 rounds; the
-# strategy runs of (a) carry the paper's claim and keep all 40
+# every run of phase 13 takes 20 of FULL's 40 rounds; the paper's claim
+# at 40 is phase 3's (degree) and phase 18 (a)'s (all six Fig. 4
+# strategies)
 PHASE13_CUT_ROUNDS = 20
 
 
@@ -1187,34 +1224,35 @@ def ffn_run(sc, strategy, mix_impl, batches, counter, rounds=ROUNDS,
                       "s_per_round": secs / rounds, "launches": launches}
 
 
-def run_strategies(sc, gm, batches, ffn_res):
-    """Phase 13 (a): Fig. 4's other four strategies at paper scale through
-    the fused plane, beside phase 3's ``unweighted`` and ``degree``."""
+def run_strategies(sc, gm, batches, ffn_res, rounds=PHASE13_CUT_ROUNDS):
+    """Phase 13 (a): Fig. 4's other four strategies at the paper's scale
+    through the fused plane, cut to ``rounds``, beside phase 3's
+    ``unweighted`` and ``degree``; their histories hold phase 14 (b)'s
+    grid on its first ``rounds`` rounds."""
     import numpy as np
 
+    cut_line(13, "ffn_strategies", rounds)
     out = {}
     for strategy in ("fl", "weighted", "random", "betweenness"):
         tr, HISTORIES[strategy], res = ffn_run(sc, strategy, "pallas",
-                                               batches, gm.gossip_plane)
+                                               batches, gm.gossip_plane,
+                                               rounds=rounds)
         log(f"ffn {strategy} " + json.dumps(res))
         out[strategy] = res
         if strategy == "random":
             c = tr.coeffs_stack()
             support = sc["topo"].adjacency + np.eye(N_NODES) > 0
-            assert c.shape == (ROUNDS, N_NODES, N_NODES)
+            assert c.shape == (rounds, N_NODES, N_NODES)
             assert np.allclose(c.sum(-1), 1.0, atol=1e-6)
             assert bool((c >= 0).all()) and not bool((c[:, ~support] > 0).any())
-            assert any(not np.array_equal(c[0], c[r]) for r in range(1, ROUNDS))
-            log(f"ffn random: {ROUNDS} row-stochastic matrices on adj + I, "
-                f"{len({c[r].tobytes() for r in range(ROUNDS)})} distinct")
-    # the paper's claim for its second topology-aware kind (phase 3 holds
-    # degree to the same gate)
-    assert out["betweenness"]["ood_auc"] > ffn_res["unweighted"]["ood_auc"], \
-        (out["betweenness"], ffn_res["unweighted"])
-    aucs = {k: round(v["ood_auc"], 4) for k, v in
-            list(ffn_res.items()) + list(out.items())}
+            assert any(not np.array_equal(c[0], c[r]) for r in range(1, rounds))
+            log(f"ffn random: {rounds} row-stochastic matrices on adj + I, "
+                f"{len({c[r].tobytes() for r in range(rounds)})} distinct")
+    aucs = {k: round(v["ood_auc"], 4) for k, v in ffn_res.items()}
+    aucs.update({k: round(v["ood_auc"], 4) for k, v in out.items()})
     log(f"fig4 OOD AUC, six strategies (BA(33, 2), OOD on the hub, R = "
-        f"{ROUNDS}): {json.dumps(aucs)}")
+        f"{ROUNDS} for unweighted and degree, {rounds} for the others): "
+        f"{json.dumps(aucs)}")
     return out
 
 
@@ -1310,6 +1348,10 @@ def run_sb(gm, sc, host, rounds=PHASE13_CUT_ROUNDS):
 # and Byzantine grids, held by drift on phase 13's and phase 6's first 20
 # rounds
 SWEEP_CUT_ROUNDS = 20
+# (b) and (c): 4 chunks of 6 rounds, so that (c)'s middle checkpoint,
+# round 12, is an evaluation round (FULL evaluates every 4), as the
+# unrolled run cut there evaluates its last round
+FIG4_GRID_ROUNDS = 24
 # per-node drift of an engine experiment from its single-trainer run, in
 # eval samples of 512 (max over nodes and eval rounds).  Measured on the
 # H100: 0 for all six Fig. 4 strategies, nominal and reactive link
@@ -1491,13 +1533,17 @@ class EngineClock:
 def drift_line(label, pairs):
     """Each engine experiment's per-node drift from its single-trainer
     history, in eval samples of 512, held to ``SWEEP_DRIFT_SAMPLES`` on
-    the rounds the engine evaluated (a grid cut to fewer rounds is held
-    on the first rounds of the full-length single run)."""
+    the rounds both evaluated (a grid or a single run cut to fewer rounds
+    is held on the other's first rounds)."""
     assert pairs, f"{label}: no single-trainer history to hold it to"
     drift = {}
     for k, (a, b) in pairs.items():
         by_round = {m.round: m for m in b}
-        drift[k] = max_drift_samples(a, [by_round[m.round] for m in a], 512)
+        common = [m for m in a if m.round in by_round]
+        assert common, (label, k)
+        drift[k] = max_drift_samples(common,
+                                     [by_round[m.round] for m in common],
+                                     512)
     log(f"{label} drift from the single-trainer runs (eval samples of 512, "
         f"limit {SWEEP_DRIFT_SAMPLES}): {json.dumps(drift)}")
     assert max(drift.values()) <= SWEEP_DRIFT_SAMPLES + 1e-3, drift
@@ -1582,11 +1628,13 @@ def run_sweep_fig4(sc, gm, dev="cuda", scale=None):
 
 
 def run_sweep_modes(sc, gm, fig4_run, dev="cuda", scale=None):
-    """Phase 14 (c): the same grid chunked (10 rounds a chunk, a
-    checkpoint at each boundary), then resumed from the round-20
-    checkpoint, each bit for bit the scanned run of (b); and unrolled, cut
-    to R = 20, bit for bit the scanned run's first 20 rounds and the
-    round-20 checkpoint's params."""
+    """Phase 14 (c): the same grid chunked (a quarter of its rounds a
+    chunk, a checkpoint at each boundary), then resumed from the middle
+    checkpoint, each bit for bit the scanned run of (b); and unrolled,
+    cut to the middle checkpoint's round, bit for bit the scanned run's
+    first rounds and that checkpoint's params.  The middle round must be
+    an evaluation round of the scanned run (the unrolled run evaluates
+    its last round)."""
     import dataclasses as dc
     import shutil
 
@@ -1617,8 +1665,8 @@ def run_sweep_modes(sc, gm, fig4_run, dev="cuda", scale=None):
                             checkpoint_dir=str(ck), resume=True,
                             results=out, **kw)
             same_results(scanned, out[0][1])
-            cut = SWEEP_CUT_ROUNDS if scale.rounds > SWEEP_CUT_ROUNDS \
-                else scale.rounds // 2
+            cut = 2 * chunk
+            assert cut % scale.eval_every == 0, (cut, scale.eval_every)
             out = []
             run_sweep_cells(cells, unroll_eval=True, results=out,
                             **dict(kw, scale=dc.replace(scale, rounds=cut)))
@@ -1644,9 +1692,15 @@ def run_sweep_modes(sc, gm, fig4_run, dev="cuda", scale=None):
 
 
 def run_ffn_sweep(sc, gm):
-    """Phase 14 (b) then (c), one main path (``ffn_sweep``)."""
-    fig4_run = run_sweep_fig4(sc, gm)
-    run_sweep_modes(sc, gm, fig4_run)
+    """Phase 14 (b) then (c), one main path (``ffn_sweep``), at
+    ``FIG4_GRID_ROUNDS`` rounds: phase 18 (a) runs Fig. 4's grid at the
+    paper's R = 40."""
+    from repro_torch.benchmarks.common import FULL
+
+    reduced_line(14, "ffn_sweep", "rounds", FULL.rounds, FIG4_GRID_ROUNDS)
+    scale = dataclasses.replace(FULL, rounds=FIG4_GRID_ROUNDS)
+    fig4_run = run_sweep_fig4(sc, gm, scale=scale)
+    run_sweep_modes(sc, gm, fig4_run, scale=scale)
 
 
 def sweep_cut(path):
@@ -2188,6 +2242,11 @@ FLASH_CASES = (
     # 14 query heads over 2 (a group of 7), musicgen-medium's 24 over 24
     ("internvl2_prefill", (2, 4096, 14, 2, 64), "bfloat16", 0, 0.0, False),
     ("musicgen_prefill", (2, 4096, 24, 24, 64), "bfloat16", 0, 0.0, False),
+    # phi3-mini-3.8b's prefill in phase 18 (c): hd 3072 / 32 = 96, the
+    # fleet's n·B = 4 sequences of 4096; and a ragged hd-96 case
+    ("phi3_prefill", (4, 4096, 32, 32, 96), "bfloat16", 0, 0.0, False),
+    ("ragged_hd96", (3, 1000, 8, 2, 96), "float32", 0, 0.0, False),
+    ("ragged_hd96", (3, 1000, 8, 2, 96), "bfloat16", 0, 0.0, False),
 )
 FLASH_F32_TOL = 2e-5    # times max|ref|
 
@@ -4810,6 +4869,328 @@ def run_zoo_phase(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 18: the entry points — the sweep CLI, the serving benchmark, the
+# serve CLI on phi3-mini-3.8b and starcoder2-7b, the train driver
+# ----------------------------------------------------------------------
+ENTRY_BUDGET_S = 120
+ENTRY_OUT = Path(__file__).resolve().parent / "chiprun_out" / "entry_points"
+ENTRY_REQUESTS = 2          # the serving benchmark's requests a node
+ENTRY_EDGES_NODES = 64      # the edges preset's graph ("pair with 64+")
+# the fig4 preset mixes by einsum, a batched product whose card kernel
+# depends on E: each cell alone (E = 1) parts from the E = 6 grid on the
+# last bit and, over 6 smoke rounds, by 0.6875 of 128 eval samples in an
+# AUC (measured on an H100; 0 on the CPU).  Phase 14's bit-for-bit bound
+# holds for the fused-plane kernel, whose batched launch equals E single
+# ones.  Pinned at 2 samples.
+ENTRY_LEGACY_DRIFT_SAMPLES = 2.0
+# phase 18 (c) and (d): full size, n nodes in one bf16 plane; the flash
+# prefill of ``batch`` sequences of LONG_PREFILL on one node
+ENTRY_MODELS = {
+    "phi3-mini-3.8b": {"nodes": 4, "batch": 4, "params": 3_821_079_552,
+                       "leaves": 12},
+    "starcoder2-7b": {"nodes": 2, "batch": 2, "params": 7_399_351_296,
+                      "leaves": 14},
+}
+ENTRY_TRAIN = {"arch": "internvl2-1b", "nodes": 2, "rounds": 2, "steps": 2,
+               "seq": 512, "batch": 2}
+
+
+def captured(fn, *args):
+    """(return value, standard output) of one call."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args)
+    return ret, buf.getvalue()
+
+
+def run_entry_sweep(dev, out, full=True, edges_nodes=ENTRY_EDGES_NODES):
+    """(a) ``python -m repro_torch.benchmarks.sweep``: ``--list``; fig4's
+    ``--full --dry-run`` plan; fig4 ``--full`` at one seed (six
+    strategies, n = 33, R = 40) with the paper's claim (aware over
+    unaware on average, degree and betweenness each over unweighted); ``edges`` at the
+    smoke scale on BA(64, 2) through ``edges_kernel`` (one batched launch
+    a round); fig4 ``--smoke`` with the legacy baseline, each cell alone
+    (E = 1, unrolled) held to the grid by ``ENTRY_LEGACY_DRIFT_SAMPLES``."""
+    import numpy as np
+
+    from repro_torch.benchmarks import sweep
+    from repro_torch.kernels import gossip_mix as gm
+
+    res = {}
+    _, listing = captured(sweep.main, ["--list"])
+    assert all(f"  {name:8s} " in listing for name in sweep.PRESETS), listing
+    assert len(sweep.PRESETS) == 9
+    _, plan = captured(sweep.main, ["--preset", "fig4", "--full",
+                                    "--dry-run"])
+    log(plan.rstrip())
+    assert "total cells: 12 (1 compiled programs)" in plan, plan
+    common = ["--datasets", "mnist", "--seeds", "0", "--device", str(dev),
+              "--out", str(out)]
+    reduced_line(18, "sweep_cli fig4 --full", "seeds", 2, 1)
+    t0 = time.perf_counter()
+    rows, text = captured(sweep.main, ["--preset", "fig4", "--no-legacy"]
+                          + (["--full"] if full else ["--smoke"]) + common)
+    res["fig4_full_s"] = time.perf_counter() - t0
+    log(text.rstrip())
+    auc = {r["strategy"]: r["ood_auc"] for r in rows}
+    res["fig4_full_ood_auc"] = auc
+    aware = np.mean([auc["degree"], auc["betweenness"]])
+    unaware = np.mean([v for k, v in auc.items()
+                       if k not in ("degree", "betweenness")])
+    if full:   # the paper's claim at its scale, both aware kinds
+        assert aware > unaware, auc
+        assert auc["degree"] > auc["unweighted"], auc
+        assert auc["betweenness"] > auc["unweighted"], auc
+    reduced_line(18, "sweep_cli edges", "rounds", 30, 6)
+    before = gm.gossip_edges.launches
+    t0 = time.perf_counter()
+    rows, text = captured(sweep.main, ["--preset", "edges", "--smoke",
+                                       "--n-nodes", str(edges_nodes),
+                                       "--no-legacy"] + common)
+    res["edges_s"] = time.perf_counter() - t0
+    res["edges_launches"] = gm.gossip_edges.launches - before
+    res["edges_ood_auc"] = {r["strategy"]: r["ood_auc"] for r in rows}
+    log(text.rstrip())
+    assert res["edges_launches"] == sweep.SMOKE.rounds, res
+    legacy = []
+    orig = sweep.run_legacy_baseline
+
+    def keep(*args, **kwargs):
+        legacy.extend(orig(*args, **kwargs))
+        return legacy
+
+    sweep.run_legacy_baseline = keep
+    try:
+        t0 = time.perf_counter()
+        rows, text = captured(sweep.main, ["--preset", "fig4", "--smoke"]
+                              + common)
+        res["fig4_smoke_with_legacy_s"] = time.perf_counter() - t0
+    finally:
+        sweep.run_legacy_baseline = orig
+    log(text.rstrip())
+    drift = {k: max(abs(a[k] - b[k]) * sweep.SMOKE.eval_n
+                    for a, b in zip(rows, legacy))
+             for k in ("iid_auc", "ood_auc", "final_ood_acc_mean")}
+    res["legacy_drift_eval_samples"] = drift
+    assert len(legacy) == len(rows) == 6
+    assert max(drift.values()) <= ENTRY_LEGACY_DRIFT_SAMPLES, drift
+    log("entry_sweep " + json.dumps(res))
+    return res
+
+
+def run_entry_serve(dev, out, arch="stablelm-1.6b", layers=None,
+                    requests=ENTRY_REQUESTS):
+    """(b) ``python -m repro_torch.benchmarks.serve_bench --arch
+    stablelm-1.6b --dtype float32 --fleets 2,4 --slots 2``: both modes'
+    tok/s, p50/p95/p99 and occupancy, outputs identical, the swap check.
+    In f32: in bf16 the fleet step's batched products and the loop's
+    single-node ones round differently, and a greedy output parts where
+    two logits nearly tie."""
+    import torch
+
+    from repro_torch.benchmarks import serve_bench
+
+    reduced_line(18, "serve_bench", "requests_per_node", 24, requests)
+    reduced_line(18, "serve_bench", "repeats", 3, 1)
+    reduced_line(18, "serve_bench", "dtype", "bfloat16", "float32")
+    argv = (["--fleets", "2,4", "--slots", str(SERVE_SLOTS), "--requests",
+             str(requests), "--repeats", "1", "--dtype", "float32",
+             "--device", str(dev),
+             "--out", str(out)] + (["--arch", arch] if arch else [])
+            + (["--layers", str(layers)] if layers else []))
+    torch.cuda.reset_peak_memory_stats()
+    code, text = captured(serve_bench.main, argv)
+    log(text.rstrip())
+    with open(out / "BENCH_serve.json") as f:
+        rec = json.load(f)
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("entry_serve_bench " + json.dumps(rec))
+    assert code == 0 and rec["all_checks_passed"], rec
+    return rec
+
+
+def run_entry_model(dev, arch, cfg=None, smoke=False, nodes=None, batch=None,
+                    seq=LONG_PREFILL, cut=None, new_tokens=NEW_TOKENS,
+                    prompt_len=PROMPT_LEN):
+    """(c), (d): ``python -m repro_torch.launch.serve --arch <arch>`` at
+    full size (n nodes in one bf16 plane, ``SERVE_SLOTS`` requests a
+    node), then one node's (batch, seq) prefill through the flash kernel
+    (one launch a layer), its first sequence's last-position logits held
+    to the chunked prefill's under ``FLASH_VS_CHUNKED_TOL``."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import (
+        ForwardOptions,
+        add_node_axis,
+        init_params,
+    )
+    from repro_torch.serving.serve_step import make_forward_prefill
+
+    spec = ENTRY_MODELS.get(arch, {})
+    nodes, batch = nodes or spec["nodes"], batch or spec["batch"]
+    cut = cut or spec
+    cfg = cfg or (get_smoke_config(arch) if smoke else get_config(arch))
+    res = {"arch": cfg.name, "nodes": nodes, "layers": cfg.n_layers,
+           "head_dim": cfg.head_dim_, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs = serve.main(["--arch", arch, "--nodes", str(nodes), "--batch",
+                       str(SERVE_SLOTS), "--prompt-len", str(prompt_len),
+                       "--new-tokens", str(new_tokens), "--device", str(dev)]
+                      + (["--smoke"] if smoke else []))
+    torch.cuda.synchronize()
+    res["cli_s"] = time.perf_counter() - t0
+    res["cli_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    assert len(reqs) == nodes * SERVE_SLOTS and all(
+        r.done and len(r.output) == new_tokens for r in reqs), reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    leaves = tree_util.leaves(one)
+    res["params"] = sum(x.numel() for x in leaves)
+    res["leaves"] = len(leaves)
+    res["plane_gb"] = nodes * sum(x.numel() * x.element_size()
+                                  for x in leaves) / 1e9
+    del leaves
+    assert (res["params"], res["leaves"]) == (cut["params"],
+                                              cut["leaves"]), res
+    params = add_node_axis(one)
+    del one
+    toks = torch.randint(0, cfg.vocab_size, (1, batch, seq),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    flash_prefill = make_forward_prefill(cfg, ForwardOptions(
+        attn_impl="pallas"))
+    flash_prefill(params, {"tokens": toks[:, :1, :256]})   # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = fa.flash_attention.launches
+    t0 = time.perf_counter()
+    flash = flash_prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    res["flash_prefill_s"] = time.perf_counter() - t0
+    res["flash_prefill_tokens_per_s"] = batch * seq / res["flash_prefill_s"]
+    res["flash_launches"] = fa.flash_attention.launches - before
+    res["prefill_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    assert res["flash_launches"] == cfg.n_layers, res
+    assert bool(torch.isfinite(flash).all()) and flash.shape == (
+        1, batch, cfg.vocab_size)
+    chunked = make_forward_prefill(cfg, ForwardOptions(
+        attn_impl="chunked"))(params, {"tokens": toks[:, :1]})
+    diff = float((flash[:, 0] - chunked[:, 0]).abs().max())
+    res.update({"flash_vs_chunked_max_abs": diff,
+                "max_abs_logit": float(flash.abs().max())})
+    log("entry_model " + json.dumps(res))
+    assert diff <= FLASH_VS_CHUNKED_TOL, (arch, diff)
+    del params, flash, chunked, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_entry_train(dev, out, arch=ENTRY_TRAIN["arch"], smoke=False,
+                    nodes=ENTRY_TRAIN["nodes"], rounds=ENTRY_TRAIN["rounds"],
+                    steps=ENTRY_TRAIN["steps"], seq=ENTRY_TRAIN["seq"],
+                    batch=ENTRY_TRAIN["batch"]):
+    """(e) ``python -m repro_torch.launch.train``: internvl2-1b at full
+    size through its text embedding, n nodes, AdamW, each round's last
+    step gossiping through the fused-plane kernel (one ``gossip_plane``
+    launch a round); every loss finite, peak memory.  Then the smoke
+    config's ``--ckpt-dir``/``--resume`` round trip on the card: 3 rounds
+    straight against 2 and a resume, the final params bit for bit (in
+    PyTorch's deterministic mode, so no atomic sum reorders)."""
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.launch import train
+
+    reduced_line(18, "train_driver", "nodes", 8, nodes)
+    reduced_line(18, "train_driver", "rounds", 10, rounds)
+    reduced_line(18, "train_driver", "steps", 10, steps)
+    reduced_line(18, "train_driver", "batch", 8, batch)
+    logf = out / "train.jsonl"
+    logf.unlink(missing_ok=True)
+    argv = ["--arch", arch, "--nodes", str(nodes), "--rounds", str(rounds),
+            "--steps", str(steps), "--seq", str(seq), "--batch", str(batch),
+            "--device", str(dev), "--log", str(logf)]
+    torch.cuda.reset_peak_memory_stats()
+    before = gm.gossip_plane.launches
+    t0 = time.perf_counter()
+    params, text = captured(train.main, argv + (["--smoke"] if smoke else []))
+    torch.cuda.synchronize()
+    res = {"arch": arch, "nodes": nodes, "rounds": rounds, "steps": steps,
+           "seq": seq, "batch": batch, "s": time.perf_counter() - t0,
+           "gossip_plane_launches": gm.gossip_plane.launches - before,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(text.rstrip())
+    recs = [json.loads(x) for x in logf.read_text().splitlines()]
+    res["round_losses"] = [r["loss"] for r in recs]
+    res["round_s"] = [r["secs"] for r in recs]
+    res["params"] = sum(x[0].numel() for x in tree_util.leaves(params))
+    del params
+    assert len(recs) == rounds and all(math.isfinite(x)
+                                       for x in res["round_losses"]), recs
+    assert res["gossip_plane_launches"] == rounds, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = out / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", arch, "--smoke", "--nodes", "4", "--steps", "2",
+            "--batch", "2", "--seq", "64", "--device", str(dev)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        whole, _ = captured(train.main, base + ["--rounds", "3"])
+        captured(train.main, base + ["--rounds", "2", "--ckpt-dir", str(ck)])
+        resumed, text = captured(train.main, base + [
+            "--rounds", "3", "--ckpt-dir", str(ck), "--resume"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ck, ignore_errors=True)
+    assert "resumed from" in text, text
+    res["resume_bit_identical"] = all(
+        torch.equal(a, b) for a, b in zip(tree_util.leaves(whole),
+                                          tree_util.leaves(resumed)))
+    log("entry_train " + json.dumps(res))
+    assert res["resume_bit_identical"], res
+    return res
+
+
+def run_entry_phase(dev):
+    """Phase 18: the entry points (a)–(e), its own ``ENTRY_BUDGET_S``."""
+    import torch
+
+    ENTRY_OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    seconds, res = {}, {}
+
+    def lap(name, fn, *args):
+        res[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    lap("sweep_cli", run_entry_sweep, dev, ENTRY_OUT)
+    lap("serve_bench", run_entry_serve, dev, ENTRY_OUT)
+    for arch in ENTRY_MODELS:
+        lap(arch, run_entry_model, dev, arch)
+    lap("train_driver", run_entry_train, dev, ENTRY_OUT)
+    log("phase 18 seconds " + json.dumps(seconds))
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 12: the mix-cost study
 # ----------------------------------------------------------------------
 STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
@@ -5145,6 +5526,17 @@ def main() -> int:
     for key in ("4 4096 25 5 64 bfloat16", "2 4096 14 2 64 bfloat16",
                 "2 4096 24 24 64 bfloat16"):
         assert zoo_shapes.get(key, 0) > 0, (key, zoo_shapes)
+    t18 = time.perf_counter()
+    main_path("entry_points", run_entry_phase, dev)
+    t18 = time.perf_counter() - t18
+    log(f"phase 18 (the entry points): {t18:.1f} s (budget "
+        f"{ENTRY_BUDGET_S} s)")
+    assert t18 <= ENTRY_BUDGET_S, f"phase 18 took {t18:.1f} s"
+    entry_shapes = path_shapes["entry_points"].get("flash_attention", {})
+    for key in ("4 4096 32 32 96 bfloat16", "2 4096 36 4 128 bfloat16"):
+        assert entry_shapes.get(key, 0) > 0, (key, entry_shapes)
+    for name in ("gossip_plane", "gossip_edges", "flash_attention"):
+        assert paths["entry_points"][name] > 0, (name, paths["entry_points"])
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches

@@ -16,8 +16,9 @@ Two paths, as in the reference:
 or numpy arrays and compute in their dtype.  The centrality scores come
 from the networkx-free :class:`~repro_torch.core.topology.Topology`
 methods; the ``random`` scores from numpy's ``default_rng(seed)``, as the
-reference's host path draws them.  ``register_strategy`` (plug-in kinds)
-is not ported (ROADMAP Queue 1 [tooling]).
+reference's host path draws them.  :func:`register_strategy` adds a
+plug-in kind to :data:`STRATEGIES` (the host path only: the coefficient
+program knows its fixed kinds).
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ __all__ = [
     "STRATEGIES",
     "TOPOLOGY_AWARE",
     "TOPOLOGY_UNAWARE",
+    "register_strategy",
     "mixing_matrix",
     "validate_mixing_matrix",
 ]
@@ -267,6 +269,16 @@ STRATEGIES: Dict[str, Callable[..., np.ndarray]] = {
 TOPOLOGY_AWARE = frozenset({"degree", "betweenness", "eigenvector",
                             "pagerank", "closeness"})
 TOPOLOGY_UNAWARE = frozenset({"unweighted", "weighted", "random", "fl"})
+
+
+def register_strategy(name: str, fn: Callable[..., np.ndarray]) -> None:
+    """Plug-in point for further centrality metrics (paper §7's future
+    work): ``fn(topo, strategy, data_counts=None)`` returns the float64
+    ``(n, n)`` matrix, which :func:`mixing_matrix` validates.  A name
+    already taken raises ``KeyError``."""
+    if name in STRATEGIES:
+        raise KeyError(f"strategy {name!r} already registered")
+    STRATEGIES[name] = fn
 
 
 def mixing_matrix(topo: Topology, strategy: AggregationStrategy,

@@ -52,12 +52,17 @@
 //     mid = bf16(p - hi): kPieces products, p kept to about 2^-18, and l
 //     is summed from the f32 p;
 //   * out = acc / max(l, 1e-30), rounded once to bf16.
-// ptxas (-Xptxas -v, sm_90a, this source): 96 / 126 / 164 registers at
-// hd 32 / 64 / 128, no stack and no spills; dynamic shared memory 21 /
-// 41 / 81 KB (5 tiles and 1 KB of alignment slack), so 5 / 4 / 3 blocks
-// fit on an SM by registers.  On the H100 at 700 W the stablelm shape
-// takes 1.76 ms (156 TFLOP/s of the function's flops, 6.3x the bound),
-// PERF.md section 6.
+// hd 96 (phi3-mini-3.8b) is native: q, k and v tiles take two 128-byte
+// swizzled column blocks, the second half used (sm90_bf16.cuh), so the
+// tiles take hd 128's shared memory; Q.K^T runs 6 k-steps and P.V is
+// m64n96k16, so the tensor cores do hd 96's work and no more.
+// ptxas (-Xptxas -v, sm_90a, this source): 96 / 126 / 128 / 164
+// registers at hd 32 / 64 / 96 / 128, no stack and no spills; dynamic
+// shared memory 21 / 41 / 81 / 81 KB (5 tiles and 1 KB of alignment
+// slack), so 5 / 4 / 4 / 3 blocks fit on an SM by registers.  On the
+// H100 at 700 W the stablelm shape takes 1.76 ms (156 TFLOP/s of the
+// function's flops, 6.3x the bound) and phi3-mini's (4, 4096, 32, hd
+// 96) 3.50 ms (118 TFLOP/s, 8.4x), PERF.md section 6.
 //
 // flash_kernel, f32 in and out: the CUDA cores, no TF32.  What bounds it:
 // f32 operations, 275 GFLOP at the stablelm shape over the 67 TFLOP/s
@@ -68,13 +73,15 @@
 // reads are consecutive), and all four keep the row's m and l.  A loop
 // inside the block walks the key tiles (the TPU's sequential "arbitrary"
 // kv grid axis): the block stages a tile of K and V in shared memory (64
-// keys, 32 at hd = 128: 16 or 32 KB, static), each thread computes its
-// partial dot products for the tile's keys, two xor shuffles sum them
+// keys, 32 at hd 96 and 128: 16, 32, 24 or 32 KB at hd 32, 64, 96, 128,
+// static), each thread computes its partial dot products for the tile's
+// keys, two xor shuffles sum them
 // over the row's four threads, and every thread applies the cap, the mask
 // and the online-softmax update to its quarter of acc.
 //
 // The entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError(); it refuses an hd other than 32, 64 or 128.
+// returns cudaGetLastError(); it refuses an hd other than 32, 64, 96 or
+// 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,7 +115,7 @@ constexpr int kThreads = kRows * kParts;  // 256
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const Args a) {
-  constexpr int KEYS = HD == 128 ? 32 : 64;  // keys per staged tile
+  constexpr int KEYS = HD >= 96 ? 32 : 64;  // keys per staged tile
   constexpr int D = HD / kParts;             // values per thread
   constexpr int C = D / 4;                   // float4 chunks per thread
   __shared__ __align__(16) float ks[KEYS * HD];
@@ -244,7 +251,7 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
 
 template <int HD>
 __host__ __device__ constexpr int tc_tile_bytes() {
-  return kTcKeys * HD * 2;
+  return sm90::tile_bytes<HD, kTcKeys>();
 }
 // q, the ring of k and v tiles, and the slack to align them to 1024 bytes
 template <int HD>
@@ -432,6 +439,9 @@ cudaError_t launch_f32(const Args& a, int hd, int B, cudaStream_t stream) {
     case 64:
       flash_kernel<64><<<grid, kThreads, 0, stream>>>(a);
       break;
+    case 96:
+      flash_kernel<96><<<grid, kThreads, 0, stream>>>(a);
+      break;
     case 128:
       flash_kernel<128><<<grid, kThreads, 0, stream>>>(a);
       break;
@@ -458,6 +468,8 @@ cudaError_t launch_tc(const Args& a, int hd, int B, cudaStream_t stream) {
       return launch_tc_hd<32>(a, B, stream);
     case 64:
       return launch_tc_hd<64>(a, B, stream);
+    case 96:
+      return launch_tc_hd<96>(a, B, stream);
     case 128:
       return launch_tc_hd<128>(a, B, stream);
     default:

@@ -6,11 +6,15 @@
 // (kernels/build.py hashes every header a source includes).
 //
 // Tiles.  A tile is R rows of W bf16 values (a key, query or value row of
-// head dim W), stored as W / (SW / 2) column blocks of R rows x SW bytes,
-// SW = min(128, 2 W), each swizzled as wgmma reads it: 16-byte chunk c of
-// the row at byte offset o moves to chunk c ^ ((o >> 7) & (SW / 16 - 1)).
-// Tiles start on 1024-byte boundaries (the swizzle is a function of the
-// shared address).
+// head dim W), stored as ceil(W / (SW / 2)) column blocks of R rows x SW
+// bytes, SW = min(128, 2 W), each swizzled as wgmma reads it: 16-byte
+// chunk c of the row at byte offset o moves to chunk c ^ ((o >> 7) &
+// (SW / 16 - 1)).  At W = 96 the second block holds columns 64 .. 95 in
+// the first half of each row before the swizzle; k-steps 4 and 5 of a
+// K-major read and columns 64 .. 95 of an N-major one address it exactly
+// as they would a W = 128 tile, and nothing reads the rest.  Tiles start
+// on 1024-byte boundaries (the swizzle is a function of the shared
+// address).
 //
 // Fragments.  A warpgroup (four warps) owns a 64-row accumulator: thread
 // (warp w, lane l) holds rows 16 w + l / 4 and that + 8, columns
@@ -60,7 +64,16 @@ struct TileShape {
   static constexpr int SW = W >= 64 ? 128 : 2 * W;  // bytes a swizzled row
   static constexpr int COLS = SW / 2;               // values a block row
   static constexpr int CHUNKS = W / 8;              // 16-byte chunks a row
+  // column blocks a tile holds: W = 96 takes two, the second half used
+  // (its rows still span SW bytes once swizzled)
+  static constexpr int BLOCKS = (2 * W + SW - 1) / SW;
 };
+
+// bytes an R-row tile of width W takes in shared memory
+template <int W, int R>
+__host__ __device__ constexpr int tile_bytes() {
+  return TileShape<W>::BLOCKS * R * TileShape<W>::SW;
+}
 
 // byte offset of 16-byte chunk c (of W / 8) of row r in an R-row tile
 template <int W, int R>
@@ -232,6 +245,38 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32],
         "r"(scale_d));
 }
 
+// d (64 x 96) += A (64 x 16, registers) . B (16 x 96, shared, N-major:
+// the transposed-B form).
+__device__ __forceinline__ void wgmma_rs_m64n96_tb(float (&d)[48],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 // d (64 x 128) += A (64 x 16, registers) . B (16 x 128, shared, N-major:
 // the transposed-B form).
 __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
@@ -340,10 +385,12 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
     wgmma_rs_m64n32_tb(d, a, desc_b, scale_d);
   } else if constexpr (N == 64) {
     wgmma_rs_m64n64_tb(d, a, desc_b, scale_d);
+  } else if constexpr (N == 96) {
+    wgmma_rs_m64n96_tb(d, a, desc_b, scale_d);
   } else if constexpr (N == 128) {
     wgmma_rs_m64n128_tb(d, a, desc_b, scale_d);
   } else {
-    static_assert(N == 256, "wgmma_rs_tb: N is 32, 64, 128 or 256");
+    static_assert(N == 256, "wgmma_rs_tb: N is 32, 64, 96, 128 or 256");
     wgmma_rs_m64n256_tb(d, a, desc_b, scale_d);
   }
 }

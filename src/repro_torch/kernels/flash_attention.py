@@ -28,7 +28,7 @@ from repro_torch.models.layers import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
 
-HEAD_DIMS = (32, 64, 128)   # the kernel's instantiations
+HEAD_DIMS = (32, 64, 96, 128)   # the kernel's instantiations
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib_cache = []
 
@@ -118,7 +118,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal (or not), keys within ``window`` of the query when
     ``window > 0``, logits capped at ``logit_softcap`` when it is > 0.
     f32 or bf16 in, the same type out, f32 logits, softmax and sums.  On
-    the card, hd must be 32, 64 or 128 and each tensor's last dimension
+    the card, hd must be 32, 64, 96 or 128 and each tensor's last dimension
     contiguous; bf16 inputs also need 16-byte-aligned rows
     (:func:`_check_rows_aligned`)."""
     _check(q, k, v)

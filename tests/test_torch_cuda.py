@@ -367,6 +367,9 @@ def _qkv_case(b, s, h, kv, hd, seed, dtype):
     (2, 129, 4, 2, 128, 200, 50.0),  # two tiles and one row, window > S
     (1, 129, 2, 2, 32, 64, 20.0),    # hd 32, window = tile, g = 1
     (1, 65, 4, 4, 128, 1, 0.0),      # window 1 across a tile edge
+    # hd 96 (phi3-mini-3.8b): two swizzled column blocks, m64n96 for P.V
+    (1, 64, 4, 2, 96, 0, 0.0),       # the CPU parity test's shape
+    (2, 129, 4, 2, 96, 200, 50.0),   # ragged, window > S, cap
 ])
 def test_flash_kernel_matches_plain_version_on_the_card(dtype, b, s, h, kv,
                                                         hd, window, cap):

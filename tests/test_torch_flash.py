@@ -96,6 +96,18 @@ def test_bf16_matches_reference():
     _assert_close(port, oracle, bf16=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_96_matches_reference(dtype):
+    """hd 96 (phi3-mini-3.8b's 3072 / 32), scale 1/√96, at (1, 64, 4 over
+    2).  Measured: f32 at most 2.5e-7·max|out| from the Pallas kernel and
+    1.2e-7·max|out| from the oracle; bf16 10 and 3 of 24,576 values one
+    bf16 ulp apart (0.971 and 0.805 of the card's bf16 gate)."""
+    port, pallas, oracle = _run(*_inputs(1, 64, 4, 2, 96, 96), dtype)
+    bf16 = dtype == torch.bfloat16
+    _assert_close(port, pallas, bf16=bf16)
+    _assert_close(port, oracle, bf16=bf16)
+
+
 def _emulate_tensor_cores(q, k, v, window, logit_softcap, pieces=2,
                           keys=64):
     """The bf16 card kernel's arithmetic (``flash_tc_kernel``) in plain
@@ -146,7 +158,7 @@ def _bf16_gate_use(port, other):
     return float((np.abs(port - other) / gate).max())
 
 
-_TC_CASES = [(1, 512, 4, 2, 64), (1, 300, 4, 4, 128)]
+_TC_CASES = [(1, 512, 4, 2, 64), (1, 300, 4, 4, 128), (1, 300, 4, 2, 96)]
 
 
 def _tc_inputs(b, s, h, kv, hd):
@@ -168,9 +180,10 @@ def test_tensor_core_arithmetic_matches_reference(b, s, h, kv, hd):
     sees it: bf16 tensor-core logits and p split into two bf16 pieces
     stay within the card's bf16 gate of the JAX Pallas kernel (interpret
     mode) and of its oracle.  Measured: at most 0.987 of the gate at
-    (1, 512, 4, 2, 64) and 0.966 at (1, 300, 4, 4, 128), against either
-    (the Pallas kernel and the oracle are 0.948 and 0.966 of it apart):
-    two f32 computations rounded to bf16 each."""
+    (1, 512, 4, 2, 64), 0.966 at (1, 300, 4, 4, 128) and 0.968 at (1,
+    300, 4, 2, 96), against either (the Pallas kernel and the oracle are
+    0.948, 0.966 and 0.968 of it apart): two f32 computations rounded to
+    bf16 each."""
     (tq, tk, tv), pallas, oracle = _tc_inputs(b, s, h, kv, hd)
     port = _emulate_tensor_cores(tq, tk, tv, 100, 50.0).float().numpy()
     assert _bf16_gate_use(port, pallas) <= 1.0
@@ -180,8 +193,8 @@ def test_tensor_core_arithmetic_matches_reference(b, s, h, kv, hd):
 @pytest.mark.parametrize("b,s,h,kv,hd", _TC_CASES)
 def test_one_bf16_p_exceeds_the_gate(b, s, h, kv, hd):
     """Why p is split: with one bf16 p (an error of up to 2^-9 of each
-    weight) the same inputs leave the bf16 gate by far (measured: 17.1×
-    and 14.7× the gate, against either)."""
+    weight) the same inputs leave the bf16 gate by far (measured: 17.1×,
+    14.7× and 29.5× the gate, against either)."""
     (tq, tk, tv), pallas, oracle = _tc_inputs(b, s, h, kv, hd)
     port = _emulate_tensor_cores(tq, tk, tv, 100, 50.0,
                                  pieces=1).float().numpy()

@@ -27,13 +27,14 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_imports_with_jax_and_repro_blocked():
-    """Every module of the port imports with ``jax``, ``repro`` and
-    ``networkx`` made unimportable (``sys.modules[name] = None``; the GPU
-    machine has no networkx), the kernel wrappers, the model layers, the
-    graph layer and the coefficient programs among them."""
+    """Every module of the port imports with ``jax``, ``repro``, the
+    reference's top-level ``benchmarks`` and ``networkx`` made
+    unimportable (``sys.modules[name] = None``; the GPU machine has no
+    networkx), the kernel wrappers, the model layers, the graph layer, the
+    coefficient programs and the entry points among them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "repro", "networkx"):
+        for name in ("jax", "jaxlib", "repro", "benchmarks", "networkx"):
             sys.modules[name] = None
         import repro_torch
         mods = [m.name for m in pkgutil.walk_packages(
@@ -47,11 +48,13 @@ def test_imports_with_jax_and_repro_blocked():
                   "core.analytics", "benchmarks.common",
                   "benchmarks.fig2_iid_vs_ood", "benchmarks.fig4_strategies",
                   "benchmarks.fig5_location", "benchmarks.fig6_topology",
-                  "benchmarks.ablations"):
+                  "benchmarks.ablations", "benchmarks.sweep",
+                  "benchmarks.serve_bench", "benchmarks.run",
+                  "launch.serve", "launch.train"):
             assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "repro",
-                                               "networkx")
+                                               "benchmarks", "networkx")
                         and sys.modules[k] is not None)
         assert not leaked, leaked
         print(len(mods))
