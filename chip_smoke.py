@@ -110,7 +110,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    graphs for p_out 0.009, 0.05, 0.9 (modularity, connected) and, on the
    most modular, ``unweighted`` and ``degree`` with the OOD data on its
    highest-degree node (its own batches on the card); every run takes
-   ``PHASE13_CUT_ROUNDS`` = 20 of the 40 rounds (``reduced`` lines):
+   ``PHASE13_CUT_ROUNDS`` = 10 of the 40 rounds (``reduced`` lines):
    the paper's claim at R = 40 is phase 3's (degree) and phase 18 (a)'s
    (all six Fig. 4 strategies);
 14. (after 13, its card batches freed) the paper's grids through the
@@ -135,7 +135,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    trimmed mean, ``"noise"`` faults with the quarantine screen and a
    ``"nan"`` group with ``skip_nonfinite_updates(sgd)``, the rate-0
    experiment held by drift to phase 6's trimmed run; (b) and (c) run
-   ``FIG4_GRID_ROUNDS`` = 24 and (d), (e) ``SWEEP_CUT_ROUNDS`` = 20 of
+   ``FIG4_GRID_ROUNDS`` = 24 and (d), (e) ``SWEEP_CUT_ROUNDS`` = 10 of
    FULL's 40 rounds, held by drift on the single runs' first rounds
    (printed on ``reduced`` lines; Fig. 4's grid at R = 40 is phase 18
    (a)'s);
@@ -227,6 +227,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    gossip one ``gossip_plane`` launch, and the smoke config's
    ``--ckpt-dir``/``--resume`` round trip equal bit for bit to the
    uninterrupted run.  Every cut is printed on a ``reduced`` line;
+19. (after 18) the multi-device paths, its own 60 s budget
+   (``MULTI_BUDGET_S``): (a) ``core.gossip`` on an NCCL group of this
+   process (a world of 1, on a ``reduced`` line: NCCL refuses two ranks
+   on one card):
+   ``make_gossip_fn``'s dense mix at the FFN and VGG-16 planes (BA(33, 2)
+   ``degree``), exactly one all-gather and one ``gossip_mix`` launch a
+   mix, held to ``gossip_plane`` on the same plane and timed beside it
+   and the byte bound, the launch alone against its plain version; the
+   circulant ``gossip_sparse`` on ring(33) against ``mix_sparse_host``;
+   (b) the sweep CLI under ``python -m torch.distributed.run
+   --nproc-per-node 2`` (``chip_smoke.py --sweep-rank``, which runs the
+   CLI's ``main`` and prints the rank's ``gossip_edges`` launches) with
+   phase 18 (a)'s ``edges`` arguments and ``--shard 2``: both ranks on
+   the card, one experiment and one ``edges_kernel`` launch a round
+   each, the kernels phase 1 built; its rows against phase 18 (a)'s,
+   its ``sharded/edges`` record, and the same with ``--chunk-rounds 2``
+   bit for bit;
 5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
    JSON line, the card line and the device line (last).
 
@@ -260,8 +277,9 @@ check before phase 3 (n = 8, R = 2) runs ``degree`` through every backend
 and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
-Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16, 17 and
-18 are the main path:
+Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16, 17,
+18 and 19 are the main path (phase 19 (b)'s ranks count in their own
+processes and print their counts):
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
 batched launch's shape starts ``E=<E>``; the kernel line sums them over
@@ -1082,7 +1100,7 @@ def within_breakdown(sc, spec, rate, fseed, rule, rounds=ROUNDS):
 # rules) hold round by round, so they run 10 of phase 3's 40
 FAULT_CUT_ROUNDS = 10
 # phase 6's rounds: its trimmed run's IID AUC is 0.998 at 40 rounds,
-# far above its 0.9 gate, and phase 14 (e) holds its first 20 rounds
+# far above its 0.9 gate, and phase 14 (e) holds its first 10 rounds
 ROBUST_CUT_ROUNDS = 20
 
 
@@ -1182,10 +1200,10 @@ def run_faults(sc, gm, batches, rounds=FAULT_CUT_ROUNDS):
 # phase 13: every strategy, link failure, the modular graphs (FFN)
 # ----------------------------------------------------------------------
 SB_P_OUTS = (0.009, 0.05, 0.9)
-# every run of phase 13 takes 20 of FULL's 40 rounds; the paper's claim
-# at 40 is phase 3's (degree) and phase 18 (a)'s (all six Fig. 4
-# strategies)
-PHASE13_CUT_ROUNDS = 20
+# every run of phase 13 takes 10 of FULL's 40 rounds (20 until phase 19
+# needed the room); the paper's claim at 40 is phase 3's (degree) and
+# phase 18 (a)'s (all six Fig. 4 strategies)
+PHASE13_CUT_ROUNDS = 10
 
 
 def reduced_line(phase, path, what, frm, to):
@@ -1345,9 +1363,9 @@ def run_sb(gm, sc, host, rounds=PHASE13_CUT_ROUNDS):
 # phase 14: the paper's grids through the sweep engine (FFN)
 # ----------------------------------------------------------------------
 # (c): the unrolled run and the resumed tail; (d), (e): the link-failure
-# and Byzantine grids, held by drift on phase 13's and phase 6's first 20
-# rounds
-SWEEP_CUT_ROUNDS = 20
+# and Byzantine grids, held by drift on phase 13's and phase 6's first 10
+# rounds (20 until phase 19 needed the room)
+SWEEP_CUT_ROUNDS = 10
 # (b) and (c): 4 chunks of 6 rounds, so that (c)'s middle checkpoint,
 # round 12, is an evaluation round (FULL evaluates every 4), as the
 # unrolled run cut there evaluates its last round
@@ -5191,6 +5209,291 @@ def run_entry_phase(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 19: the multi-device paths
+# ----------------------------------------------------------------------
+MULTI_BUDGET_S = 60
+MULTI_OUT = Path(__file__).resolve().parent / "chiprun_out" / "multi_device"
+# a dense gossip against gossip_plane on the same plane: the same f32
+# products, summed in another order (gossip_mix ascending in k, the
+# stream kernel in its own order).  Measured on an H100: 1.19e-7 (FFN)
+# and 1.79e-7 (VGG-16) max abs, 0.045 and 0.016 of this gate, the
+# repo's f32 gate
+DENSE_VS_PLANE_REL_TOL = 1e-5
+
+
+def _saved(counters):
+    return [(c.launches, dict(c.shapes)) for c in counters]
+
+
+def _restore(counters, saved):
+    """Yardstick launches (another kernel on the same plane, the kernel
+    alone against its plain version) do not count on the main path."""
+    for c, (n, shapes) in zip(counters, saved):
+        c.launches = n
+        c.shapes.clear()
+        c.shapes.update(shapes)
+
+
+def run_gossip_nccl(dev, sizes=(("ffn", FFN_P), ("vgg16", VGG_P))):
+    """(a) ``core.gossip`` on a process group of this one process (NCCL on
+    the card): ``make_gossip_fn`` at the FFN and VGG-16 planes with BA(33,
+    2)'s ``degree`` matrix, each mix exactly one all-gather and one
+    ``gossip_mix`` launch, held to ``gossip_plane`` on the same plane by
+    ``DENSE_VS_PLANE_REL_TOL``·max|ref|, timed beside it and the byte
+    bound; the ``gossip_mix`` launch against its plain version (max abs
+    err 0); then ``gossip_sparse`` on ring(33) with ``degree`` weights
+    held to ``mix_sparse_host`` (max abs err 0: the same f32 sums)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree as tree_util
+    from repro_torch.core import gossip
+    from repro_torch.core.decentralized import round_coeffs
+    from repro_torch.core.mixing import circulant_decomposition, mix_sparse_host
+    from repro_torch.core.strategies import AggregationStrategy, mixing_matrix
+    from repro_torch.core.topology import barabasi_albert, ring
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.launch.mesh import init_distributed
+
+    dev = init_distributed(dev)
+    res, cases = {"world": dist.get_world_size(),
+                  "backend": dist.get_backend()}, []
+    gathers = [0]
+    orig_gather = gossip._all_gather
+
+    def counted(*args, **kwargs):
+        gathers[0] += 1
+        return orig_gather(*args, **kwargs)
+
+    gossip._all_gather = counted
+    try:
+        mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+        c = torch.as_tensor(round_coeffs(barabasi_albert(N_NODES, 2, 0),
+                                         AggregationStrategy("degree"), 0),
+                            device=dev)   # phase 3's matrix
+        fn = gossip.make_gossip_fn(mesh, N_NODES)
+        for name, p in sizes:
+            params = (ffn_params(dev) if name == "ffn" else vgg_params())
+            assert sum(x[0].numel() for x in tree_util.leaves(params)) == p
+            before = (gm.gossip_mix.launches, gathers[0])
+            out = fn(params, c)
+            assert (gm.gossip_mix.launches - before[0],
+                    gathers[0] - before[1]) == (1, 1), (name, before)
+            yard = _saved((gm.gossip_plane, gm.gossip_mix))
+            want = gm.mix_plane(params, c)
+            err = max(float((a - b).abs().max()) for a, b in zip(
+                tree_util.leaves(out), tree_util.leaves(want)))
+            scale = max(float(b.abs().max()) for b in tree_util.leaves(want))
+            dense_ms = cuda_ms(lambda: fn(params, c), reps=5)
+            plane_ms = cuda_ms(lambda: gm.mix_plane(params, c), reps=5)
+            # the launch alone, on the gathered plane, against its plain
+            # version and one torch.matmul
+            layout, rows = gossip._packed(params)
+            blocks = rows.unsqueeze(1)   # as gossip_dense gathers it
+            run = lambda: gm.gossip_mix(blocks, c)
+            plain = lambda: gm.gossip_mix_ref(blocks, c)
+            # the padding columns hold whatever the buffer held
+            k_err = float((run() - plain())[..., :p].abs().max())
+            ld = rows.shape[1]
+            nbytes = 2 * N_NODES * ld * 4 + N_NODES * N_NODES * 4
+            flops = 2 * N_NODES * N_NODES * ld
+            bnd, by = bound_ms(nbytes, flops)
+            case = {
+                "name": "gossip_mix", "case": f"gossip_dense_{name}",
+                "shape": [N_NODES, 1, ld], "rows": N_NODES,
+                "dtype": "float32", "main": False, "max_abs_err": k_err,
+                "tolerance": "== 0", "ms": cuda_ms(run),
+                "plain_ms": cuda_ms(plain, reps=3),
+                "library_ms": cuda_ms(lambda: torch.matmul(c, rows)),
+                "library": "torch.matmul", "bound_ms": bnd, "bound_by": by,
+                "bytes": nbytes, "flops": flops}
+            _restore((gm.gossip_plane, gm.gossip_mix), yard)
+            log("kernel_case " + json.dumps(case))
+            cases.append(case)
+            res[name] = {"dense_vs_plane_max_abs_err": err,
+                         "gate": DENSE_VS_PLANE_REL_TOL * scale,
+                         "dense_gossip_ms": dense_ms,
+                         "mix_plane_ms": plane_ms,
+                         "gossip_mix_ms": case["ms"], "bound_ms": bnd}
+            log("gossip_dense " + json.dumps({"plane": name, **res[name]}))
+            assert err <= DENSE_VS_PLANE_REL_TOL * scale, res[name]
+            assert k_err == 0.0, case
+            del params, out, want, layout, rows, blocks
+            gc.collect()
+            torch.cuda.empty_cache() if dev.type == "cuda" else None
+        topo = ring(N_NODES)
+        sched = circulant_decomposition(mixing_matrix(
+            topo, AggregationStrategy("degree")).astype("float32"))
+        params = ffn_params(dev)
+        sparse = gossip.make_gossip_fn(mesh, N_NODES, schedule=sched)
+        got = sparse(params, torch.as_tensor(sched.weights, device=dev))
+        want = mix_sparse_host(params, sched)
+        s_err = max(float((a - b).abs().max()) for a, b in zip(
+            tree_util.leaves(got), tree_util.leaves(want)))
+        res["sparse_ring33"] = {
+            "offsets": len(sched.offsets), "max_abs_err": s_err,
+            "ms": cuda_ms(lambda: sparse(
+                params, torch.as_tensor(sched.weights, device=dev)), reps=5),
+            "host_ms": cuda_ms(lambda: mix_sparse_host(params, sched),
+                               reps=5)}
+        log("gossip_sparse " + json.dumps(res["sparse_ring33"]))
+        assert s_err == 0.0, res["sparse_ring33"]
+    finally:
+        gossip._all_gather = orig_gather
+        dist.destroy_process_group()
+    res["all_gathers"] = gathers[0]
+    return res, cases
+
+
+def _rank_records(root, tag):
+    """The ``sweep_rank`` records that the ranks of one ``RANK_RUNS`` entry
+    wrote, one file a rank.  Read from files, not from the ranks' shared
+    standard output: a rank's line can land inside a line of the other
+    rank's block-buffered output there."""
+    return [json.loads(p.read_text())
+            for p in sorted((root / tag).glob("sweep_rank*.json"))]
+
+
+def _row_key(rows):
+    skip = {"secs", "sweep_secs"}
+    return [json.dumps({k: v for k, v in r.items() if k not in skip},
+                       sort_keys=True, default=str) for r in rows]
+
+
+RANK_RUNS = (("sharded", []), ("sharded_chunked", ["--chunk-rounds", "2"]))
+
+
+def run_sharded_sweep(dev, out, baseline, ranks=2,
+                      edges_nodes=ENTRY_EDGES_NODES):
+    """(b) ``python -m torch.distributed.run --nproc-per-node 2`` on the
+    sweep CLI (:func:`sweep_rank`) with phase 18 (a)'s ``edges`` arguments
+    and ``--shard 2`` (two cells: a rank each), both ranks on the one
+    card, then in the same ranks with ``--chunk-rounds 2``.  Each rank
+    counts its ``gossip_edges`` launches (one a round for its experiment,
+    and rank 0's own unsharded comparison at E = 2) and loads the kernels
+    phase 1 built.  The rows: equal to ``baseline`` (phase 18 (a)'s) bit
+    for bit, or held by ``ENTRY_LEGACY_DRIFT_SAMPLES`` with the gap
+    printed; the chunked run's equal to the unchunked one's bit for
+    bit."""
+    import shutil
+
+    from repro_torch.benchmarks import sweep
+
+    argv = ["--preset", "edges", "--smoke", "--n-nodes", str(edges_nodes),
+            "--no-legacy", "--datasets", "mnist", "--seeds", "0",
+            "--device", str(dev), "--shard", str(ranks)]
+    for tag, _ in RANK_RUNS:
+        shutil.rmtree(out / tag, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(ranks), str(Path(__file__).resolve()),
+           "--sweep-rank", str(out), *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    res = {"wall_s": time.perf_counter() - t0, "launches": 0, "shapes": {}}
+    log(proc.stdout.rstrip())
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+    assert proc.returncode == 0, proc.returncode
+    rounds = sweep.SMOKE.rounds
+    runs = {}
+    for tag, _ in RANK_RUNS:
+        own = sorted(_rank_records(out, tag), key=lambda d: d["rank"])
+        assert [d["rank"] for d in own] == list(range(ranks)), (tag, own)
+        assert all(d["tag"] == tag for d in own), (tag, own)
+        for d in own:
+            sharded = sum(m for k, m in d["shapes"].items()
+                          if k.startswith("E=1 "))
+            assert sharded == rounds, (tag, d)   # one launch a round
+            # rank 0 also runs the grid unsharded (E = 2) to compare
+            assert d["launches"] == rounds * (2 if d["rank"] == 0 else 1), d
+            assert not d["built"], d
+            res["launches"] += d["launches"]
+            for k, m in d["shapes"].items():
+                res["shapes"][k] = res["shapes"].get(k, 0) + m
+        with open(out / tag / "sweep_edges.json") as f:
+            runs[tag] = json.load(f)
+        with open(out / tag / "BENCH_sweep.json") as f:
+            record = json.load(f)["sharded/edges"]
+        log(f"sharded/edges ({tag}) " + json.dumps(record))
+        res[tag] = {"record": record, "ood_auc": {
+            r["strategy"]: r["ood_auc"] for r in runs[tag]}}
+    assert _row_key(runs["sharded"]) == _row_key(runs["sharded_chunked"])
+    same = _row_key(runs["sharded"]) == _row_key(baseline)
+    drift = {k: max(abs(a[k] - b[k]) * sweep.SMOKE.eval_n
+                    for a, b in zip(runs["sharded"], baseline))
+             for k in ("iid_auc", "ood_auc", "final_ood_acc_mean")}
+    res["rows_bit_identical_to_phase18"] = same
+    res["drift_eval_samples"] = drift
+    log("sharded_sweep " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("shapes",)}))
+    assert same or max(drift.values()) <= ENTRY_LEGACY_DRIFT_SAMPLES, drift
+    return res
+
+
+def sweep_rank(argv) -> int:
+    """One rank of phase 19 (b), under ``torch.distributed.run``: ``argv``
+    is the output root, then the sweep CLI's arguments; the CLI runs once
+    a ``RANK_RUNS`` entry (its extra arguments, ``--out <root>/<tag>``),
+    each followed by a ``sweep_rank`` record with this rank's
+    ``gossip_edges`` launches by shape and whether it had to build,
+    written to ``<root>/<tag>/sweep_rank<rank>.json`` and logged."""
+    src = Path(__file__).resolve().parent / "src"
+    sys.path.insert(0, str(src))
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import sweep
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gossip_mix as gm
+
+    root, cli = Path(argv[0]), list(argv[1:])
+    built = not build._library_path("gossip_mix").exists()
+    for tag, extra in RANK_RUNS:
+        gm.gossip_edges.launches = 0
+        gm.gossip_edges.shapes.clear()
+        sweep.main(cli + extra + ["--out", str(root / tag)])
+        rank = dist.get_rank()
+        record = json.dumps({
+            "tag": tag, "rank": rank,
+            "world": dist.get_world_size(), "built": built,
+            "launches": gm.gossip_edges.launches,
+            "shapes": {" ".join(map(str, k)): m
+                       for k, m in sorted(gm.gossip_edges.shapes.items())}})
+        (root / tag).mkdir(parents=True, exist_ok=True)
+        (root / tag / f"sweep_rank{rank}.json").write_text(record)
+        log("sweep_rank " + record)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_multi_phase(dev, baseline=None):
+    """Phase 19: (a) gossip on an NCCL group, (b) the sharded sweep CLI
+    with two ranks sharing the card; its own ``MULTI_BUDGET_S``.
+    ``baseline`` phase 18 (a)'s edges rows (read from its output)."""
+    import torch
+
+    MULTI_OUT.mkdir(parents=True, exist_ok=True)
+    # NCCL refuses two ranks on one card ("Duplicate GPU detected"), so
+    # (a) runs a world of 1
+    reduced_line(19, "gossip_nccl", "ranks", 2, 1)
+    res = {}
+    t0 = time.perf_counter()
+    res["gossip"], res["cases"] = run_gossip_nccl(dev)
+    res["gossip_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if baseline is None:
+        with open(ENTRY_OUT / "sweep_edges.json") as f:
+            baseline = json.load(f)
+    t0 = time.perf_counter()
+    res["sharded_sweep"] = run_sharded_sweep(dev, MULTI_OUT, baseline)
+    res["sharded_sweep_s"] = time.perf_counter() - t0
+    log("phase 19 seconds " + json.dumps(
+        {k: res[k] for k in ("gossip_s", "sharded_sweep_s")}))
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 12: the mix-cost study
 # ----------------------------------------------------------------------
 STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
@@ -5537,6 +5840,22 @@ def main() -> int:
         assert entry_shapes.get(key, 0) > 0, (key, entry_shapes)
     for name in ("gossip_plane", "gossip_edges", "flash_attention"):
         assert paths["entry_points"][name] > 0, (name, paths["entry_points"])
+    t19 = time.perf_counter()
+    multi = main_path("multi_device", run_multi_phase, dev)
+    t19 = time.perf_counter() - t19
+    log(f"phase 19 (the multi-device paths): {t19:.1f} s (budget "
+        f"{MULTI_BUDGET_S} s)")
+    assert t19 <= MULTI_BUDGET_S, f"phase 19 took {t19:.1f} s"
+    assert paths["multi_device"]["gossip_mix"] > 0, paths["multi_device"]
+    cases += multi["cases"]
+    # the sharded grid's ranks ran in processes of their own: their
+    # counts, as each rank printed them
+    ranks = multi["sharded_sweep"]
+    paths["multi_device_ranks"] = {k: 0 for k in KERNELS}
+    paths["multi_device_ranks"]["gossip_edges"] = ranks["launches"]
+    path_shapes["multi_device_ranks"] = {"gossip_edges": ranks["shapes"]}
+    log(f"main path multi_device_ranks: launches "
+        f"{json.dumps(paths['multi_device_ranks'])}")
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches
@@ -5586,4 +5905,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sweep-rank"]:   # one rank of phase 19 (b)
+        sys.exit(sweep_rank(sys.argv[2:]))
     sys.exit(main())

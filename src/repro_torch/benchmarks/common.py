@@ -343,7 +343,10 @@ def run_sweep_cells(cells: List[SweepCell], scale: BenchScale = QUICK,
     ``mix_impl`` the backend (``"edges"``/``"sparse"`` get the group's
     union support); ``analytics`` the streaming accumulators;
     ``participation``/``fault`` the specs whose per-cell rates ride the
-    batch axis; ``mesh`` is not ported (ROADMAP Queue 1 [multidevice]).
+    batch axis; ``mesh`` (``launch.mesh.make_sweep_mesh``, every rank of
+    it calling with the same cells) shards each group's experiment axis
+    over its ranks, and only its first rank logs; a rank outside the
+    mesh runs nothing and returns ``[]``.
     The port's: ``device`` (None: the card); ``skip_nonfinite`` wraps the
     optimizer in ``skip_nonfinite_updates``; ``data_fn(dataset, n_nodes,
     seed, ood_nodes, scale, steps_per_epoch) -> (batcher, test_iid,
@@ -355,6 +358,8 @@ def run_sweep_cells(cells: List[SweepCell], scale: BenchScale = QUICK,
     with ``secs`` amortized over the group."""
     if coeff_mode not in ("stack", "program"):
         raise KeyError(f"coeff_mode {coeff_mode!r}; have 'stack', 'program'")
+    if mesh is not None and mesh.index < 0:
+        return []
     if participation is None and any(c.participation is not None
                                      for c in cells):
         participation = ParticipationSpec()
@@ -492,7 +497,7 @@ def run_sweep_cells(cells: List[SweepCell], scale: BenchScale = QUICK,
         for e, (i, (cell, ood_nodes)) in enumerate(zip(idxs, metas)):
             rows[i] = _summary(result, e, cell, ood_nodes, ds, secs,
                                len(idxs), scale, arrival_threshold)
-            if log is not None:
+            if log is not None and (mesh is None or mesh.index == 0):
                 log(csv_row(cell.label, rows[i]["secs"],
                             f"iid_auc={rows[i]['iid_auc']:.3f};"
                             f"ood_auc={rows[i]['ood_auc']:.3f}"))

@@ -23,17 +23,35 @@ each cell alone (E = 1) through the engine's unrolled mode with the
 grid's backend, fault spec and coefficient mode.  Records go to
 ``<out>/BENCH_sweep.json`` (``artifacts_torch/`` by default) under the
 reference's section keys, and the rows to ``<out>/sweep_<preset>.json``.
-``--shard`` and ``--shard-scale`` (the engine's experiment axis over
-several devices) are not ported: ROADMAP Queue 1 [multidevice].
+
+``--shard [N]`` shards the engine's experiment axis over N ranks (default:
+the fewest ranks at the least experiments a rank), one process a rank:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.benchmarks.sweep \
+      --preset edges --smoke --shard 2          # ranks share the cards
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.benchmarks.sweep \
+      --preset fig4 --smoke --shard 2 --device cpu   # gloo on the CPU
+
+Ranks outside the mesh (when N, or the rule, takes fewer ranks than the
+world) run nothing and return no rows.  Only rank 0 prints and writes
+records; after the sharded grid it runs the grid again unsharded and
+writes the ``sharded/<preset>`` record (wall seconds of both, speedup,
+metrics bit-identical).  ``--shard-scale
+R1,R2,...`` times both at each round count instead and records the
+crossover.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import time
 from typing import Callable, Dict, List, Optional
+
+import numpy as np
 
 from repro_torch.benchmarks import (
     fig2_iid_vs_ood as fig2,
@@ -57,6 +75,7 @@ from repro_torch.benchmarks.common import (
 from repro_torch.core.coeffs import program_for, state_nbytes
 from repro_torch.core.dynamic import FaultSpec
 from repro_torch.core.strategies import AggregationStrategy
+from repro_torch.launch.mesh import init_distributed, make_sweep_mesh
 
 __all__ = ["SweepPreset", "PRESETS", "register_preset", "SMOKE", "plan",
            "run_legacy_baseline", "main"]
@@ -388,12 +407,15 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
                          "(incremental metrics) instead of one loop")
     ap.add_argument("--shard", nargs="?", type=int, const=0, default=None,
                     metavar="N",
-                    help="not ported (ROADMAP Queue 1 [multidevice])")
+                    help="shard the experiment axis over N ranks (default: "
+                         "the fewest at the least rows a rank); launch "
+                         "with torchrun; also times the unsharded grid")
     ap.add_argument("--chunk-rounds", type=int, default=None,
                     help="run the round schedule in chunks of this many "
                          "rounds (bounds device memory for long runs)")
     ap.add_argument("--shard-scale", default=None, metavar="R1,R2,...",
-                    help="not ported (ROADMAP Queue 1 [multidevice])")
+                    help="with --shard: time sharded and unsharded at each "
+                         "of these round counts and record the crossover")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--out", default=DEFAULT_OUT)
@@ -408,11 +430,6 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
     if args.preset not in PRESETS:
         raise SystemExit(f"unknown preset {args.preset!r}; "
                          f"have {sorted(PRESETS)}")
-    if args.shard is not None or args.shard_scale:
-        raise NotImplementedError(
-            "--shard/--shard-scale shard the engine's experiment axis over "
-            "several devices, which the port does not have yet (ROADMAP "
-            "Queue 1 [multidevice])")
     preset = PRESETS[args.preset]
 
     datasets = (tuple(args.datasets.split(","))
@@ -428,16 +445,56 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
         print(plan(cells, scale))
         return None
 
+    mesh, device = None, args.device
+    if args.shard is not None:
+        if args.unroll:
+            raise SystemExit("--shard cannot combine with --unroll")
+        import torch.distributed as dist
+
+        device = init_distributed(args.device)
+        mesh = make_sweep_mesh(args.shard or auto_ranks(
+            len(cells), dist.get_world_size()))
+        if mesh.index < 0:
+            return []   # a rank outside the mesh holds no experiment
+    elif args.shard_scale:
+        raise SystemExit("--shard-scale requires --shard")
+    # only the mesh's first rank prints and writes records
+    lead = mesh is None or mesh.index == 0
+    with (contextlib.nullcontext() if lead
+          else contextlib.redirect_stdout(io.StringIO())):
+        return _run(args, preset, cells, scale, n_nodes, datasets, seeds,
+                    mesh, device, lead)
+
+
+def auto_ranks(n_cells: int, world: int) -> int:
+    """``--shard`` without N: E experiments on k ranks are padded to the
+    next multiple of k, and the padding is wasted work, so take the fewest
+    ranks that keep the least experiments a rank (the reference's rule,
+    over the world's ranks)."""
+    per = -(-n_cells // world)          # least rows a rank
+    return -(-n_cells // per)           # fewest ranks at it
+
+
+def _run(args, preset, cells, scale, n_nodes, datasets, seeds, mesh,
+         device, lead) -> List[dict]:
     print(f"preset {preset.name}: {len(cells)} cells "
           f"(datasets={datasets}, seeds={seeds}, n_nodes={n_nodes})")
     print(plan(cells, scale))
+    if mesh is not None:
+        print(f"sharding the experiment axis over {mesh.size} rank(s) "
+              f"(E={len(cells)}, padding {(-len(cells)) % mesh.size}); "
+              f"chunk_rounds={args.chunk_rounds}")
 
     coeff_mode = "program" if preset.programs else "stack"
     fault = _preset_fault(preset)
     common = dict(scale=scale, mix_impl=preset.mix_impl, fault=fault,
-                  device=args.device)
+                  device=device)
+    if args.shard_scale:
+        _run_shard_scale(args, preset, cells, mesh, n_nodes, coeff_mode,
+                         common, lead)
+        return []
     t0 = time.time()
-    rows = run_sweep_cells(cells, unroll_eval=args.unroll,
+    rows = run_sweep_cells(cells, unroll_eval=args.unroll, mesh=mesh,
                            chunk_rounds=args.chunk_rounds,
                            coeff_mode=coeff_mode, log=print, **common)
     engine_secs = time.time() - t0
@@ -454,7 +511,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
                     if r["analytics"]["ood_arrival_mean"] is not None]
         history_bytes = len(cells) * scale.rounds * n_nodes * 3 * 4
         summary_bytes = len(cells) * n_nodes * 7 * 4
-        bench_path = _update_bench(args.out, f"analytics/{preset.name}", {
+        bench_path = _update_bench(
+            lead, args.out, f"analytics/{preset.name}", {
             "preset": preset.name,
             "experiments": len(cells),
             "rounds": scale.rounds,
@@ -468,7 +526,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
             "streaming_summary_bytes": summary_bytes,
             "bytes_ratio": round(history_bytes / summary_bytes, 1),
         })
-        apath = _extract_analytics(args.out)
+        apath = _extract_analytics(lead, args.out)
         print(f"streaming analytics: max in-scan vs host-oracle deviation "
               f"{max(devs):.2e} over {len(cells)} experiments; "
               f"summaries {summary_bytes / 2**10:.1f} KiB vs "
@@ -498,7 +556,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
             for rate, rs in sorted(by_rate.items(), reverse=True)
         }
         ctrl = by_rate.get(1.0, [])
-        bench_path = _update_bench(args.out, f"participation/{preset.name}", {
+        bench_path = _update_bench(
+            lead, args.out, f"participation/{preset.name}", {
             "preset": preset.name,
             "experiments": len(cells),
             "rounds": scale.rounds,
@@ -533,7 +592,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
         recovered = bool(nz_rates) and all(
             final(rate, rob) >= final(rate, "mean") - 1e-6
             for rate in nz_rates for rob in ("trimmed", "median"))
-        bench_path = _update_bench(args.out, f"byzantine/{preset.name}", {
+        bench_path = _update_bench(
+            lead, args.out, f"byzantine/{preset.name}", {
             "preset": preset.name,
             "experiments": len(cells),
             "rounds": scale.rounds,
@@ -544,11 +604,40 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
         })
         print(f"byzantine record → {bench_path}")
 
+    if mesh is not None and lead:
+        # the same grid unsharded, on rank 0 alone
+        t0 = time.time()
+        single_rows = run_sweep_cells(cells, coeff_mode=coeff_mode,
+                                      **common)
+        single_secs = time.time() - t0
+        identical = all(
+            a["iid_auc"] == b["iid_auc"] and a["ood_auc"] == b["ood_auc"]
+            and a["final_ood_acc_mean"] == b["final_ood_acc_mean"]
+            for a, b in zip(rows, single_rows))
+        print(f"single-device scanned path: {single_secs:.1f}s wall-clock "
+              f"→ sharded speedup {single_secs / max(engine_secs, 1e-9):.2f}×"
+              f"  (metrics bit-identical: {identical})")
+        bench_path = _update_bench(
+            lead, args.out, f"sharded/{preset.name}", {
+            "preset": preset.name,
+            "experiments": len(cells),
+            "rounds": scale.rounds,
+            "n_nodes": n_nodes,
+            "devices": mesh.size,
+            "chunk_rounds": args.chunk_rounds,
+            "sharded_secs": round(engine_secs, 2),
+            "single_device_secs": round(single_secs, 2),
+            "speedup": round(single_secs / max(engine_secs, 1e-9), 3),
+            "bit_identical_metrics": bool(identical),
+        })
+        print(f"sharded-vs-single wall-clock → {bench_path}")
+
     if preset.programs:
         # the same grid with its coefficients materialized as (E, R, n, n)
         # stacks: the host memory and wall-clock of the programs
         t0 = time.time()
-        stack_rows = run_sweep_cells(cells, chunk_rounds=args.chunk_rounds,
+        stack_rows = run_sweep_cells(cells, mesh=mesh,
+                                     chunk_rounds=args.chunk_rounds,
                                      coeff_mode="stack", **common)
         stack_secs = time.time() - t0
         identical = all(
@@ -571,7 +660,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
         print(f"programs-vs-stacks wall-clock ratio {secs_ratio:.2f}× "
               f"(the reference's pre-pruning record 1.82×) — {verdict}")
         bench_path = _update_bench(
-            args.out, f"coeff_programs/{preset.name}", {
+            lead, args.out, f"coeff_programs/{preset.name}", {
                 "preset": preset.name,
                 "experiments": len(cells),
                 "rounds": scale.rounds,
@@ -592,7 +681,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
     if not args.no_legacy and preset.programs:
         print("\n(legacy per-config baseline skipped: programs presets "
               "compare against the materialized-stack engine run instead)")
-    elif not args.no_legacy:
+    elif not args.no_legacy and lead:
         t0 = time.time()
         run_legacy_baseline(cells, **common)
         legacy_secs = time.time() - t0
@@ -605,19 +694,117 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
     print("\n=== verdict ===")
     print(" •", preset.verdict(rows))
 
-    os.makedirs(args.out, exist_ok=True)
     path = f"{args.out}/sweep_{preset.name}.json"
-    with open(path, "w") as f:
-        json.dump(rows, f, indent=1, default=_json_default)
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(rows, f, indent=1, default=_json_default)
     print(f"rows → {path}")
     return rows
 
 
-def _update_bench(out_dir: str, section: str, payload: dict) -> str:
-    """Merge one section into ``<out_dir>/BENCH_sweep.json``; sections are
-    keyed ``kind/preset`` so successive presets accumulate."""
-    os.makedirs(out_dir, exist_ok=True)
+def _linfit(xs, ys):
+    """Least-squares ``(intercept, slope)`` of seconds against rounds."""
+    b, a = np.polyfit(np.asarray(xs, float), np.asarray(ys, float), 1)
+    return float(a), float(b)
+
+
+def _crossover_from_entries(entries):
+    """The sharded-vs-single crossover in rounds: interpolated where the
+    speedup crosses 1.0 between two measured sizes, else extrapolated from
+    each path's linear fit (secs = fixed + slope·rounds); None when the
+    sharded slope is not the smaller."""
+    for lo, hi in zip(entries, entries[1:]):
+        s0, s1 = lo["speedup"], hi["speedup"]
+        if (s0 - 1.0) * (s1 - 1.0) <= 0 and s0 != s1:
+            frac = (1.0 - s0) / (s1 - s0)
+            return (round(lo["rounds"]
+                          + frac * (hi["rounds"] - lo["rounds"]), 1),
+                    "measured")
+    xs = [e["rounds"] for e in entries]
+    a_sh, b_sh = _linfit(xs, [e["sharded_secs"] for e in entries])
+    a_si, b_si = _linfit(xs, [e["single_device_secs"] for e in entries])
+    if b_sh < b_si and a_sh > a_si:
+        return round((a_sh - a_si) / (b_si - b_sh), 1), "extrapolated"
+    return None, ("sharded per-round cost is not below single-device "
+                  "on this host — no crossover at any scale")
+
+
+def _run_shard_scale(args, preset, cells, mesh, n_nodes, coeff_mode,
+                     common, lead) -> None:
+    """``--shard-scale``: the grid timed sharded (every rank) and unsharded
+    (rank 0) at each round count; the ``sharded/<preset>`` record holds
+    the crossover rather than one speedup."""
+    sizes = sorted({int(r) for r in args.shard_scale.split(",")})
+    if len(sizes) < 2:
+        raise SystemExit("--shard-scale needs ≥ 2 round counts")
+    kw = dict(common, coeff_mode=coeff_mode)
+    entries = []
+    for r in sizes:
+        kw["scale"] = dataclasses.replace(common["scale"], rounds=r)
+        t0 = time.time()
+        rows_sh = run_sweep_cells(cells, mesh=mesh,
+                                  chunk_rounds=args.chunk_rounds, **kw)
+        sh = time.time() - t0
+        if not lead:
+            continue
+        t0 = time.time()
+        rows_si = run_sweep_cells(cells, **kw)
+        si = time.time() - t0
+        identical = all(
+            a["iid_auc"] == b["iid_auc"] and a["ood_auc"] == b["ood_auc"]
+            for a, b in zip(rows_sh, rows_si))
+        entries.append({
+            "rounds": r,
+            "sharded_secs": round(sh, 2),
+            "single_device_secs": round(si, 2),
+            "speedup": round(si / max(sh, 1e-9), 3),
+            "bit_identical_metrics": bool(identical),
+        })
+        print(f"  R={r}: sharded {sh:.1f}s vs single {si:.1f}s "
+              f"→ speedup {si / max(sh, 1e-9):.3f}× "
+              f"(bit-identical: {identical})")
+    if not lead:
+        return
+    crossover, how = _crossover_from_entries(entries)
+    xs = [e["rounds"] for e in entries]
+    a_sh, b_sh = _linfit(xs, [e["sharded_secs"] for e in entries])
+    a_si, b_si = _linfit(xs, [e["single_device_secs"] for e in entries])
+    bench_path = _update_bench(lead, args.out, f"sharded/{preset.name}", {
+        "preset": preset.name,
+        "experiments": len(cells),
+        "n_nodes": n_nodes,
+        "devices": mesh.size,
+        "physical_cpus": os.cpu_count(),
+        "chunk_rounds": args.chunk_rounds,
+        "scale_sweep": entries,
+        "sharded_fixed_secs": round(a_sh, 2),
+        "sharded_secs_per_round": round(b_sh, 4),
+        "single_fixed_secs": round(a_si, 2),
+        "single_secs_per_round": round(b_si, 4),
+        "crossover_rounds": crossover,
+        "crossover_kind": how,
+    })
+    print("\n=== verdict ===")
+    if crossover is not None:
+        print(f" • single-vs-sharded crossover at R≈{crossover} ({how}); "
+              f"fixed overhead {a_sh - a_si:+.1f}s, per-round "
+              f"{b_sh:.3f}s vs {b_si:.3f}s")
+    else:
+        print(f" • no crossover: {how} (fixed {a_sh - a_si:+.1f}s, "
+              f"per-round sharded {b_sh:.3f}s vs single {b_si:.3f}s)")
+    print(f"sharded scale sweep → {bench_path}")
+
+
+def _update_bench(lead: bool, out_dir: str, section: str,
+                  payload: dict) -> str:
+    """Merge one section into ``<out_dir>/BENCH_sweep.json`` (on the
+    mesh's first rank only); sections are keyed ``kind/preset`` so
+    successive presets accumulate."""
     path = f"{out_dir}/BENCH_sweep.json"
+    if not lead:
+        return path
+    os.makedirs(out_dir, exist_ok=True)
     bench = {}
     if os.path.exists(path):
         try:
@@ -633,9 +820,12 @@ def _update_bench(out_dir: str, section: str, payload: dict) -> str:
     return path
 
 
-def _extract_analytics(out_dir: str) -> str:
+def _extract_analytics(lead: bool, out_dir: str) -> str:
     """Mirror the ``analytics/*`` sections into
-    ``<out_dir>/BENCH_sweep_analytics.json``."""
+    ``<out_dir>/BENCH_sweep_analytics.json`` (on the first rank only)."""
+    apath = f"{out_dir}/BENCH_sweep_analytics.json"
+    if not lead:
+        return apath
     path = f"{out_dir}/BENCH_sweep.json"
     bench = {}
     if os.path.exists(path):
@@ -643,7 +833,6 @@ def _extract_analytics(out_dir: str) -> str:
             bench = json.load(f)
     sections = {k: v for k, v in bench.items()
                 if k.startswith("analytics/")}
-    apath = f"{out_dir}/BENCH_sweep_analytics.json"
     with open(apath, "w") as f:
         json.dump(sections, f, indent=1)
     return apath

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -103,6 +104,7 @@ __all__ = [
     "make_fault_round_fn",
     "eval_round_indices",
     "node_budget",
+    "ranks_per_card",
     "slice_rows",
     "vmap_in_slices",
     "make_scan_fn",
@@ -331,16 +333,30 @@ def make_mix_fn(mix_impl: str = "einsum",
 # ----------------------------------------------------------------------
 # vmapped calls in slices of the node axis
 # ----------------------------------------------------------------------
+def ranks_per_card(device) -> int:
+    """How many of this host's ranks share ``device``'s card: local ranks
+    go to cards round-robin (``LOCAL_RANK % device_count``,
+    ``launch.mesh.init_distributed``), ``LOCAL_WORLD_SIZE`` of them (1
+    outside ``torchrun``)."""
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    cards = torch.cuda.device_count()
+    index = torch.device(device).index or 0
+    return max(1, len(range(index, local_world, cards)))
+
+
 def node_budget(device) -> Optional[int]:
     """Bytes one vmapped call over the node axis (a LocalTrain step's
-    gradients, an evaluation) may hold: half of the card's memory that
-    the run's tensors do not hold at the time of the call (the caching
-    allocator's count, read on the host: no sync), so a grid's resident
-    params, optimizer state and batches shrink it; no limit on the CPU."""
+    gradients, an evaluation) may hold: half of this rank's share of the
+    card's memory (the card over :func:`ranks_per_card`) that the run's
+    tensors do not hold at the time of the call (the caching allocator's
+    count of this process, read on the host: no sync), so a grid's
+    resident params, optimizer state and batches shrink it; no limit on
+    the CPU."""
     device = torch.device(device)
     if device.type == "cuda":
         total = torch.cuda.get_device_properties(device).total_memory
-        return (total - torch.cuda.memory_allocated(device)) // 2
+        share = total // ranks_per_card(device)
+        return max(0, share - torch.cuda.memory_allocated(device)) // 2
     return None
 
 

@@ -43,8 +43,25 @@ same operations in the same order, so their results are bit-identical:
 Nothing in the round loop reads a device value back: masks (participation,
 faults, the ``"noise"`` draw) and program matrices depend only on seeds
 and round indices, are drawn on the host and uploaded through pinned
-memory without a wait.  The sharded mode of the reference (``mesh=``)
-waits for ROADMAP Queue 1 [multidevice]; ``SweepEngine.traceable`` is
+memory without a wait.
+
+**Sharded** (``mesh=``, a ``launch.mesh.SweepMesh`` over k ranks, with or
+without ``chunk_rounds``): E is padded to a multiple of k with copies of
+experiment 0 (:func:`pad_experiments`) and each rank runs the scanned or
+chunked loop above over its contiguous block of E/k experiments, on its
+own device, with no collective in the loop: every rank builds the grid's
+inputs from the same seeds and keeps its block of each per-experiment
+input (params, coefficients or program states, data rows, test sets,
+rates and seeds, and so every carry).  After the last round the results
+(history, params, optimizer state, the analytics, participation and fault
+digests) are gathered once in experiment order over the mesh's gloo
+group, on host copies, and the padding dropped: every rank returns the
+same :class:`SweepResult`, bit for bit the unsharded run's where LocalTrain
+gives each experiment the same bits at E/k as at E (the CPU does).  With
+``checkpoint_dir`` the whole state is gathered at each chunk boundary and
+rank 0 writes it in the unsharded format (E experiments, no padding), so a
+checkpoint resumes under any mesh or none; the ranks must share the
+directory's filesystem.  ``SweepEngine.traceable`` is ROADMAP Queue 1
 [tooling].
 """
 from __future__ import annotations
@@ -58,6 +75,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device, to_device
 from repro_torch import tree as tree_util
@@ -82,12 +100,29 @@ from repro_torch.core.dynamic import FaultSpec, ParticipationSpec
 from repro_torch.training.optimizer import Optimizer
 
 __all__ = ["SweepEngine", "SweepResult", "gather_round_batch",
-           "CRASH_ENV"]
+           "pad_experiments", "CRASH_ENV"]
 
 #: chunk count after which a checkpointing run ends itself (tests)
 CRASH_ENV = "REPRO_SWEEP_CRASH_AFTER_CHUNKS"
 # the carries' host scalars: inputs of the run, not state to checkpoint
 _HOST_KEYS = ("rate", "pseed", "fseed")
+
+
+def pad_experiments(tree: Any, pad: int) -> Any:
+    """Grow every leaf's leading E axis by ``pad`` copies of experiment 0
+    (numpy arrays or tensors), so the padded grid runs valid programs
+    whose rows the result drops; the tree itself when ``pad == 0``."""
+    if pad == 0:
+        return tree
+
+    def grow(x):
+        if torch.is_tensor(x):
+            return torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+        x = np.asarray(x)
+        return np.concatenate(
+            [x, np.broadcast_to(x[:1], (pad,) + x.shape[1:])], axis=0)
+
+    return tree_util.tree_map(grow, tree)
 
 
 def gather_round_batch(bank: Dict[str, torch.Tensor], data_idx, idx_r,
@@ -199,6 +234,68 @@ class _Run:
     n_nodes: int
 
 
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """This rank's contiguous block ``[lo, hi)`` of the experiment axis
+    padded to a multiple of the mesh size."""
+
+    mesh: Any
+    n_exp: int       # experiments before padding
+    pad: int
+    lo: int
+    hi: int
+
+    @classmethod
+    def of(cls, mesh, n_exp: int) -> "_Shard":
+        if mesh.index < 0:
+            raise ValueError(f"rank {dist.get_rank()} is outside the sweep "
+                             f"mesh's ranks {mesh.ranks}")
+        pad = (-n_exp) % mesh.size
+        per = (n_exp + pad) // mesh.size
+        return cls(mesh, n_exp, pad, mesh.index * per,
+                   (mesh.index + 1) * per)
+
+    @property
+    def lead(self) -> bool:
+        return self.mesh.index == 0
+
+    def take(self, tree):
+        """This rank's block of every leaf's padded E axis."""
+        return tree_util.tree_map(lambda x: x[self.lo:self.hi],
+                                  pad_experiments(tree, self.pad))
+
+    def gather(self, tree):
+        """Every rank's block of each leaf (device tensors, host tensors or
+        numpy) in experiment order, the padding dropped: host tensors (numpy
+        for numpy leaves), one all-gather a leaf over the gloo group."""
+        from repro_torch.core.gossip import _all_gather
+
+        def one(x):
+            as_numpy = isinstance(x, np.ndarray)
+            t = (torch.from_numpy(np.ascontiguousarray(x)) if as_numpy
+                 else x.detach().cpu().contiguous())
+            shape = (self.mesh.size * t.shape[0],) + tuple(t.shape[1:])
+            out = torch.empty(shape, dtype=t.dtype)
+            if t.numel():
+                _all_gather(out, t, self.mesh.group)
+            out = out[:self.n_exp]
+            return out.numpy() if as_numpy else out
+
+        return tree_util.tree_map(one, tree)
+
+    def gather_result(self, res: "SweepResult", device) -> "SweepResult":
+        to_dev = lambda t: tree_util.tree_map(lambda x: x.to(device), t)
+        return dataclasses.replace(
+            res, train_loss=self.gather(res.train_loss),
+            iid_acc=self.gather(res.iid_acc),
+            ood_acc=self.gather(res.ood_acc),
+            params=to_dev(self.gather(res.params)),
+            opt_state=to_dev(self.gather(res.opt_state)),
+            analytics=self.gather(res.analytics),
+            participation=self.gather(res.participation),
+            fault=self.gather(res.fault))
+
+
 class SweepEngine:
     """Runs (strategy × seed × placement × topology) grids as one program.
 
@@ -284,6 +381,17 @@ class SweepEngine:
             for i in range(e)])
 
     # ------------------------------------------------------------------
+    def _check_support(self, coeffs) -> None:
+        """:meth:`_check_sparse_support` for the backends and rules that
+        need it, on a stack or a ``ProgramCoeffs``."""
+        if (self.config.mix_impl in ("sparse", "edges")
+                or self.config.robust in ("trimmed", "median")):
+            if isinstance(coeffs, ProgramCoeffs):
+                self._check_sparse_support(None, coeffs)
+            else:
+                self._check_sparse_support(np.asarray(coeffs, np.float32),
+                                           None)
+
     def _check_sparse_support(self, coeffs, program) -> None:
         """``"edges"``, ``"sparse"`` and the order-statistic rules drop
         weight outside their static tables or offsets: refuse a grid whose
@@ -330,9 +438,7 @@ class SweepEngine:
         else:
             coeffs_np = np.asarray(coeffs, np.float32)
             rounds = coeffs_np.shape[1]
-        if (self.config.mix_impl in ("sparse", "edges")
-                or self.config.robust in ("trimmed", "median")):
-            self._check_sparse_support(coeffs_np, program)
+        self._check_support(coeffs)
         if not keep_history and analytics is None:
             raise ValueError("keep_history=False without an analytics "
                              "spec would return no metrics at all")
@@ -453,20 +559,37 @@ class SweepEngine:
         (None: rate 1.0 / 0.0, seeds ``spec.seed + arange(E)``);
         ``checkpoint_dir`` (needs ``chunk_rounds``) saves the state at
         every chunk boundary and ``resume=True`` restarts from the latest
-        one (a fresh start when there is none)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "SweepEngine(mesh=...): the experiment axis sharded over "
-                "several cards is not ported yet (ROADMAP Queue 1 "
-                "[multidevice])")
+        one (a fresh start when there is none).  ``mesh`` (a
+        ``launch.mesh.SweepMesh``, every rank of it calling ``run`` with
+        the same inputs) shards the experiment axis over its ranks."""
         unroll = self.config.unroll_eval if unroll_eval is None \
             else unroll_eval
-        if unroll and chunk_rounds:
-            raise ValueError("chunk_rounds is a scanned-mode option; it "
-                             "cannot combine with unroll_eval=True")
+        if unroll and (mesh is not None or chunk_rounds):
+            raise ValueError("mesh/chunk_rounds are scanned-mode options; "
+                             "they cannot combine with unroll_eval=True")
         if checkpoint_dir is not None and not chunk_rounds:
             raise ValueError("checkpoint_dir needs chunk_rounds: "
                              "checkpoints are written at chunk boundaries")
+        shard = None
+        if mesh is not None:
+            self._check_support(coeffs)   # on every rank, the whole grid
+            n_exp = int(tree_util.leaves(params0)[0].shape[0])
+            shard = _Shard.of(mesh, n_exp)
+            if participation is not None:
+                participation_rates, participation_seeds = shard.take(
+                    _rates_and_seeds(participation_rates,
+                                     participation_seeds, 1.0,
+                                     participation.seed, n_exp))
+            if fault is not None:
+                fault_rates, fault_seeds = shard.take(_rates_and_seeds(
+                    fault_rates, fault_seeds, 0.0, fault.seed, n_exp))
+            if isinstance(coeffs, ProgramCoeffs):
+                coeffs = dataclasses.replace(coeffs,
+                                             states=shard.take(coeffs.states))
+            else:
+                coeffs = shard.take(np.asarray(coeffs, np.float32))
+            params0, data_idx, test_iid, test_ood = shard.take(
+                (params0, np.asarray(data_idx), test_iid, test_ood))
         run = self._prepare(params0, coeffs, bank, indices, data_idx,
                             test_iid, test_ood, analytics, keep_history,
                             participation, participation_rates,
@@ -476,7 +599,8 @@ class SweepEngine:
         hist: List[tuple] = []
         start = 0
         if checkpoint_dir is not None and resume:
-            start, hist = self._resume(checkpoint_dir, run, keep_history)
+            start, hist = self._resume(checkpoint_dir, run, keep_history,
+                                       shard)
         crash_after = int(os.environ.get(CRASH_ENV, "0"))
         chunks_done = 0
         for a in range(start, run.rounds, chunk):
@@ -489,11 +613,20 @@ class SweepEngine:
                 hist.append(tuple(map(_numpy, h)))
             chunks_done += 1
             if checkpoint_dir is not None and b < run.rounds:
-                _save_checkpoint(checkpoint_dir, b, run, hist, keep_history)
+                state, history = _state_tree(run), _history(hist)
+                if shard is not None:   # the whole grid, in E order
+                    state, history = shard.gather((state, history))
+                if shard is None or shard.lead:
+                    _save_checkpoint(checkpoint_dir, b, state, history,
+                                     keep_history)
+                if shard is not None:
+                    dist.barrier(shard.mesh.group)
                 if crash_after and chunks_done >= crash_after:
                     os._exit(17)   # a preempted host: no cleanup at all
-        return self._result(run, hist, analytics, participation, fault,
-                            keep_history)
+        res = self._result(run, hist, analytics, participation, fault,
+                           keep_history)
+        return res if shard is None else shard.gather_result(res,
+                                                             self.device)
 
     def _result(self, run: _Run, hist, analytics, participation, fault,
                 keep_history) -> SweepResult:
@@ -526,15 +659,28 @@ class SweepEngine:
                            analytics=a_out, participation=p_out,
                            fault=f_out, opt_state=run.opt)
 
-    def _resume(self, directory: str, run: _Run, keep_history: bool):
-        """Restore the latest checkpoint into ``run``; ``(rounds done,
-        history chunks)``, ``(0, [])`` when there is none."""
+    def _resume(self, directory: str, run: _Run, keep_history: bool,
+                shard: Optional[_Shard] = None):
+        """Restore the latest checkpoint into ``run`` (this rank's block of
+        it under a mesh); ``(rounds done, history chunks)``, ``(0, [])``
+        when there is none."""
         from repro_torch.training.checkpoint import latest_checkpoint
 
         path = latest_checkpoint(directory)
         if path is None:
             return 0, []
-        state, hist, done = _load_checkpoint(path, run, keep_history)
+        skeleton = _state_tree(run)
+        n_exp = run.n_exp
+        if shard is not None:   # the file holds all E experiments
+            n_exp = shard.n_exp
+            skeleton = tree_util.tree_map(
+                lambda x: torch.empty((n_exp,) + tuple(x.shape[1:]),
+                                      dtype=x.dtype), skeleton)
+        state, hist, done = _load_checkpoint(path, skeleton, n_exp,
+                                             run.n_nodes, keep_history)
+        if shard is not None:
+            state, hist = shard.take((state, hist))
+            state = tree_util.tree_map(lambda x: x.to(self.device), state)
         run.params, run.opt = state["params"], state["opt"]
         run.acarry = state["acarry"]
         run.pcarry = {**run.pcarry, **state["pcarry"]}
@@ -558,27 +704,33 @@ def _state_tree(run: _Run) -> dict:
             "fcarry": _device_state(run.fcarry)}
 
 
-def _save_checkpoint(directory: str, rounds_done: int, run: _Run, hist,
+def _history(hist) -> Optional[dict]:
+    """The history chunks so far as ``(E, rounds, n)`` tensors, or None."""
+    if not hist:
+        return None
+    return {name: torch.from_numpy(np.concatenate([h[i] for h in hist],
+                                                  axis=1))
+            for i, name in enumerate(("losses", "iids", "oods"))}
+
+
+def _save_checkpoint(directory: str, rounds_done: int, state, history,
                      keep_history: bool) -> str:
     """The whole chunk-boundary state — params, optimizer, every carry and
-    the history so far — as one atomic checkpoint: the state rides the
-    params slot and the history (``(E, rounds_done, n)`` each) the
-    optimizer slot."""
+    the history so far (:func:`_history`) — as one atomic checkpoint: the
+    state rides the params slot and the history the optimizer slot."""
     from repro_torch.training.checkpoint import save_checkpoint
 
-    history = None
-    if keep_history and hist:
-        history = {name: torch.from_numpy(np.concatenate(
-            [h[i] for h in hist], axis=1))
-            for i, name in enumerate(("losses", "iids", "oods"))}
-    return save_checkpoint(directory, rounds_done, _state_tree(run), history,
+    return save_checkpoint(directory, rounds_done, state,
+                           history if keep_history else None,
                            metadata={"rounds_done": int(rounds_done),
                                      "keep_history": bool(keep_history)})
 
 
-def _load_checkpoint(path: str, run: _Run, keep_history: bool):
-    """Restore into skeletons of the CURRENT run's state, so a checkpoint
-    of another shape fails loudly with the offending leaf."""
+def _load_checkpoint(path: str, skeleton, n_exp: int, n_nodes: int,
+                     keep_history: bool):
+    """Restore into the skeleton of the run's state (E = ``n_exp``), so a
+    checkpoint of another shape fails loudly with the offending leaf; the
+    history as one chunk of numpy arrays."""
     from repro_torch.training.checkpoint import load_checkpoint
 
     try:
@@ -587,9 +739,8 @@ def _load_checkpoint(path: str, run: _Run, keep_history: bool):
     except (zipfile.BadZipFile, zlib.error, EOFError) as e:
         raise ValueError(f"{path}: truncated or corrupt checkpoint ({e})")
     done = int(meta["rounds_done"])
-    skeleton = _state_tree(run)
     if keep_history and done:
-        h = torch.zeros((run.n_exp, done, run.n_nodes), dtype=torch.float32)
+        h = torch.zeros((n_exp, done, n_nodes), dtype=torch.float32)
         state, hist, _ = load_checkpoint(
             path, skeleton, {"losses": h, "iids": h, "oods": h})
         hist = [tuple(hist[k].numpy() for k in ("losses", "iids", "oods"))]

@@ -31,7 +31,8 @@ def test_imports_with_jax_and_repro_blocked():
     reference's top-level ``benchmarks`` and ``networkx`` made
     unimportable (``sys.modules[name] = None``; the GPU machine has no
     networkx), the kernel wrappers, the model layers, the graph layer, the
-    coefficient programs and the entry points among them."""
+    coefficient programs, the entry points and the multi-device modules
+    (meshes, distributed gossip, sharding rules) among them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "repro", "benchmarks", "networkx"):
@@ -50,7 +51,8 @@ def test_imports_with_jax_and_repro_blocked():
                   "benchmarks.fig5_location", "benchmarks.fig6_topology",
                   "benchmarks.ablations", "benchmarks.sweep",
                   "benchmarks.serve_bench", "benchmarks.run",
-                  "launch.serve", "launch.train"):
+                  "launch.serve", "launch.train", "launch.mesh",
+                  "core.gossip", "sharding"):
             assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "repro",

@@ -398,10 +398,21 @@ def test_resume_from_a_checkpoint_equals_the_uninterrupted_run(grid,
 
 
 def test_engine_refuses_what_it_cannot_run(grid):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_sweep_mesh
+
     _, _, targs = grid
     port = _port_engine()
-    with pytest.raises(NotImplementedError, match=r"\[multidevice\]"):
-        port.run(*targs, batch_size=BATCH, mesh=object())
+    init_distributed("cpu")   # a world of 1
+    try:
+        with pytest.raises(ValueError, match="--nproc-per-node 2"):
+            make_sweep_mesh(2)   # more ranks than the world
+        with pytest.raises(ValueError, match="scanned-mode"):
+            port.run(*targs, batch_size=BATCH, mesh=make_sweep_mesh(),
+                     unroll_eval=True)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="analytics"):
         port.run(*targs, batch_size=BATCH, keep_history=False)
     with pytest.raises(ValueError, match="chunk_rounds"):

@@ -7,8 +7,11 @@ fixed rows equal the reference's exactly.  One end-to-end run:
 ``--preset fig4 --smoke`` on the CPU gives the rows of
 ``run_sweep_cells`` on the same cells and the reference's record keys,
 and the legacy baseline (each cell alone through the engine's unrolled
-mode) holds to the grid.  ``--shard`` and the default device without a
-GPU raise.  The benchmark runner (``repro_torch.benchmarks.run``) takes
+mode) holds to the grid.  ``--shard`` under gloo at worlds 2 and 4
+(ranks spawned): rows equal to the unsharded run's, the reference's
+``sharded/<preset>`` record keys, ``--shard-scale``'s crossover record;
+its refusals, and the default device without a GPU, raise.  The
+benchmark runner (``repro_torch.benchmarks.run``) takes
 the reference's sections but ``roofline``.
 """
 import io
@@ -178,12 +181,23 @@ def test_fig4_smoke_run_end_to_end(tmp_path, capsys):
 
 
 def test_shard_and_the_default_device_raise(monkeypatch):
-    """``--shard`` and ``--shard-scale`` cite ROADMAP Queue 1
-    [multidevice]; without a GPU the default device raises."""
-    for flags in (["--shard"], ["--shard", "4"],
-                  ["--shard-scale", "2,4"]):
-        with pytest.raises(NotImplementedError, match=r"\[multidevice\]"):
-            tsweep.main(["--preset", "fig4", "--smoke"] + flags)
+    """``--shard 4`` in a world of 1 raises naming ``--nproc-per-node``;
+    ``--shard`` with ``--unroll`` and ``--shard-scale`` without
+    ``--shard`` exit as the reference's do; without a GPU the default
+    device raises."""
+    import torch.distributed as dist
+
+    argv = ["--preset", "fig4", "--smoke", "--device", "cpu"]
+    try:
+        with pytest.raises(ValueError, match="--nproc-per-node 4"):
+            tsweep.main(argv + ["--shard", "4"])
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(SystemExit, match="--shard cannot combine with "
+                                         "--unroll"):
+        tsweep.main(argv + ["--shard", "--unroll"])
+    with pytest.raises(SystemExit, match="--shard-scale requires --shard"):
+        tsweep.main(argv + ["--shard-scale", "2,4"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsweep.main(["--preset", "fig4", "--smoke", "--no-legacy",
