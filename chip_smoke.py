@@ -244,6 +244,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    each, the kernels phase 1 built; its rows against phase 18 (a)'s,
    its ``sharded/edges`` record, and the same with ``--chunk-rounds 2``
    bit for bit;
+20. (after 19) the tooling, its own 45 s budget (``TOOLING_BUDGET_S``):
+   (a) ``repro_torch.analysis``'s ``engine-matrix`` preset (49 combos of
+   the sweep engine's step through ``SweepEngine.traceable``; the mesh
+   combos over a sweep mesh of this rank alone, on a ``reduced`` line)
+   and its ``serve`` preset on the card, every report clean, every kernel
+   wrapper's ``calls`` equal to its ``launches``, the rounds under
+   ``set_sync_debug_mode("error")``; (b) the memory dry-run
+   (``repro_torch.launch.dryrun``, computed in a process of its own from
+   the start of phase 2: it needs no device) beside the card's
+   ``max_memory_allocated`` over phase 17's internvl2-1b train step and
+   phase 8's long fleet decode step, each less the bytes allocated just
+   before the step's inputs were built (against the prediction less what
+   the dry-run counts as already resident there: phase 8's plane), each
+   ratio within its pinned bound (``PEAK_RATIO_BOUNDS``), its verdict that the train step at n = 4 does
+   not fit, and its 80 GB constant against the card's total memory; (c)
+   the roofline table of every arch × shape pair (modeled, the H100's
+   datasheet constants);
 5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
    JSON line, the card line and the device line (last).
 
@@ -278,7 +295,7 @@ and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
 Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16, 17,
-18 and 19 are the main path (phase 19 (b)'s ranks count in their own
+18, 19 and 20 are the main path (phase 19 (b)'s ranks count in their own
 processes and print their counts):
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
@@ -2798,13 +2815,21 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
     dev = fleet.plane.device
     max_seq = max_seq or fleet.max_seq
     step = make_fleet_decode_step(cfg, fleet.layout)
+    # phase 20's dry-run check reads the step's own bytes: its inputs and
+    # temporaries above what was allocated before them (the plane, and
+    # whatever earlier work left)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     toks = torch.zeros((fleet.n_nodes, fleet.n_slots, 1), dtype=torch.int32,
                        device=dev)
     cache = make_cache(cfg, fleet.n_nodes, fleet.n_slots, max_seq, dev)
     cache["position"].fill_(position)
     run = lambda: step(fleet.plane, toks, cache)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     run()
     torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - base
     t0 = time.perf_counter()
     for _ in range(reps):
         run()
@@ -2839,7 +2864,8 @@ def decode_step_times(cfg, fleet, max_seq=None, position=0, reps=5):
             "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / host_ms),
             "htod_copies_per_step": htod, "plane_bytes": plane_bytes,
-            "cache_bytes": cache_bytes,
+            "cache_bytes": cache_bytes, "baseline_bytes": base,
+            "step_peak_bytes": step_peak,
             "bound_ms": (plane_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3}
 
 
@@ -4804,6 +4830,10 @@ def run_frontend_train(dev, cfg=None, n=TRAIN_NODES, seq=TRAIN_SEQ,
     reduced_line(17, "frontend_train_step", "nodes", 16, n)
     reduced_line(17, "frontend_train_step", "sequence", cfg.max_seq_len,
                  seq)
+    # phase 20's dry-run check reads the step's own bytes: everything
+    # below is allocated above this baseline (what earlier work left)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     params = tree_util.tree_map(
         lambda *xs: torch.stack(xs),
@@ -4839,7 +4869,10 @@ def run_frontend_train(dev, cfg=None, n=TRAIN_NODES, seq=TRAIN_SEQ,
            "local_batch": TRAIN_LOCAL * TRAIN_MICRO, "seq": seq,
            "steps": steps, "losses": losses, "s_per_step": secs,
            "skipped": skipped, "gossip_plane_launches": launches,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "baseline_bytes": base}
+    res["step_peak_bytes"] = res["peak_memory_bytes"] - base
+    res["peak_memory_gb"] = res["peak_memory_bytes"] / 1e9
     log("frontend_train_step " + json.dumps(res))
     assert all(math.isfinite(x) for x in losses), losses
     assert skipped == [0] * n, skipped
@@ -5494,6 +5527,154 @@ def run_multi_phase(dev, baseline=None):
 
 
 # ----------------------------------------------------------------------
+# phase 20: the tooling — the analysis presets on the card, the memory
+# dry-run against the card's peaks, the roofline table
+# ----------------------------------------------------------------------
+TOOLING_BUDGET_S = 45
+TOOLING_OUT = Path(__file__).resolve().parent / "chiprun_out" / "tooling"
+# the dry-run's prediction of a step's bytes against the card's
+# ``max_memory_allocated`` over the same step, each less what was
+# allocated before the step's inputs (measured / predicted).  Measured on
+# an H100, 700 W (PERF.md §6): 1.000125 (58,022,423,040 B against
+# 58,015,145,570) and 1.0000001 (19,332,302,336 against 19,332,300,896)
+PEAK_RATIO_BOUNDS = {"internvl2_train_step": (0.999, 1.001),
+                     "stablelm_fleet_decode": (0.999, 1.001)}
+
+
+def dryrun_predictions():
+    """The dry-run's predictions for phase 20 (b), host arithmetic on fake
+    tensors; run in a process of its own while the card works (it needs
+    no device): internvl2-1b's ``make_train_step`` as phase 17 runs it at
+    n = 2 and n = 4 (microbatch 1, 2 × 512 tokens a node, AdamW behind the
+    nonfinite guard), stablelm-1.6b's fleet decode step as phase 8 times
+    it (n = 4, 2 slots, a 4096-position cache), all on one H100."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.configs.base import InputShape, ParallelConfig
+    from repro_torch.launch.dryrun import ONE_DEVICE, dry_run_pair
+
+    out = {}
+    for n in (TRAIN_NODES, 2 * TRAIN_NODES):
+        out[f"internvl2_train_n{n}"] = dry_run_pair(
+            "internvl2-1b", InputShape(
+                "train_512", TRAIN_SEQ, n * TRAIN_MICRO * TRAIN_LOCAL,
+                "train"),
+            pcfg=ParallelConfig(n_nodes=n, microbatch=TRAIN_MICRO),
+            mesh_shape=ONE_DEVICE, skip_nonfinite=True)
+    out["stablelm_fleet_decode"] = dry_run_pair(
+        "stablelm-1.6b", InputShape("decode_4096", DECODE_CONTEXT,
+                                    SERVE_NODES * SERVE_SLOTS, "decode"),
+        pcfg=ParallelConfig(n_nodes=SERVE_NODES), mesh_shape=ONE_DEVICE)
+    return out
+
+
+def run_tooling_presets(dev):
+    """(a) ``repro_torch.analysis``'s presets on the card: every report
+    clean, every kernel wrapper's ``calls`` equal to its ``launches`` (no
+    plain version ran), the rounds under ``set_sync_debug_mode("error")``
+    (``analyze`` sets it for the ``HostSync`` rule on a CUDA device)."""
+    from repro_torch.analysis.presets import run_preset
+
+    counters = {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{MODULES[name]}"), name) for name in KERNELS}
+    for c in counters.values():
+        c.calls = 0
+    launches0 = {k: c.launches for k, c in counters.items()}
+    # the mesh combos run over a sweep mesh of this rank alone
+    reduced_line(20, "engine_matrix", "mesh ranks", "all", 1)
+    res = {}
+    for preset in ("engine-matrix", "serve"):
+        t0 = time.perf_counter()
+        reports = run_preset(preset, device=dev)
+        bad = [str(r) for r in reports if not r.ok]
+        res[preset] = {"combos": len(reports), "failing": len(bad),
+                       "s": time.perf_counter() - t0}
+        log(f"analysis {preset} " + json.dumps(res[preset]))
+        for b in bad:
+            log(b)
+        assert not bad, f"{len(bad)} {preset} report(s) failed"
+    calls = {k: c.calls for k, c in counters.items()}
+    launched = {k: c.launches - launches0[k] for k, c in counters.items()}
+    res["calls"], res["launches"] = calls, launched
+    log("analysis calls vs launches " + json.dumps(res))
+    assert calls == launched, (calls, launched)
+    for name in ("gossip_plane", "gossip_edges", "gossip_robust",
+                 "flash_attention"):
+        assert calls[name] > 0, (name, calls)
+    return res
+
+
+def run_tooling_phase(dev, predictions, measured):
+    """Phase 20: (a) the analysis presets on the card; (b) the dry-run's
+    predicted peaks (``predictions``, :func:`dryrun_predictions`) beside
+    the card's ``max_memory_allocated`` (``measured``, bytes: phase 17's
+    train step, phase 8's long decode step), each ratio within its pinned
+    bound, the verdict that internvl2-1b's step at n = 4 does not fit, and
+    the 80 GB constant against the card's memory; (c) the roofline table
+    (modeled); its own ``TOOLING_BUDGET_S``."""
+    import torch
+
+    from repro_torch.benchmarks import roofline
+
+    res = {"presets": run_tooling_presets(dev)}
+    total = torch.cuda.get_device_properties(0).total_memory
+    res["hbm"] = {"constant_bytes": roofline.HBM_PER_CHIP,
+                  "device_total_memory": total,
+                  "ratio": total / roofline.HBM_PER_CHIP}
+    log("dryrun hbm " + json.dumps(res["hbm"]))
+    assert 1.0 <= res["hbm"]["ratio"] <= 1.1, res["hbm"]
+    # each step's dry-run, and the kinds of its resident bytes that the
+    # card already held when its baseline was taken (phase 8's plane)
+    pairs = {"internvl2_train_step": (f"internvl2_train_n{TRAIN_NODES}", ()),
+             "stablelm_fleet_decode": ("stablelm_fleet_decode", ("params",))}
+    for name, (key, held) in pairs.items():
+        pred = predictions[key]["memory"]
+        resident = pred["resident_per_device"]
+        step_pred = pred["peak_per_device"] - sum(resident[k] for k in held)
+        res[name] = {"predicted_peak_bytes": pred["peak_per_device"],
+                     "predicted_resident_bytes": resident["total"],
+                     "held_before_step": {k: resident[k] for k in held},
+                     "predicted_step_bytes": step_pred,
+                     "measured_step_bytes": measured[name],
+                     "ratio": measured[name] / step_pred,
+                     "bound": PEAK_RATIO_BOUNDS[name],
+                     "fits_hbm": predictions[key]["fits_hbm"]}
+        log(f"dryrun {name} " + json.dumps(res[name]))
+    for name in pairs:
+        lo, hi = PEAK_RATIO_BOUNDS[name]
+        assert lo <= res[name]["ratio"] <= hi, (name, res[name])
+    big = predictions[f"internvl2_train_n{2 * TRAIN_NODES}"]
+    res["internvl2_n4"] = {"predicted_peak_bytes":
+                           big["memory"]["peak_per_device"],
+                           "fits_hbm": big["fits_hbm"]}
+    log("dryrun internvl2_train_step_n4 " + json.dumps(res["internvl2_n4"]))
+    assert not big["fits_hbm"] and res["internvl2_train_step"]["fits_hbm"]
+    # the whole table to a file, one compact line to the log
+    rows = roofline.full_table()
+    TOOLING_OUT.mkdir(parents=True, exist_ok=True)
+    with open(TOOLING_OUT / "roofline_1pod.json", "w") as f:
+        json.dump(rows, f, indent=1, default=float)
+    log("roofline " + json.dumps({
+        "modeled": True, "device": "H100 SXM5 datasheet",
+        "constants": {"peak_flops": roofline.PEAK_FLOPS,
+                      "hbm_bw": roofline.HBM_BW,
+                      "link_bw": roofline.ICI_BW,
+                      "hbm_bytes": roofline.HBM_PER_CHIP},
+        "columns": ["arch", "shape", "t_compute_s", "t_memory_s",
+                    "t_collective_s", "dominant", "hbm_gb", "fits"],
+        "rows": [[r["arch"], r["shape"], "skip"] if "skipped" in r else
+                 [r["arch"], r["shape"]]
+                 + [float(f"{r[k]:.4g}") for k in (
+                     "t_compute_s", "t_memory_s", "t_collective_s")]
+                 + [r["dominant"],
+                    round(r["hbm_resident_per_chip"] / 1e9, 2),
+                    r["fits_hbm"]] for r in rows]}))
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 12: the mix-cost study
 # ----------------------------------------------------------------------
 STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
@@ -5695,7 +5876,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
 
-    from concurrent.futures import ThreadPoolExecutor
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     from repro_torch.kernels import build
 
@@ -5733,6 +5915,11 @@ def main() -> int:
         f"alongside, {t_setup:.1f} s); {time.perf_counter() - t0:.1f} s "
         f"since the start")
 
+    # phase 20's dry-run predictions: host arithmetic on fake tensors, in
+    # a process of its own while the card works
+    dry_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    dry_future = dry_pool.submit(dryrun_predictions)
     t2 = time.perf_counter()
     cases = (check_kernels(dev) + check_flash(dev) + check_rwkv(dev)
              + check_mla(dev) + check_gossip_mix(dev))
@@ -5802,7 +5989,8 @@ def main() -> int:
     flash_main = next(c for c in cases
                       if c["name"] == "flash_attention" and c["main"])
     assert flash_main["shape"] == [SERVE_NODES, LONG_PREFILL, 32, 32, 64]
-    main_path("serving_stablelm", run_serving, dev, flash_main["ms"])
+    serving = main_path("serving_stablelm", run_serving, dev,
+                        flash_main["ms"])
     main_path("prefill_gemma2", run_gemma2, dev)
     rwkv_main = next(c for c in cases if c["name"] == "rwkv_scan"
                      and c["main"])
@@ -5856,6 +6044,16 @@ def main() -> int:
     path_shapes["multi_device_ranks"] = {"gossip_edges": ranks["shapes"]}
     log(f"main path multi_device_ranks: launches "
         f"{json.dumps(paths['multi_device_ranks'])}")
+    t20 = time.perf_counter()
+    predictions = dry_future.result()
+    dry_pool.shutdown()
+    measured = {"internvl2_train_step": zoo["train_step"]["step_peak_bytes"],
+                "stablelm_fleet_decode":
+                    serving["fleet_decode_step_long"]["step_peak_bytes"]}
+    main_path("tooling", run_tooling_phase, dev, predictions, measured)
+    t20 = time.perf_counter() - t20
+    log(f"phase 20 (the tooling): {t20:.1f} s (budget {TOOLING_BUDGET_S} s)")
+    assert t20 <= TOOLING_BUDGET_S, f"phase 20 took {t20:.1f} s"
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches

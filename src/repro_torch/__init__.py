@@ -17,6 +17,8 @@ True), which keeps only about three decimal digits.
 """
 import torch
 
+from repro_torch import _trace
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -40,9 +42,12 @@ def to_device(array, device, dtype=None) -> torch.Tensor:
     """A host array (numpy or a CPU tensor) as a tensor on ``device``.  On
     the card the copy goes through pinned memory without blocking, so a
     round loop that uploads its host-drawn masks and matrices this way
-    never waits for the device (a pageable copy synchronizes)."""
+    never waits for the device (a pageable copy synchronizes).  Uploads
+    are what ``analysis.ConstantFootprint`` counts (``_trace.note_upload``;
+    on the CPU the copy is no op for the recorder to see)."""
     t = torch.as_tensor(array, dtype=dtype)
     device = torch.device(device)
+    _trace.note_upload(t)
     if device.type != "cuda" or t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)

@@ -9,9 +9,9 @@ file a section under ``--out`` (``artifacts_torch/`` by default).
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only serve --device cpu
 
 Sections: fig2, fig4, fig5, fig6, ablations, gossip, mix (the port's
-``gossip_cost``) and serve.  The reference's ``roofline`` section models
-a TPU v5e over its memory dry-run and is not ported: ``--only roofline``
-raises (ROADMAP Queue 1 [tooling]).  Runs take the CUDA card unless
+``gossip_cost``), serve and roofline (``benchmarks/roofline.py``: the
+analytic table of every arch × shape pair against the H100's datasheet
+constants, modeled, host arithmetic).  Runs take the CUDA card unless
 ``--device cpu``.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import List, Optional
 __all__ = ["SECTIONS", "main"]
 
 SECTIONS = ("fig2", "fig4", "fig5", "fig6", "ablations", "gossip", "mix",
-            "serve")
+            "serve", "roofline")
 
 
 def _dump(obj, path):
@@ -45,11 +45,6 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     args = ap.parse_args(argv)
 
     sections = args.only.split(",") if args.only else list(SECTIONS)
-    if "roofline" in sections:
-        raise NotImplementedError(
-            "the roofline section models a TPU v5e over the reference's "
-            "jaxpr memory dry-run, which the port does not have (ROADMAP "
-            "Queue 1 [tooling])")
     unknown = sorted(set(sections) - set(SECTIONS))
     if unknown:
         raise SystemExit(f"unknown sections {unknown}; have {SECTIONS}")
@@ -172,6 +167,13 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                 best["vmapped_speedup"], best["n_nodes"],
                 best["fleet_vmapped"]["tokens_per_sec"],
                 rec["all_checks_passed"]))
+
+    if "roofline" in sections:
+        from repro_torch.benchmarks import roofline
+
+        rows = roofline.full_table(multi_pod=False)
+        print("\n" + roofline.format_table(rows))
+        _dump(rows, f"{args.out}/roofline_1pod.json")
 
     print("\n=== verdicts (paper-claim checks) ===")
     for v in verdicts:

@@ -65,6 +65,7 @@ import torch
 
 from repro_torch import resolve_device, to_device
 from repro_torch import tree as tree_util
+from repro_torch._trace import region
 from repro_torch.core.coeffs import (
     PROGRAM_KINDS,
     participation_renormalize,
@@ -94,6 +95,7 @@ __all__ = [
     "round_coeffs",
     "coeffs_stack",
     "make_mix_fn",
+    "mix_impl_budget",
     "sparse_schedule",
     "edges_schedule",
     "make_local_train_fn",
@@ -330,6 +332,26 @@ def make_mix_fn(mix_impl: str = "einsum",
     raise KeyError(f"unknown mix_impl {mix_impl!r}; have {MIX_IMPLS}")
 
 
+def mix_impl_budget(mix_impl: str, n_leaves: int = 1,
+                    mix_support: Optional[np.ndarray] = None,
+                    sparse_slack: int = 4, robust: str = "mean",
+                    experiments: int = 1) -> dict:
+    """The kernel calls and matrix products a configured mix adds to one
+    round (``kernels.gossip_mix.mix_eqn_budget``) with the circulant
+    path's dense fallback resolved as :func:`make_mix_fn` resolves it:
+    when it fires, the einsum budget is the contract.  The reference's
+    function of the same name, counting what the port runs."""
+    from repro_torch.kernels.gossip_mix import mix_eqn_budget
+
+    if mix_impl == "sparse" and mix_support is not None:
+        offsets, _ = sparse_schedule(mix_support, sparse_slack)
+        if offsets is None:
+            return mix_eqn_budget("einsum", n_leaves, robust=robust,
+                                  experiments=experiments)
+    return mix_eqn_budget(mix_impl, n_leaves, robust=robust,
+                          experiments=experiments)
+
+
 # ----------------------------------------------------------------------
 # vmapped calls in slices of the node axis
 # ----------------------------------------------------------------------
@@ -464,8 +486,9 @@ def _unfold(tree, e: Optional[int]):
 
 def _local_train_folded(local_train, params, opt, batches, e):
     """LocalTrain with a sweep's E experiments folded into the node axis."""
-    p, o, losses = local_train(_fold(params, e), _fold(opt, e),
-                               _fold(batches, e), e or 1)
+    with region("local_train"):
+        p, o, losses = local_train(_fold(params, e), _fold(opt, e),
+                                   _fold(batches, e), e or 1)
     return _unfold(p, e), _unfold(o, e), _unfold(losses, e)
 
 
@@ -493,7 +516,8 @@ def make_round_fn(loss_fn: Callable, optimizer: Optimizer, local_epochs: int,
         params, opt, losses = _local_train_folded(
             local_train, stacked_params, stacked_opt, node_batches,
             _experiments(coeffs))
-        return mix(params, coeffs), opt, losses
+        with region("mix"):
+            return mix(params, coeffs), opt, losses
 
     return round_fn
 
@@ -598,7 +622,9 @@ def make_participation_round_fn(loss_fn: Callable, optimizer: Optimizer,
         pub = _select(active, trained, pcarry["pub"])
         if not participation.stale_mixing:
             coeffs = participation_renormalize(coeffs, active)
-        params = _select(active, mix(pub, coeffs), stacked_params)
+        with region("mix"):
+            mixed = mix(pub, coeffs)
+        params = _select(active, mixed, stacked_params)
         opt = _select(active, opt_t, stacked_opt)
         losses = torch.where(active, losses, torch.zeros_like(losses))
         pcarry = _participation_update({**pcarry, "pub": pub}, active, steps)
@@ -746,7 +772,9 @@ def make_fault_round_fn(loss_fn: Callable, optimizer: Optimizer,
             keep_local = faulty | quarantined
         else:
             pub_mix, keep_local = pub, faulty
-        params = _select(keep_local, trained, mix(pub_mix, coeffs))
+        with region("mix"):
+            mixed = mix(pub_mix, coeffs)
+        params = _select(keep_local, trained, mixed)
         if participation is None:
             return params, opt_t, fcarry, losses
         params = _select(active, params, stacked_params)
@@ -812,36 +840,37 @@ def make_scan_fn(round_fn: Callable, evaluate: Callable,
         pc, fc, ac = participation_carry, fault_carry, analytics_carry
         losses_h, iid_h, ood_h = [], [], []
         for t in range(len(eval_mask)):
-            bx = tree_util.tree_map(lambda x: x[t], batch_xs)
-            c = coeffs[t]
-            if coeff_fn is not None:
-                c = coeff_fn(int(c))   # c is this step's absolute round
-            r_abs = int(round_idx[t]) if needs_rounds else None
-            batch = make_batch(bx)
-            if fault is not None:
-                if participation is not None:
-                    p, o, pc, fc, losses = round_fn(p, o, pc, fc, batch, c,
-                                                    r_abs)
+            with region("round"):
+                bx = tree_util.tree_map(lambda x: x[t], batch_xs)
+                c = coeffs[t]
+                if coeff_fn is not None:
+                    c = coeff_fn(int(c))   # c is this step's absolute round
+                r_abs = int(round_idx[t]) if needs_rounds else None
+                batch = make_batch(bx)
+                if fault is not None:
+                    if participation is not None:
+                        p, o, pc, fc, losses = round_fn(
+                            p, o, pc, fc, batch, c, r_abs)
+                    else:
+                        p, o, fc, losses = round_fn(p, o, fc, batch, c, r_abs)
+                elif participation is not None:
+                    p, o, pc, losses = round_fn(p, o, pc, batch, c, r_abs)
                 else:
-                    p, o, fc, losses = round_fn(p, o, fc, batch, c, r_abs)
-            elif participation is not None:
-                p, o, pc, losses = round_fn(p, o, pc, batch, c, r_abs)
-            else:
-                p, o, losses = round_fn(p, o, batch, c)
-            del batch   # before the next round's gather, not after it
-            do_eval = bool(eval_mask[t])
-            if do_eval:
-                with torch.no_grad():
-                    iid, ood = evaluate(p, test_iid, test_ood)
-            else:
-                iid = ood = torch.zeros(losses.shape, dtype=torch.float32,
-                                        device=losses.device)
-            if analytics is not None:
-                ac = analytics.update(ac, r_abs, do_eval, iid, ood)
-            if keep_history:
-                losses_h.append(losses)
-                iid_h.append(iid)
-                ood_h.append(ood)
+                    p, o, losses = round_fn(p, o, batch, c)
+                del batch   # before the next round's gather, not after it
+                do_eval = bool(eval_mask[t])
+                if do_eval:
+                    with torch.no_grad(), region("eval"):
+                        iid, ood = evaluate(p, test_iid, test_ood)
+                else:
+                    iid = ood = torch.zeros(losses.shape, dtype=torch.float32,
+                                            device=losses.device)
+                if analytics is not None:
+                    ac = analytics.update(ac, r_abs, do_eval, iid, ood)
+                if keep_history:
+                    losses_h.append(losses)
+                    iid_h.append(iid)
+                    ood_h.append(ood)
         out = [p, o]
         if participation is not None:
             out.append(pc)

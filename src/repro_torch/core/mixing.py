@@ -279,11 +279,13 @@ def robust_combine(vals: torch.Tensor, w: torch.Tensor,
                          f"('trimmed', 'median')")
     dt = vals.dtype
     valid = (w > 0)[:, :, None]
-    big = torch.tensor(_ROBUST_BIG, dtype=dt, device=vals.device)
+    # filled on the device: a tensor built from a Python scalar on the
+    # card is a pageable copy, which waits for the stream
+    full = lambda v: torch.full((), v, dtype=dt, device=vals.device)
+    big = full(_ROBUST_BIG)
     keys = torch.nan_to_num(vals, nan=_ROBUST_BIG, posinf=_ROBUST_BIG,
                             neginf=-_ROBUST_BIG).clamp(-big, big)
-    keys = torch.where(valid, keys, torch.tensor(_ROBUST_PAD, dtype=dt,
-                                                 device=vals.device))
+    keys = torch.where(valid, keys, full(_ROBUST_PAD))
     w3 = torch.where(valid, w[:, :, None], torch.zeros((), dtype=dt,
                                                        device=vals.device))
     keys, w3 = oddeven_sort_pairs(keys, w3.to(dt).expand(keys.shape))

@@ -61,12 +61,15 @@ gives each experiment the same bits at E/k as at E (the CPU does).  With
 ``checkpoint_dir`` the whole state is gathered at each chunk boundary and
 rank 0 writes it in the unsharded format (E experiments, no padding), so a
 checkpoint resumes under any mesh or none; the ranks must share the
-directory's filesystem.  ``SweepEngine.traceable`` is ROADMAP Queue 1
-[tooling].
+directory's filesystem.
+
+:meth:`SweepEngine.traceable` hands out the exact step each mode runs
+(``_run_rounds`` on the prepared inputs) for ``repro_torch.analysis``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import zipfile
@@ -570,31 +573,11 @@ class SweepEngine:
         if checkpoint_dir is not None and not chunk_rounds:
             raise ValueError("checkpoint_dir needs chunk_rounds: "
                              "checkpoints are written at chunk boundaries")
-        shard = None
-        if mesh is not None:
-            self._check_support(coeffs)   # on every rank, the whole grid
-            n_exp = int(tree_util.leaves(params0)[0].shape[0])
-            shard = _Shard.of(mesh, n_exp)
-            if participation is not None:
-                participation_rates, participation_seeds = shard.take(
-                    _rates_and_seeds(participation_rates,
-                                     participation_seeds, 1.0,
-                                     participation.seed, n_exp))
-            if fault is not None:
-                fault_rates, fault_seeds = shard.take(_rates_and_seeds(
-                    fault_rates, fault_seeds, 0.0, fault.seed, n_exp))
-            if isinstance(coeffs, ProgramCoeffs):
-                coeffs = dataclasses.replace(coeffs,
-                                             states=shard.take(coeffs.states))
-            else:
-                coeffs = shard.take(np.asarray(coeffs, np.float32))
-            params0, data_idx, test_iid, test_ood = shard.take(
-                (params0, np.asarray(data_idx), test_iid, test_ood))
-        run = self._prepare(params0, coeffs, bank, indices, data_idx,
-                            test_iid, test_ood, analytics, keep_history,
-                            participation, participation_rates,
-                            participation_seeds, fault, fault_rates,
-                            fault_seeds)
+        shard, run = self._shard_and_prepare(
+            mesh, params0, coeffs, bank, indices, data_idx, test_iid,
+            test_ood, analytics, keep_history, participation,
+            participation_rates, participation_seeds, fault, fault_rates,
+            fault_seeds)
         chunk = 1 if unroll else (chunk_rounds or run.rounds)
         hist: List[tuple] = []
         start = 0
@@ -627,6 +610,101 @@ class SweepEngine:
                            keep_history)
         return res if shard is None else shard.gather_result(res,
                                                              self.device)
+
+    def _shard_and_prepare(self, mesh, params0, coeffs, bank, indices,
+                           data_idx, test_iid, test_ood, analytics,
+                           keep_history, participation, participation_rates,
+                           participation_seeds, fault, fault_rates,
+                           fault_seeds):
+        """``(shard, run)``: with a mesh, this rank's block of every
+        per-experiment input (``shard`` None without one), then
+        :meth:`_prepare`."""
+        shard = None
+        if mesh is not None:
+            self._check_support(coeffs)   # on every rank, the whole grid
+            n_exp = int(tree_util.leaves(params0)[0].shape[0])
+            shard = _Shard.of(mesh, n_exp)
+            if participation is not None:
+                participation_rates, participation_seeds = shard.take(
+                    _rates_and_seeds(participation_rates,
+                                     participation_seeds, 1.0,
+                                     participation.seed, n_exp))
+            if fault is not None:
+                fault_rates, fault_seeds = shard.take(_rates_and_seeds(
+                    fault_rates, fault_seeds, 0.0, fault.seed, n_exp))
+            if isinstance(coeffs, ProgramCoeffs):
+                coeffs = dataclasses.replace(coeffs,
+                                             states=shard.take(coeffs.states))
+            else:
+                coeffs = shard.take(np.asarray(coeffs, np.float32))
+            params0, data_idx, test_iid, test_ood = shard.take(
+                (params0, np.asarray(data_idx), test_iid, test_ood))
+        run = self._prepare(params0, coeffs, bank, indices, data_idx,
+                            test_iid, test_ood, analytics, keep_history,
+                            participation, participation_rates,
+                            participation_seeds, fault, fault_rates,
+                            fault_seeds)
+        return shard, run
+
+    def traceable(self, params0, coeffs, bank, indices, data_idx, test_iid,
+                  test_ood, batch_size: int, mode: str = "scanned",
+                  mesh=None, chunk_rounds: Optional[int] = None,
+                  analytics: Optional[AnalyticsSpec] = None,
+                  keep_history: bool = True,
+                  donate: Optional[bool] = None,
+                  participation: Optional[ParticipationSpec] = None,
+                  participation_rates=None, participation_seeds=None,
+                  fault: Optional[FaultSpec] = None, fault_rates=None,
+                  fault_seeds=None):
+        """``(fn, args, kwargs)`` for ``repro_torch.analysis``: the step
+        :meth:`run` executes for each mode, ``fn(*args, **kwargs)``
+        returning that step's history (``(E, rounds, n)`` loss, IID, OOD on
+        the device) and leaving the state in ``args[0]``, the prepared
+        ``_Run`` (its ``params`` and ``opt`` are the carry).  The
+        reference's arguments; the inputs as :meth:`run` takes them.
+
+        ``mode``: ``"scanned"`` all rounds; ``"chunked"`` the first chunk
+        of ``chunk_rounds``; ``"unrolled"`` the first round, with its
+        evaluation (the reference's unrolled step evaluates, as a run of
+        one round does); ``"mesh"`` this rank's block of the grid over
+        ``mesh`` (a ``launch.mesh.SweepMesh``; default
+        ``make_sweep_mesh()`` over the world, which needs a process
+        group), all rounds.  ``donate`` (default: True for ``"chunked"``
+        and ``"mesh"``, False otherwise) is the reference's donation of
+        the ``(params, opt)`` carry: the engine's step drops its input
+        carry as it goes; ``donate=False`` gives a step that keeps it
+        alive, as a step whose inputs are not donated leaves them valid.
+        """
+        if mode not in ("scanned", "chunked", "mesh", "unrolled"):
+            raise KeyError(f"unknown mode {mode!r}; have 'scanned', "
+                           f"'chunked', 'mesh', 'unrolled'")
+        if mode == "mesh" and mesh is None:
+            from repro_torch.launch.mesh import make_sweep_mesh
+
+            mesh = make_sweep_mesh()
+        _, run = self._shard_and_prepare(
+            mesh if mode == "mesh" else None, params0, coeffs, bank,
+            indices, data_idx, test_iid, test_ood, analytics, keep_history,
+            participation, participation_rates, participation_seeds, fault,
+            fault_rates, fault_seeds)
+        b = {"scanned": run.rounds, "mesh": run.rounds,
+             "chunked": min(chunk_rounds or run.rounds, run.rounds),
+             "unrolled": 1}[mode]
+        if mode == "unrolled":
+            run.eval_mask[0] = True
+        # the round function (its neighbour tables placed on the device)
+        # is set-up, built once an engine: the step is the round loop
+        self._round_fn(participation, fault)
+        fn = functools.partial(
+            self._run_rounds, batch_size=batch_size, analytics=analytics,
+            keep_history=keep_history, participation=participation,
+            fault=fault)
+        if donate is None:
+            donate = mode in ("chunked", "mesh")
+        if not donate:
+            fn = functools.partial(_keeping_inputs, fn,
+                                   (run.params, run.opt))
+        return fn, (run, 0, b), {}
 
     def _result(self, run: _Run, hist, analytics, participation, fault,
                 keep_history) -> SweepResult:
@@ -686,6 +764,13 @@ class SweepEngine:
         run.pcarry = {**run.pcarry, **state["pcarry"]}
         run.fcarry = {**run.fcarry, **state["fcarry"]}
         return done, hist
+
+
+def _keeping_inputs(step, kept, *args, **kwargs):
+    """``step(*args, **kwargs)``; ``kept``, the step's input carry bound
+    into the partial, stays referenced as long as the step does: the
+    counterpart of a step without donation."""
+    return step(*args, **kwargs)
 
 
 def _rates_and_seeds(rates, seeds, default_rate: float, seed0: int,

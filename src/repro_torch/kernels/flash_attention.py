@@ -14,7 +14,9 @@ version :func:`flash_attention_ref` (the port of ``repro/kernels/ref.py``
 ``flash_attention_ref``) only for tensors on the CPU; a CUDA tensor
 launches a kernel or raises.  ``flash_attention.launches`` counts the
 launches of either kernel (a plain int, reset by the caller),
-``flash_attention.shapes`` the same launches by shape and dtype.
+``flash_attention.shapes`` the same launches by shape and dtype,
+``flash_attention.calls`` every call, CPU or CUDA
+(``_trace.kernel_entry``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch._trace import kernel_entry
 from repro_torch.models.layers import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
@@ -111,6 +114,7 @@ def _check_rows_aligned(*tensors: torch.Tensor) -> None:
                 f"{tuple(t.stride()[:3])}")
 
 
+@kernel_entry("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     logit_softcap: float = 0.0) -> torch.Tensor:

@@ -30,7 +30,8 @@ plain PyTorch version (``gossip_plane_ref``, ``gossip_edges_ref``,
 CUDA tensor launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches (plain ints, reset by the
 caller), ``<wrapper>.shapes`` the same launches by operand shape and
-dtype.
+dtype, ``<wrapper>.calls`` every call, CPU or CUDA (``_trace.
+kernel_entry``, which also marks the call's region for a tracer).
 
 The experiment axis: :func:`gossip_plane`, :func:`gossip_edges` and
 :func:`gossip_robust` also take the sweep engine's E experiments at once
@@ -63,6 +64,7 @@ from typing import Optional
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch._trace import kernel_entry
 from repro_torch.core.mixing import edge_weights, robust_combine
 from repro_torch.core.plane import PlaneLayout
 
@@ -80,6 +82,8 @@ __all__ = [
     "gossip_mix_ref",
     "mix_dense_rows",
     "mix_modeled_hbm_bytes",
+    "mix_eqn_budget",
+    "mix_accum_upcasts",
     "MixPlan",
     "mix_plan",
     "RobustPlan",
@@ -88,6 +92,61 @@ __all__ = [
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = {}
+
+
+def mix_eqn_budget(mix_impl: str, n_leaves: int = 1, robust: str = "mean",
+                   experiments: int = 1) -> dict:
+    """What ONE aggregation (Eq. 2) adds to a round, as the port counts it:
+    kernel-wrapper calls (``"kernel_call"``, the reference's
+    ``pallas_call``) and aten matrix products outside the kernels
+    (``"matmul"``, its ``dot_general``) — the reference's budget of the
+    same name, consumed by ``analysis.FusionBudget``.
+
+    * ``"einsum"`` — one matrix product a leaf (``core.mixing.mix_dense``),
+      for each of a sweep's ``experiments``; no kernel.
+    * ``"pallas"`` — the fused plane: exactly one :func:`gossip_plane`
+      call for the whole mix, whatever the leaf or experiment count.
+    * ``"edges"`` — one :func:`gossip_edges` call (the per-edge weight
+      gather is indexing, not a product).
+    * ``"sparse"`` — the circulant schedule's rolls and multiplies: none
+      of either (its dense fallback is an einsum budget:
+      ``core.decentralized.mix_impl_budget`` resolves it).
+
+    ``robust``: ``"norm_clip"`` is a coefficient transform in front of the
+    unchanged impl (same budget); ``"trimmed"``/``"median"`` replace the
+    contraction: the einsum path with the plain sort
+    (``core.mixing.mix_robust_tables``, no product) and the edges path
+    with one :func:`gossip_robust` call."""
+    budgets = {
+        "einsum": {"kernel_call": 0, "matmul": experiments * n_leaves},
+        "pallas": {"kernel_call": 1, "matmul": 0},
+        "edges": {"kernel_call": 1, "matmul": 0},
+        "sparse": {"kernel_call": 0, "matmul": 0},
+    }
+    if mix_impl not in budgets:
+        raise KeyError(f"unknown mix_impl {mix_impl!r}; "
+                       f"have {sorted(budgets)}")
+    if robust in ("trimmed", "median"):
+        if mix_impl == "einsum":
+            return {"kernel_call": 0, "matmul": 0}
+        if mix_impl == "edges":
+            return {"kernel_call": 1, "matmul": 0}
+        raise ValueError(f"robust={robust!r} has no {mix_impl!r} path "
+                         f"(supported: einsum reference, edges kernel)")
+    return budgets[mix_impl]
+
+
+def mix_accum_upcasts(mix_impl: str, mix_in_float32: bool,
+                      plane_low_precision: bool):
+    """Declared accumulation policy for ``analysis.DtypeFlow``: should the
+    mix kernel's region hold small-float → f32 casts?  ``True`` for f32
+    accumulation of a low-precision plane (``mix_in_float32=True`` on a
+    bf16 plane), ``False`` for the low-precision ablation, ``None`` where
+    there is nothing to check (no kernel in this impl, or an f32 plane).
+    The reference's policy, unchanged."""
+    if mix_impl not in ("pallas", "edges") or not plane_low_precision:
+        return None
+    return bool(mix_in_float32)
 
 
 def _lib(name: str = "gossip_mix") -> ctypes.CDLL:
@@ -387,6 +446,7 @@ def gossip_plane_ref(plane: torch.Tensor, coeffs: torch.Tensor,
     return acc
 
 
+@kernel_entry("gossip_plane")
 def gossip_plane(plane: torch.Tensor, coeffs: torch.Tensor,
                  mix_in_float32: bool = True) -> torch.Tensor:
     """``out = coeffs @ plane``: plane ``(n, P)`` f32 or bf16, coeffs
@@ -513,6 +573,7 @@ def _check_cuda_tables(plane: torch.Tensor, weights: torch.Tensor,
         raise ValueError("nbr_idx must be int32 on the plane's device")
 
 
+@kernel_entry("gossip_edges")
 def gossip_edges(plane: torch.Tensor, weights: torch.Tensor,
                  nbr_idx: torch.Tensor,
                  mix_in_float32: bool = True) -> torch.Tensor:
@@ -668,6 +729,7 @@ def gossip_robust_ref(plane: torch.Tensor, weights: torch.Tensor,
     return out.to(plane.dtype)
 
 
+@kernel_entry("gossip_robust")
 def gossip_robust(plane: torch.Tensor, weights: torch.Tensor,
                   nbr_idx: torch.Tensor, op: str = "trimmed",
                   trim_k: int = 1,
@@ -760,6 +822,7 @@ def gossip_mix_ref(blocks: torch.Tensor,
     return out[0] if weights.ndim == 1 else out
 
 
+@kernel_entry("gossip_mix")
 def gossip_mix(blocks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """``out = Σ_k weights[k] · blocks[k]``: blocks ``(K, M, N)`` f32 or
     bf16, weights ``(K,)`` f32 → ``(M, N)``, or ``(R, K)`` → ``(R, M, N)``

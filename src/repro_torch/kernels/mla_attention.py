@@ -22,6 +22,8 @@ its kernel or raises, and never falls back to the other kernel.
 int); ``mla_attention.kernel_launches`` counts them by kernel name and
 ``mla_attention.shapes`` by shape and kernel.  All are bumped at the one
 launch site, and a caller that resets one resets the others.
+``mla_attention.calls`` counts every call, CPU or CUDA
+(``_trace.kernel_entry``).
 
 Mask: latent row t is seen by query s where ``t <= s`` and ``t < T``, as
 ``mla_attention_ref`` has it.  The Pallas kernel masks ``t < S`` over its
@@ -35,6 +37,7 @@ import ctypes
 
 import torch
 
+from repro_torch._trace import kernel_entry
 from repro_torch.models.layers import NEG_INF
 
 __all__ = ["mla_attention", "mla_attention_ref", "kernel_for", "RANKS"]
@@ -132,6 +135,7 @@ def kernel_for(c_kv: torch.Tensor) -> str:
     return "mla_tc_kernel" if c_kv.dtype == torch.bfloat16 else "mla_kernel"
 
 
+@kernel_entry("mla_attention")
 def mla_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                   c_kv: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
     """Latent context ``(B, S, H, r)`` in q_lat's type, causal, of q_lat

@@ -19,7 +19,8 @@ kernel or raises.  :func:`scan_plan` lays out the launch: how many state
 columns a block owns, and so how many blocks share each head.
 ``rwkv_scan.launches`` counts kernel launches (a plain int, reset by the
 caller), ``rwkv_scan.shapes`` the same launches by ``(B, S, H, hd,
-dtype)``.
+dtype)``, ``rwkv_scan.calls`` every call, CPU or CUDA
+(``_trace.kernel_entry``).
 
 ``u`` is the reference's ``(H, hd)`` bonus, or ``(B, H, hd)``: one bonus
 per sequence, so that a fleet's nodes, each with its own ``bonus_u``, run
@@ -32,6 +33,8 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch._trace import kernel_entry
 
 __all__ = ["rwkv_scan", "rwkv_scan_ref", "HEAD_DIMS", "ScanPlan",
            "scan_plan"]
@@ -198,6 +201,7 @@ def _check(r, k, v, w, u, state) -> None:
                         f"or bfloat16; got {r.dtype}, {k.dtype}, {v.dtype}")
 
 
+@kernel_entry("rwkv_scan")
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
     """The RWKV-6 recurrence over ``(B, S, H, hd)`` inputs from ``state``

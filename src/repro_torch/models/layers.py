@@ -442,8 +442,9 @@ def mla_apply(p, cfg, x, positions, impl: str = "einsum"):
     scale = _mla_scale(cfg)
     if impl == "pallas":
         # the reference multiplies q_rope by a weakly typed scalar, which
-        # takes q_rope's type first
-        typed = torch.tensor(scale).to(q_rope.dtype).item()
+        # takes q_rope's type first: a CPU scalar tensor of that type (a
+        # CUDA op reads it on the host: no copy, no sync)
+        typed = torch.tensor(scale).to(q_rope.dtype)
         ctx = mla_attention(_fold(q_lat * scale),
                             _fold((q_rope * typed).to(q_lat.dtype)),
                             _fold(c_kv), _fold(k_rope)).float()

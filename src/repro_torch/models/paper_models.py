@@ -47,12 +47,23 @@ def ffn_init(generator: torch.Generator, in_dim: int = 784, hidden: int = 128,
             "l3": layer(hidden, n_classes)}
 
 
+def _promoted_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype, as ``jnp`` promotes it (f32 images
+    against bf16 weights compute in f32); no cast when they agree."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def ffn_apply(params: Dict, images: torch.Tensor) -> torch.Tensor:
-    """images: (B, ...) flattened internally → logits (B, n_classes)."""
+    """images: (B, ...) flattened internally → logits (B, n_classes).
+    Weights of a narrower dtype than the images (the bf16-plane ablation)
+    compute in the wider one, as the reference's ``x @ w`` does."""
     x = images.reshape(images.shape[0], -1)
-    x = torch.relu(x @ params["l1"]["w"] + params["l1"]["b"][None])
-    x = torch.relu(x @ params["l2"]["w"] + params["l2"]["b"][None])
-    return x @ params["l3"]["w"] + params["l3"]["b"][None]
+    x = torch.relu(_promoted_mm(x, params["l1"]["w"])
+                   + params["l1"]["b"][None])
+    x = torch.relu(_promoted_mm(x, params["l2"]["w"])
+                   + params["l2"]["b"][None])
+    return _promoted_mm(x, params["l3"]["w"]) + params["l3"]["b"][None]
 
 
 # ----------------------------------------------------------------------

@@ -281,7 +281,9 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
                         params["frontend_proj"])
         return x.to(cfg.activation_dtype)
     x = _node_rows(params, tokens)
-    scale = torch.tensor(_root_d(cfg)).to(x.dtype).item()
+    # a CPU scalar tensor of the embedding's type: a CUDA op reads it on
+    # the host (no copy, no sync)
+    scale = torch.tensor(_root_d(cfg)).to(x.dtype)
     return (x * scale).to(cfg.activation_dtype)
 
 

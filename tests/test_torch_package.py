@@ -31,8 +31,9 @@ def test_imports_with_jax_and_repro_blocked():
     reference's top-level ``benchmarks`` and ``networkx`` made
     unimportable (``sys.modules[name] = None``; the GPU machine has no
     networkx), the kernel wrappers, the model layers, the graph layer, the
-    coefficient programs, the entry points and the multi-device modules
-    (meshes, distributed gossip, sharding rules) among them."""
+    coefficient programs, the entry points, the multi-device modules
+    (meshes, distributed gossip, sharding rules) and the tooling (the
+    dry-run and its specs, the roofline, ``analysis``) among them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "repro", "benchmarks", "networkx"):
@@ -52,7 +53,11 @@ def test_imports_with_jax_and_repro_blocked():
                   "benchmarks.ablations", "benchmarks.sweep",
                   "benchmarks.serve_bench", "benchmarks.run",
                   "launch.serve", "launch.train", "launch.mesh",
-                  "core.gossip", "sharding"):
+                  "core.gossip", "sharding", "launch.specs",
+                  "launch.dryrun", "benchmarks.roofline", "analysis",
+                  "analysis.report", "analysis.walker", "analysis.rules",
+                  "analysis.presets", "analysis.pytest_plugin",
+                  "analysis.__main__", "_trace"):
             assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "repro",
@@ -102,3 +107,25 @@ def test_cpu_on_request():
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_program_does_not_load_the_tooling():
+    """The kernels, the engine and the serving steps mark their regions
+    through ``repro_torch._trace`` alone: importing them loads nothing of
+    ``repro_torch.analysis`` or the dry-run."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.core.sweep, repro_torch.core.decentralized
+        import repro_torch.kernels.gossip_mix, repro_torch.kernels.ssm_scan
+        import repro_torch.kernels.flash_attention
+        import repro_torch.kernels.mla_attention
+        import repro_torch.serving.serve_step
+        loaded = sorted(k for k in sys.modules
+                        if k.startswith(("repro_torch.analysis",
+                                         "repro_torch.launch.dryrun")))
+        assert not loaded, loaded
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -12,7 +12,7 @@ mode) holds to the grid.  ``--shard`` under gloo at worlds 2 and 4
 ``sharded/<preset>`` record keys, ``--shard-scale``'s crossover record;
 its refusals, and the default device without a GPU, raise.  The
 benchmark runner (``repro_torch.benchmarks.run``) takes
-the reference's sections but ``roofline``.
+the reference's sections, ``roofline`` included.
 """
 import io
 import json
@@ -206,16 +206,17 @@ def test_shard_and_the_default_device_raise(monkeypatch):
 
 def test_benchmark_runner_sections(tmp_path, capsys):
     """``python -m repro_torch.benchmarks.run``: its sections are the
-    reference's but ``roofline``, which raises citing ROADMAP Queue 1
-    [tooling]; ``--only serve,mix --device cpu`` prints the CSV header,
-    writes the sections' records and the reference's two verdict
-    lines."""
+    reference's, ``roofline`` the H100 table (modeled;
+    ``tests/test_torch_roofline.py`` holds its terms to the reference's);
+    ``--only serve,mix --device cpu`` prints the CSV header, writes the
+    sections' records and the reference's two verdict lines."""
     from repro_torch.benchmarks import run as trun
 
     assert trun.SECTIONS == ("fig2", "fig4", "fig5", "fig6", "ablations",
-                             "gossip", "mix", "serve")
-    with pytest.raises(NotImplementedError, match=r"\[tooling\]"):
-        trun.main(["--only", "roofline", "--device", "cpu"])
+                             "gossip", "mix", "serve", "roofline")
+    assert trun.main(["--only", "roofline", "--device", "cpu",
+                      "--out", str(tmp_path)]) == []
+    assert "modeled: H100 SXM5 datasheet" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         trun.main(["--only", "fig9", "--device", "cpu"])
     verdicts = trun.main(["--only", "serve,mix", "--device", "cpu",
@@ -229,4 +230,5 @@ def test_benchmark_runner_sections(tmp_path, capsys):
     assert "outputs identical and post-gossip swap in place: True" in \
         verdicts[1]
     assert {p.name for p in tmp_path.iterdir()} >= {"BENCH_mix.json",
-                                                    "BENCH_serve.json"}
+                                                    "BENCH_serve.json",
+                                                    "roofline_1pod.json"}
