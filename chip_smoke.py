@@ -261,6 +261,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    not fit, and its 80 GB constant against the card's total memory; (c)
    the roofline table of every arch × shape pair (modeled, the H100's
    datasheet constants);
+21. (after 20) the examples, its own 60 s budget (``EXAMPLES_BUDGET_S``),
+   each as written (``repro_torch.examples``): (a) quickstart (BA(16, 2),
+   25 rounds, einsum: no launch; degree's OOD AUC above unweighted's); (b)
+   the LLM pre-training example at ``--full100m`` with its defaults (n =
+   4, 25 rounds of 8 AdamW steps, f32): finite losses, the last round's
+   mean below the first's, exactly one ``gossip_plane`` launch a round at
+   (4, 65,020,416) f32, s/round and the peak memory, and the kernel at
+   that shape against its plain version; (c) the two-pod example for both
+   bridges (one inter-pod edge; the hub bridge above the leaf one); (d)
+   per-node serving (logits (8, 4, 1, 16), a node's row against
+   ``decode_step`` of its params); (e) ``attention_apply`` with and
+   without flash at smoke shapes (one flash launch a call, the phase-2 f32
+   gate); (f) ``perf_iterations``' four modeled speedups;
 5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
    JSON line, the card line and the device line (last).
 
@@ -295,7 +308,7 @@ and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
 Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16, 17,
-18, 19 and 20 are the main path (phase 19 (b)'s ranks count in their own
+18, 19, 20 and 21 are the main path (phase 19 (b)'s ranks count in their own
 processes and print their counts):
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
@@ -5675,6 +5688,242 @@ def run_tooling_phase(dev, predictions, measured):
 
 
 # ----------------------------------------------------------------------
+# phase 21: the examples, the perf-iteration planner, the attention layer
+# ----------------------------------------------------------------------
+EXAMPLES_BUDGET_S = 60
+EXAMPLES_OUT = Path(__file__).resolve().parent / "chiprun_out" / "examples"
+LLM_NODES, LLM_ROUNDS = 4, 25        # the LLM example's own defaults
+# its --full100m tree: 65,011,712 parameters by param_count() plus the 17
+# norm scales (8,704), the gossip plane's width
+LLM_PLANE_P = 65_020_416
+# the serve step's row of one node (8 nodes in one bmm a weight) against
+# decode_step of that node's params alone (one node a bmm): the same f32
+# function, products in another order.  Measured on an H100, 700 W
+# (PERF.md §6): 1.91e-6 at max|logit| 4.48, 4.3e-7 of it
+SERVE_ROW_REL_TOL = 2e-6
+ATTN_SMOKE = (("stablelm-1.6b", "global"), ("gemma2-27b", "local"))
+ATTN_NODES, ATTN_BATCH, ATTN_SEQ = 2, 2, 256
+
+
+def run_examples_phase(dev):
+    """Phase 21, its own ``EXAMPLES_BUDGET_S``: the port's examples as
+    written (``repro_torch.examples``), each part's kernel launches read
+    from the counters around it: (a) quickstart (BA(16, 2), 25 rounds,
+    einsum: no launch; degree's OOD AUC above unweighted's, as the
+    reference script shows on the CPU); (b) the LLM example at
+    ``--full100m`` with its defaults (n = 4, 25 rounds of 8 AdamW steps,
+    f32): finite losses, the last round's mean below the first's, exactly
+    one ``gossip_plane`` launch a round, all at (4, 65,020,416) f32,
+    s/round and the peak memory; then ``gossip_plane`` at that shape
+    against its plain version (the repo's f32 gate), timed beside its
+    bound, ``torch.matmul`` and ``copy_`` (yardstick launches, not counted);
+    (c) the two-pod example for both bridges (one inter-pod edge each; the
+    hub bridge above the leaf one in global OOD AUC and in the far pod's
+    final OOD accuracy, as the reference shows on the CPU; no launch);
+    (d) per-node serving (logits (8, 4, 1, 16) finite; the serve step's row
+    of the OOD node against ``decode_step`` of that node's params; no
+    launch); (e) ``attention_apply`` with and without flash at smoke
+    shapes, f32, held by the phase-2 f32 flash gate, one flash launch a
+    call; (f) ``perf_iterations`` without ``--verify``: the four modeled
+    speedups, no device work."""
+    import collections
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.benchmarks import perf_iterations
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.decentralized import unstack_params
+    from repro_torch.core.plane import aligned_plane
+    from repro_torch.core.strategies import AggregationStrategy, mixing_matrix
+    from repro_torch.core.topology import barabasi_albert
+    from repro_torch.examples import decentralized_llm_pretrain as llm
+    from repro_torch.examples import multipod_hierarchy, quickstart
+    from repro_torch.examples import serve_per_node
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.models.layers import attention_apply, attention_init
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    counters = {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{MODULES[name]}"), name) for name in KERNELS}
+    res, cases = {}, []
+
+    def part(name, fn, *args, **kwargs):
+        """One part: its seconds, its launches by kernel and gossip_plane's
+        by shape, from the counters just before and just after."""
+        before = {k: c.launches for k, c in counters.items()}
+        shapes = collections.Counter(gm.gossip_plane.shapes)
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
+        by_shape = collections.Counter(gm.gossip_plane.shapes) - shapes
+        log(f"examples {name}: {secs:.1f} s, launches "
+            f"{json.dumps(launched)}")
+        return out, secs, launched, by_shape
+
+    # (a) quickstart, as written
+    q, secs, launched, _ = part("quickstart", quickstart.run, device=dev)
+    runs = q["runs"]
+    res["quickstart"] = {"s": secs, "launches": launched, **{
+        s: {k: r[k] for k in ("iid_auc", "ood_auc", "final_ood_acc")}
+        for s, r in runs.items()}}
+    log("examples quickstart " + json.dumps(res["quickstart"]))
+    assert not any(launched.values()), launched
+    assert runs["degree"]["ood_auc"] > runs["unweighted"]["ood_auc"], runs
+
+    # (b) the LLM example at --full100m with its defaults
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    r, secs, launched, by_shape = part("llm_pretrain", llm.run,
+                                       full100m=True, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(r["step_losses"]) // LLM_ROUNDS
+    res["llm_pretrain"] = {
+        "s": secs, "nodes": LLM_NODES, "rounds": LLM_ROUNDS, "steps": steps,
+        "param_count": r["cfg"].param_count(),
+        "s_per_round": r["round_s"],
+        "median_s_per_round": statistics.median(r["round_s"]),
+        "median_ms_per_step": statistics.median(r["round_s"]) / steps * 1e3,
+        "round_losses": r["round_losses"], "launches": launched,
+        "gossip_plane_by_shape": {" ".join(map(str, k)): v
+                                  for k, v in by_shape.items()},
+        "max_memory_allocated": peak, "peak_less_baseline": peak - base}
+    log("examples llm_pretrain " + json.dumps(res["llm_pretrain"]))
+    assert all(math.isfinite(x) for x in r["step_losses"])
+    assert r["round_losses"][-1] < r["round_losses"][0], r["round_losses"]
+    assert launched == {k: LLM_ROUNDS if k == "gossip_plane" else 0
+                        for k in KERNELS}, launched
+    assert dict(by_shape) == {(LLM_NODES, LLM_PLANE_P, "float32"):
+                              LLM_ROUNDS}, by_shape
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernel at this shape against its plain version (not counted)
+    saved = _saved([gm.gossip_plane])
+    c = torch.as_tensor(mixing_matrix(
+        barabasi_albert(LLM_NODES, 2, seed=0),
+        AggregationStrategy("degree", tau=0.1)), dtype=torch.float32,
+        device=dev)
+    plane = aligned_plane(LLM_NODES, LLM_PLANE_P, torch.float32, dev)
+    plane.copy_(torch.randn((LLM_NODES, LLM_PLANE_P), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(21)))
+    run = lambda: gm.gossip_plane(plane, c)
+    plain = lambda: gm.gossip_plane_ref(plane, c)
+    out, ref = run(), plain()
+    max_err = float((out - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    assert bool(torch.isfinite(out).all()) and max_err <= tol, (max_err, tol)
+    del out, ref
+    nbytes = 2 * LLM_NODES * LLM_PLANE_P * 4 + LLM_NODES * LLM_NODES * 4
+    flops = 2 * LLM_NODES * LLM_NODES * LLM_PLANE_P
+    bnd, by = bound_ms(nbytes, flops)
+    case = {"name": "gossip_plane", "case": "llm_100m_plane",
+            "shape": [LLM_NODES, LLM_PLANE_P], "dtype": "float32",
+            "main": False, "max_abs_err": max_err,
+            "tolerance": f"<= 1e-5*max|ref| = {tol:.3g}",
+            "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=5),
+            "library_ms": cuda_ms(lambda: torch.matmul(c, plane)),
+            "copy_ms": copy_ms(plane), "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes, "flops": flops}
+    log("kernel_case " + json.dumps(case))
+    cases.append(case)
+    _restore([gm.gossip_plane], saved)
+    del plane
+    torch.cuda.empty_cache()
+
+    # (c) the two-pod example, both bridges
+    pods, secs, launched, _ = part("multipod", multipod_hierarchy.run,
+                                   device=dev)
+    res["multipod"] = {"s": secs, "launches": launched, **{
+        b: {k: p[k] for k in ("ood_auc", "far_pod_final_ood_acc",
+                              "ood_node", "bridge_edges")}
+        for b, p in pods.items()}}
+    log("examples multipod " + json.dumps(res["multipod"]))
+    assert not any(launched.values()), launched
+    assert all(len(p["bridge_edges"]) == 1 for p in pods.values()), pods
+    assert pods["hub"]["ood_auc"] > pods["leaf"]["ood_auc"]
+    assert pods["hub"]["far_pod_final_ood_acc"] > \
+        pods["leaf"]["far_pod_final_ood_acc"]
+
+    # (d) per-node serving
+    s, secs, launched, _ = part("serve_per_node", serve_per_node.run,
+                                device=dev)
+    n = s["logits"].shape[0]
+    node = s["ood_node"]
+    with torch.no_grad():
+        row, _ = decode_step(unstack_params(s["params"], n)[node], s["cfg"],
+                             s["prompts"][node],
+                             init_cache(s["cfg"], s["prompts"].shape[1], 32,
+                                        device=dev))
+    ref = s["logits"][node]
+    row_err = float((row - ref).abs().max())
+    row_tol = SERVE_ROW_REL_TOL * float(ref.abs().max())
+    res["serve_per_node"] = {
+        "s": secs, "launches": launched,
+        "logits_shape": list(s["logits"].shape),
+        "probes": {str(k): v.tolist() for k, v in s["probes"].items()},
+        "row_vs_decode_step": {"node": node, "max_abs_err": row_err,
+                               "max_abs_logit": float(ref.abs().max()),
+                               "tolerance": row_tol}}
+    log("examples serve_per_node " + json.dumps(res["serve_per_node"]))
+    assert not any(launched.values()), launched
+    assert tuple(s["logits"].shape) == (8, 4, 1, 16)
+    assert bool(torch.isfinite(s["logits"]).all())
+    assert row_err <= row_tol, res["serve_per_node"]["row_vs_decode_step"]
+    del s, row, ref
+
+    # (e) attention_apply with and without the flash kernel
+    gen = torch.Generator(device=dev).manual_seed(5)
+    attn = []
+    for arch, kind in ATTN_SMOKE:
+        cfg = get_smoke_config(arch)
+        p = attention_init(gen, cfg, torch.float32, ATTN_NODES)
+        x = torch.randn((ATTN_NODES, ATTN_BATCH, ATTN_SEQ, cfg.d_model),
+                        generator=gen, device=dev)
+        pos = torch.arange(ATTN_SEQ, device=dev)
+        flash, _, launched, _ = part(f"attention_apply {arch} {kind}",
+                                     attention_apply, p, cfg, x, pos, kind,
+                                     True)
+        plain = attention_apply(p, cfg, x, pos, kind, False)
+        err = float((flash - plain).abs().max())
+        tol = FLASH_F32_TOL * float(plain.abs().max())
+        attn.append({"arch": arch, "kind": kind,
+                     "window": cfg.window_size if kind == "local" else 0,
+                     "softcap": cfg.attn_logit_softcap,
+                     "shape": [ATTN_NODES, ATTN_BATCH, ATTN_SEQ,
+                               cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_],
+                     "max_abs_err": err, "tolerance": tol,
+                     "launches": launched})
+        assert bool(torch.isfinite(flash).all()) and err <= tol, attn[-1]
+        assert launched == {k: int(k == "flash_attention")
+                            for k in KERNELS}, launched
+    res["attention_apply"] = attn
+    log("examples attention_apply " + json.dumps(attn))
+
+    # (f) the perf-iteration planner (modeled; no device work)
+    EXAMPLES_OUT.mkdir(parents=True, exist_ok=True)
+    allocated = torch.cuda.memory_allocated()
+    (pi, printed), secs, launched, _ = part(
+        "perf_iterations", captured, perf_iterations.main,
+        ["--out", str(EXAMPLES_OUT / "perf_iterations.json")])
+    res["perf_iterations"] = {
+        "modeled": True, "s": secs,
+        "speedups": {t: pi[t]["speedup"] for t in "ABCD"},
+        "dominant_after": {t: pi[t]["iters"][-1]["dominant"]
+                           for t in "ABCD"}}
+    log("examples perf_iterations " + json.dumps(res["perf_iterations"]))
+    assert printed.startswith("modeled: H100 SXM5 datasheet"), printed[:80]
+    assert not any(launched.values()), launched
+    assert torch.cuda.memory_allocated() == allocated
+    res["cases"] = cases
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 12: the mix-cost study
 # ----------------------------------------------------------------------
 STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
@@ -6054,6 +6303,13 @@ def main() -> int:
     t20 = time.perf_counter() - t20
     log(f"phase 20 (the tooling): {t20:.1f} s (budget {TOOLING_BUDGET_S} s)")
     assert t20 <= TOOLING_BUDGET_S, f"phase 20 took {t20:.1f} s"
+    t21 = time.perf_counter()
+    examples = main_path("examples", run_examples_phase, dev)
+    t21 = time.perf_counter() - t21
+    log(f"phase 21 (the examples, the planner, the attention layer): "
+        f"{t21:.1f} s (budget {EXAMPLES_BUDGET_S} s)")
+    assert t21 <= EXAMPLES_BUDGET_S, f"phase 21 took {t21:.1f} s"
+    cases += examples["cases"]
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches

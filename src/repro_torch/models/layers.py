@@ -19,9 +19,9 @@ Weight layouts are the reference's, behind the node axis:
   * norms: ``(N, d)`` vectors.
 
 The RWKV-6 and Mamba blocks live in ``models/ssm.py``, the MoE block in
-``models/moe.py``.  The reference's ``attention_apply`` and
-``attention_decode`` are on no path of the port: its forward and decode
-call ``_qkv``, ``_sdpa`` and ``_attn_decode`` directly.
+``models/moe.py``.  :func:`attention_apply` and :func:`attention_decode`
+are the attention of the port's forward and decode
+(``models/transformer.py``), with the reference's signatures.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ __all__ = [
     "norm_init", "norm_apply",
     "softcap",
     "rope", "apply_rope",
-    "attention_init",
+    "attention_init", "attention_apply", "attention_decode",
     "mla_init", "mla_apply", "mla_decode", "mla_chunked",
     "mlp_init", "mlp_apply",
     "node_matmul",
@@ -300,6 +300,72 @@ def _sdpa_chunked(cfg, q, k, v, q_offset: int = 0, window: int = 0,
         blk = acc / torch.clamp_min(l[..., None], 1e-30)
         out[:, qi * bq:(qi + 1) * bq] = blk.permute(0, 3, 1, 2, 4)
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def attention_apply(p, cfg, x, positions, kind: str = "global",
+                    use_flash: bool = False, impl: Optional[str] = None):
+    """Full-sequence causal attention (train / prefill) of every node: x
+    ``(N, B, S, d)``, node-stacked weights, positions ``(S,)``; a
+    ``"local"`` layer sees the last ``cfg.window_size`` keys.  ``impl``
+    (default ``"pallas"`` if ``use_flash`` else ``"einsum"``):
+    ``"pallas"`` runs the flash-attention kernel (one launch for the
+    fleet, the node axis folded into the batch; its plain version on CPU
+    tensors), ``"chunked"`` :func:`_sdpa_chunked`, ``"einsum"`` the core
+    over the full ``(S, S)`` logits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    impl = impl or ("pallas" if use_flash else "einsum")
+    q, k, v = _qkv(p, cfg, x, positions)
+    n, b, s = q.shape[:3]
+    window = cfg.window_size if kind == "local" else 0
+    q, k, v = _fold(q), _fold(k), _fold(v)
+    if impl == "pallas":
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              logit_softcap=cfg.attn_logit_softcap)
+    elif impl == "chunked":
+        out = _sdpa_chunked(cfg, q, k, v, window=window)
+    else:
+        out = _sdpa(cfg, q, k, v, _causal_mask(s, s, 0, window, x.device))
+    return node_matmul(out.reshape(n, b, s, -1), p["wo"].flatten(1, 2))
+
+
+def attention_decode(p, cfg, x, cache_k, cache_v, position,
+                     kind: str = "global", window: Optional[int] = None):
+    """One token of every node against one layer's cache: x
+    ``(N, B, 1, d)``, cache ``(N, B, T, KV, hd)``, position ``(N, B)``.
+    A ``"local"`` layer ring-indexes its cache and sees the last
+    ``window`` positions (default all T slots: the reference's local
+    cache holds one window); a global layer writes at
+    ``min(position, T − 1)``, so past a full cache it overwrites the last
+    slot where the reference's one-hot writes nowhere.  Returns (out,
+    new_k, new_v)."""
+    q = node_matmul(x, p["wq"])
+    k = node_matmul(x, p["wk"])
+    v = node_matmul(x, p["wv"])
+    q, k = _qk_norm(p, cfg, q, k)
+    cos, sin = rope(position[..., None], cfg.head_dim_, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    t = cache_k.shape[2]
+    local = kind == "local"
+    slot = position % t if local else torch.clamp_max(position, t - 1)
+    kpos = torch.arange(t, device=x.device)
+    write = (kpos == slot[..., None])[..., None, None]        # (N, B, T, 1, 1)
+    new_k = torch.where(write, k, cache_k)
+    new_v = torch.where(write, v, cache_v)
+    if local:
+        age = (slot[..., None] - kpos) % t
+        ok = ((age <= torch.clamp_max(position, t - 1)[..., None])
+              & (age < (t if window is None else window)))
+    else:
+        ok = kpos <= position[..., None]
+    mask = additive_mask(ok)                                     # (N, B, T)
+    n, b = position.shape
+    out = _sdpa(cfg, _fold(q), _fold(new_k), _fold(new_v),
+                mask.reshape(n * b, 1, 1, 1, t))
+    out = out.reshape(n, b, 1, -1)
+    return node_matmul(out, p["wo"].flatten(1, 2)), new_k, new_v
 
 
 # ----------------------------------------------------------------------

@@ -54,18 +54,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.layers import (
-    _causal_mask,
-    _qk_norm,
-    _qkv,
-    _sdpa,
-    _sdpa_chunked,
-    _fold,
-    additive_mask,
-    apply_rope,
+    attention_apply,
+    attention_decode,
     attention_init,
     dense_init_on_device,
     mla_apply,
@@ -76,7 +69,6 @@ from repro_torch.models.layers import (
     node_matmul,
     norm_apply,
     norm_init,
-    rope,
     softcap,
 )
 
@@ -216,21 +208,13 @@ class ForwardOptions:
 
 
 def _attn_block(lp, cfg, h, positions, window: int, opts: ForwardOptions):
-    """Attention of the normed input ``h`` ``(N, B, S, d)``."""
+    """Attention of the normed input ``h`` ``(N, B, S, d)``; ``window``
+    is the layer's entry of :func:`_layer_windows`."""
     if cfg.use_mla:
         return mla_apply(lp["attn"], cfg, h, positions, impl=opts.attn_impl)
-    q, k, v = _qkv(lp["attn"], cfg, h, positions)
-    n, b, s = q.shape[:3]
-    q, k, v = _fold(q), _fold(k), _fold(v)
-    if opts.attn_impl == "pallas":
-        out = flash_attention(q, k, v, causal=True, window=window,
-                              logit_softcap=cfg.attn_logit_softcap)
-    elif opts.attn_impl == "chunked":
-        out = _sdpa_chunked(cfg, q, k, v, window=window)
-    else:
-        out = _sdpa(cfg, q, k, v, _causal_mask(s, s, 0, window, h.device))
-    out = out.reshape(n, b, s, -1)
-    return node_matmul(out, lp["attn"]["wo"].flatten(1, 2))
+    return attention_apply(lp["attn"], cfg, h, positions,
+                           "local" if window else "global",
+                           impl=opts.attn_impl)
 
 
 def _ffn_block(lp, cfg, x, moe: bool):
@@ -406,40 +390,6 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     return cache
 
 
-def _attn_decode(p, cfg, x, cache_k, cache_v, position, window: int):
-    """One token against one layer's cache, every node at once: x
-    ``(N, B, 1, d)``, cache ``(N, B, T, KV, hd)``, position ``(N, B)``.
-    Local layers (``window > 0``) ring-index the cache and see the last
-    ``window`` positions; global layers write at ``min(position, T − 1)``.
-    Returns (out, new_k, new_v)."""
-    q = node_matmul(x, p["wq"])
-    k = node_matmul(x, p["wk"])
-    v = node_matmul(x, p["wv"])
-    q, k = _qk_norm(p, cfg, q, k)
-    cos, sin = rope(position[..., None], cfg.head_dim_, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-
-    t = cache_k.shape[2]
-    slot = position % t if window > 0 else torch.clamp_max(position, t - 1)
-    kpos = torch.arange(t, device=x.device)
-    write = (kpos == slot[..., None])[..., None, None]        # (N, B, T, 1, 1)
-    new_k = torch.where(write, k, cache_k)
-    new_v = torch.where(write, v, cache_v)
-    if window > 0:
-        age = (slot[..., None] - kpos) % t
-        ok = ((age <= torch.clamp_max(position, t - 1)[..., None])
-              & (age < window))
-    else:
-        ok = kpos <= position[..., None]
-    mask = additive_mask(ok)                                     # (N, B, T)
-    n, b = position.shape
-    out = _sdpa(cfg, _fold(q), _fold(new_k), _fold(new_v),
-                mask.reshape(n * b, 1, 1, 1, t))
-    out = out.reshape(n, b, 1, -1)
-    return node_matmul(out, p["wo"].flatten(1, 2)), new_k, new_v
-
-
 def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       cache: Params, opts: Optional[ForwardOptions] = None
                       ) -> Tuple[torch.Tensor, Params]:
@@ -479,8 +429,9 @@ def decode_step_nodes(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             a_out, *new = mla_decode(lp["attn"], cfg, h, *layer_cache,
                                      position)
         else:
-            a_out, *new = _attn_decode(lp["attn"], cfg, h, *layer_cache,
-                                       position, window)
+            a_out, *new = attention_decode(
+                lp["attn"], cfg, h, *layer_cache, position,
+                "local" if window else "global", window)
         for k, t in zip(keys, new):
             news[k].append(t)
         if cfg.hybrid_ssm:

@@ -33,7 +33,8 @@ def test_imports_with_jax_and_repro_blocked():
     networkx), the kernel wrappers, the model layers, the graph layer, the
     coefficient programs, the entry points, the multi-device modules
     (meshes, distributed gossip, sharding rules) and the tooling (the
-    dry-run and its specs, the roofline, ``analysis``) among them."""
+    dry-run and its specs, the roofline, ``analysis``), the four examples
+    and the perf-iteration planner among them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "repro", "benchmarks", "networkx"):
@@ -57,7 +58,11 @@ def test_imports_with_jax_and_repro_blocked():
                   "launch.dryrun", "benchmarks.roofline", "analysis",
                   "analysis.report", "analysis.walker", "analysis.rules",
                   "analysis.presets", "analysis.pytest_plugin",
-                  "analysis.__main__", "_trace"):
+                  "analysis.__main__", "_trace", "examples",
+                  "examples.quickstart", "examples.multipod_hierarchy",
+                  "examples.serve_per_node",
+                  "examples.decentralized_llm_pretrain",
+                  "benchmarks.perf_iterations"):
             assert "repro_torch." + m in mods, m
         leaked = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "repro",
