@@ -209,9 +209,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    repro_torch.benchmarks.sweep``): ``--list``, fig4's ``--full
    --dry-run`` plan, fig4 ``--full`` at one seed (six strategies, n = 33,
    R = 40, the paper's claim), ``edges`` at the smoke scale on BA(64, 2)
-   through ``edges_kernel`` (one launch a round), fig4 ``--smoke`` with
-   the legacy baseline (each cell alone, unrolled) held to the grid by
-   a measured drift bound; (b) the fleet serving benchmark at
+   through ``edges_kernel`` (one launch a round) and fig4 ``--smoke``,
+   each with the legacy baseline (one ``run_experiment`` a cell: the
+   trainer's per-round loop; ``edges`` one launch a cell a round) held to
+   the grid by a measured drift bound; (b) the fleet serving benchmark at
    stablelm-1.6b's full width and depth in f32, fleets of 2 and 4, 2
    slots a node: tok/s,
    p50/p95/p99 latency and slot occupancy of the fleet step and the
@@ -274,6 +275,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``decode_step`` of its params); (e) ``attention_apply`` with and
    without flash at smoke shapes (one flash launch a call, the phase-2 f32
    gate); (f) ``perf_iterations``' four modeled speedups;
+22. (after 21) the legacy per-round loop, its own 120 s budget
+   (``LEGACY_BUDGET_S``): (a) ``common.run_experiment`` on Fig. 4's
+   degree cell at full scale (BA(33, 2), FULL, ``mix_impl="pallas"``):
+   exactly 40 ``gossip_plane`` launches at (33, 118,282) f32, s/round of
+   the host loop, its per-node accuracies held to phase 18 (a)'s fig4
+   ``--full`` degree history (the same cell through the engine) by a
+   measured drift bound; (b) ``ablations.run_link_failure(in_scan=False)``
+   at 10 rounds through the fused plane against ``in_scan=True`` on the
+   same cells: equal AUCs, 0 samples apart, the reference's claim;
 5. the per-round time breakdowns (FFN, VGG-16, GPT-2-TinyMem), the kernel
    JSON line, the card line and the device line (last).
 
@@ -308,8 +318,8 @@ and ``betweenness``, ``random`` and reactive ``degree`` at p_fail 0.3
 through the fused plane and the edge list.
 
 Phases 3, 4, 6, 7, 13, 14 (b–e), 15 (a–c), 8, 9, 10, 11, 12, 16, 17,
-18, 19, 20 and 21 are the main path (phase 19 (b)'s ranks count in their own
-processes and print their counts):
+18, 19, 20, 21 and 22 are the main path (phase 19 (b)'s ranks count in
+their own processes and print their counts):
 every launch counter is set to 0 just before each of them and read just
 after, and each prints its launches by kernel and by operand shape (a
 batched launch's shape starts ``E=<E>``; the kernel line sums them over
@@ -1553,29 +1563,53 @@ class EngineClock:
     """Wall time of each ``SweepEngine.run`` (its set-up and rounds,
     without the grid's host-side build), ended by a synchronize."""
 
+    @staticmethod
+    def owner():
+        from repro_torch.core.sweep import SweepEngine
+
+        return SweepEngine
+
     def __enter__(self):
         import torch
 
-        from repro_torch.core import sweep
-
-        self.seconds, self._orig = [], sweep.SweepEngine.run
+        owner = self.owner()
+        self.seconds, self._orig = [], owner.run
         outer = self
 
-        def run(engine, *args, **kwargs):
+        def run(obj, *args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = outer._orig(engine, *args, **kwargs)
+            res = outer._orig(obj, *args, **kwargs)
             torch.cuda.synchronize()
             outer.seconds.append(time.perf_counter() - t0)
             return res
 
-        sweep.SweepEngine.run = run
+        owner.run = run
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.core import sweep
+        self.owner().run = self._orig
 
-        sweep.SweepEngine.run = self._orig
+
+class TrainerClock(EngineClock):
+    """Wall time of each ``DecentralizedTrainer.run`` (the per-round loop
+    alone: no data split, no init), ended by a synchronize."""
+
+    @staticmethod
+    def owner():
+        from repro_torch.core.decentralized import DecentralizedTrainer
+
+        return DecentralizedTrainer
+
+
+def held_drift(ha, hb, n_eval=512):
+    """Per-node drift of two histories in eval samples, on the rounds both
+    evaluated."""
+    by_round = {m.round: m for m in hb}
+    common = [m for m in ha if m.round in by_round]
+    assert common
+    return max_drift_samples(common, [by_round[m.round] for m in common],
+                             n_eval)
 
 
 def drift_line(label, pairs):
@@ -1584,14 +1618,7 @@ def drift_line(label, pairs):
     the rounds both evaluated (a grid or a single run cut to fewer rounds
     is held on the other's first rounds)."""
     assert pairs, f"{label}: no single-trainer history to hold it to"
-    drift = {}
-    for k, (a, b) in pairs.items():
-        by_round = {m.round: m for m in b}
-        common = [m for m in a if m.round in by_round]
-        assert common, (label, k)
-        drift[k] = max_drift_samples(common,
-                                     [by_round[m.round] for m in common],
-                                     512)
+    drift = {k: held_drift(a, b) for k, (a, b) in pairs.items()}
     log(f"{label} drift from the single-trainer runs (eval samples of 512, "
         f"limit {SWEEP_DRIFT_SAMPLES}): {json.dumps(drift)}")
     assert max(drift.values()) <= SWEEP_DRIFT_SAMPLES + 1e-3, drift
@@ -4941,9 +4968,11 @@ ENTRY_OUT = Path(__file__).resolve().parent / "chiprun_out" / "entry_points"
 ENTRY_REQUESTS = 2          # the serving benchmark's requests a node
 ENTRY_EDGES_NODES = 64      # the edges preset's graph ("pair with 64+")
 # the fig4 preset mixes by einsum, a batched product whose card kernel
-# depends on E: each cell alone (E = 1) parts from the E = 6 grid on the
-# last bit and, over 6 smoke rounds, by 0.6875 of 128 eval samples in an
-# AUC (measured on an H100; 0 on the CPU).  Phase 14's bit-for-bit bound
+# depends on E: the legacy loop's cells (the trainer, one cell a run) part
+# from the E = 6 grid on the last bit and, over 6 smoke rounds, by 0.6875
+# of 128 eval samples in the final OOD accuracy, 0.17 in an AUC (measured
+# on an H100 at 700 W; 0 on the CPU; the engine's E = 1 run before the
+# loop was ported gave the same 0.6875).  Phase 14's bit-for-bit bound
 # holds for the fused-plane kernel, whose batched launch equals E single
 # ones.  Pinned at 2 samples.
 ENTRY_LEGACY_DRIFT_SAMPLES = 2.0
@@ -4970,14 +4999,70 @@ def captured(fn, *args):
     return ret, buf.getvalue()
 
 
+def sweep_with_legacy(sweep, argv):
+    """``(rows, legacy rows, stdout)`` of one sweep CLI run with its legacy
+    baseline."""
+    legacy = []
+    orig = sweep.run_legacy_baseline
+
+    def keep(*args, **kwargs):
+        legacy.extend(orig(*args, **kwargs))
+        return legacy
+
+    sweep.run_legacy_baseline = keep
+    try:
+        rows, text = captured(sweep.main, argv)
+    finally:
+        sweep.run_legacy_baseline = orig
+    return rows, legacy, text
+
+
+def legacy_drift(rows, legacy, scale):
+    """The legacy loop's rows against the grid's in eval samples, held to
+    ``ENTRY_LEGACY_DRIFT_SAMPLES``."""
+    assert len(rows) == len(legacy)
+    drift = {k: max(abs(a[k] - b[k]) * scale.eval_n
+                    for a, b in zip(rows, legacy))
+             for k in ("iid_auc", "ood_auc", "final_ood_acc_mean")}
+    assert max(drift.values()) <= ENTRY_LEGACY_DRIFT_SAMPLES, drift
+    return drift
+
+
+class SummaryHistories:
+    """Every history the benchmarks' summaries read
+    (``propagation_summary`` in ``benchmarks.common`` and
+    ``benchmarks.ablations``), in call order."""
+
+    def __enter__(self):
+        from repro_torch.benchmarks import ablations, common
+
+        self.histories, self._orig = [], {}
+        for mod in (common, ablations):
+            orig = self._orig[mod] = mod.propagation_summary
+
+            def keep(hist, *args, _orig=orig, **kwargs):
+                self.histories.append(hist)
+                return _orig(hist, *args, **kwargs)
+
+            mod.propagation_summary = keep
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self._orig.items():
+            mod.propagation_summary = orig
+
+
 def run_entry_sweep(dev, out, full=True, edges_nodes=ENTRY_EDGES_NODES):
     """(a) ``python -m repro_torch.benchmarks.sweep``: ``--list``; fig4's
     ``--full --dry-run`` plan; fig4 ``--full`` at one seed (six
     strategies, n = 33, R = 40) with the paper's claim (aware over
-    unaware on average, degree and betweenness each over unweighted); ``edges`` at the
-    smoke scale on BA(64, 2) through ``edges_kernel`` (one batched launch
-    a round); fig4 ``--smoke`` with the legacy baseline, each cell alone
-    (E = 1, unrolled) held to the grid by ``ENTRY_LEGACY_DRIFT_SAMPLES``."""
+    unaware on average, degree and betweenness each over unweighted), its
+    histories kept for phase 22; ``edges`` at the smoke scale on BA(64, 2)
+    through ``edges_kernel`` (one batched launch a round) and fig4
+    ``--smoke``, each with the legacy baseline, one ``run_experiment`` a
+    cell (the trainer's per-round loop; for ``edges`` one
+    ``edges_kernel`` launch a cell a round), held to the grid by
+    ``ENTRY_LEGACY_DRIFT_SAMPLES``."""
     import numpy as np
 
     from repro_torch.benchmarks import sweep
@@ -4995,9 +5080,16 @@ def run_entry_sweep(dev, out, full=True, edges_nodes=ENTRY_EDGES_NODES):
               "--out", str(out)]
     reduced_line(18, "sweep_cli fig4 --full", "seeds", 2, 1)
     t0 = time.perf_counter()
-    rows, text = captured(sweep.main, ["--preset", "fig4", "--no-legacy"]
-                          + (["--full"] if full else ["--smoke"]) + common)
+    with SummaryHistories() as grid:
+        rows, text = captured(sweep.main, ["--preset", "fig4", "--no-legacy"]
+                              + (["--full"] if full else ["--smoke"])
+                              + common)
     res["fig4_full_s"] = time.perf_counter() - t0
+    # one group, so the summaries ran in the rows' order; phase 22 holds
+    # the legacy loop's full-scale degree cell to this row
+    assert len(grid.histories) == len(rows)
+    HISTORIES["fig4_full"] = {r["strategy"]: h
+                              for r, h in zip(rows, grid.histories)}
     log(text.rstrip())
     auc = {r["strategy"]: r["ood_auc"] for r in rows}
     res["fig4_full_ood_auc"] = auc
@@ -5010,37 +5102,32 @@ def run_entry_sweep(dev, out, full=True, edges_nodes=ENTRY_EDGES_NODES):
         assert auc["betweenness"] > auc["unweighted"], auc
     reduced_line(18, "sweep_cli edges", "rounds", 30, 6)
     before = gm.gossip_edges.launches
+    shapes0 = dict(gm.gossip_edges.shapes)
     t0 = time.perf_counter()
-    rows, text = captured(sweep.main, ["--preset", "edges", "--smoke",
-                                       "--n-nodes", str(edges_nodes),
-                                       "--no-legacy"] + common)
+    rows, legacy, text = sweep_with_legacy(
+        sweep, ["--preset", "edges", "--smoke", "--n-nodes",
+                str(edges_nodes)] + common)
     res["edges_s"] = time.perf_counter() - t0
     res["edges_launches"] = gm.gossip_edges.launches - before
+    single = (edges_nodes, FFN_P, "float32")
+    res["edges_legacy_launches"] = gm.gossip_edges.shapes.get(
+        single, 0) - shapes0.get(single, 0)
     res["edges_ood_auc"] = {r["strategy"]: r["ood_auc"] for r in rows}
     log(text.rstrip())
-    assert res["edges_launches"] == sweep.SMOKE.rounds, res
-    legacy = []
-    orig = sweep.run_legacy_baseline
-
-    def keep(*args, **kwargs):
-        legacy.extend(orig(*args, **kwargs))
-        return legacy
-
-    sweep.run_legacy_baseline = keep
-    try:
-        t0 = time.perf_counter()
-        rows, text = captured(sweep.main, ["--preset", "fig4", "--smoke"]
-                              + common)
-        res["fig4_smoke_with_legacy_s"] = time.perf_counter() - t0
-    finally:
-        sweep.run_legacy_baseline = orig
+    # the grid: one batched launch a round; the legacy loop: one launch a
+    # cell a round, through the trainer's mix_impl="edges"
+    assert res["edges_launches"] == (1 + len(rows)) * sweep.SMOKE.rounds, res
+    assert res["edges_legacy_launches"] == len(rows) * sweep.SMOKE.rounds
+    res["edges_legacy_drift_eval_samples"] = legacy_drift(rows, legacy,
+                                                          sweep.SMOKE)
+    t0 = time.perf_counter()
+    rows, legacy, text = sweep_with_legacy(
+        sweep, ["--preset", "fig4", "--smoke"] + common)
+    res["fig4_smoke_with_legacy_s"] = time.perf_counter() - t0
     log(text.rstrip())
-    drift = {k: max(abs(a[k] - b[k]) * sweep.SMOKE.eval_n
-                    for a, b in zip(rows, legacy))
-             for k in ("iid_auc", "ood_auc", "final_ood_acc_mean")}
-    res["legacy_drift_eval_samples"] = drift
     assert len(legacy) == len(rows) == 6
-    assert max(drift.values()) <= ENTRY_LEGACY_DRIFT_SAMPLES, drift
+    res["legacy_drift_eval_samples"] = legacy_drift(rows, legacy,
+                                                    sweep.SMOKE)
     log("entry_sweep " + json.dumps(res))
     return res
 
@@ -5924,6 +6011,129 @@ def run_examples_phase(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 22: the legacy per-round loop
+# ----------------------------------------------------------------------
+# measured 78.3–79.9 s on an H100 at 700 W (the loop draws and copies
+# each round's batches on the host, 0.75–0.90 s a round as the host goes)
+LEGACY_BUDGET_S = 120
+# (a): the full-scale run_experiment cell (the trainer, one fused-plane
+# launch a round) against phase 18 (a)'s fig4 --full degree row (the
+# engine, E = 6, the einsum: the mix sums in another order), per node,
+# eval samples of 512, max over nodes and eval rounds.  Measured on an
+# H100 at 700 W: 1 (OOD AUC 0.95121 against the grid's 0.95120).  Pinned
+# at 3, phase 3's bound for backends that sum in other orders
+LEGACY_FULL_DRIFT_SAMPLES = 3
+# (b): the legacy link-failure loop against the in-scan grid on the same
+# cells, both through the fused plane (a batched launch equals E single
+# ones): measured 0 samples and equal AUCs in all six cells on an H100,
+# as the reference claims; pinned there
+LEGACY_LINKFAIL_DRIFT_SAMPLES = 0
+# (b) runs two of the ablation's three failure rates: the legacy loop
+# draws and copies every round's batches on the host (0.75–0.90 s a round
+# at n = 33), and six cells took 45 s
+LEGACY_LINKFAIL_P_FAILS = (0.0, 0.3)
+
+
+def run_legacy_phase(dev, full_reference=None):
+    """Phase 22, its own ``LEGACY_BUDGET_S``: the reference's legacy
+    per-round loop (Algorithm 1 as a host loop over
+    ``DecentralizedTrainer``).  (a) ``run_experiment("mnist",
+    barabasi_albert(33, 2, seed=0), "degree", scale=FULL,
+    mix_impl="pallas")``: exactly one ``gossip_plane`` launch a round, all
+    at (33, 118,282) f32, s/round of the loop, its per-node accuracies
+    held to ``full_reference`` (phase 18 (a)'s fig4 ``--full`` degree
+    history: the same cell through the engine) by
+    ``LEGACY_FULL_DRIFT_SAMPLES``.  (b) ``run_link_failure`` at FULL
+    scale cut to ``SWEEP_CUT_ROUNDS`` rounds on BA(33, 2) (unweighted and
+    degree at ``LEGACY_LINKFAIL_P_FAILS``, reactive), both through the
+    fused plane: the legacy loop (one launch a cell a round) against the
+    in-scan grid (one batched launch a round), each row's AUCs equal and
+    its per-node drift within ``LEGACY_LINKFAIL_DRIFT_SAMPLES``."""
+    from repro_torch.benchmarks import ablations
+    from repro_torch.benchmarks.common import FULL, run_experiment
+    from repro_torch.core.propagation import accuracy_auc
+    from repro_torch.core.topology import barabasi_albert
+    from repro_torch.kernels import gossip_mix as gm
+
+    if full_reference is None:
+        full_reference = HISTORIES["fig4_full"]["degree"]
+    res = {}
+    plane_key = (N_NODES, FFN_P, "float32")
+    topo = barabasi_albert(N_NODES, 2, seed=0)
+    before = gm.gossip_plane.launches
+    shapes0 = dict(gm.gossip_plane.shapes)
+    t0 = time.perf_counter()
+    with SummaryHistories() as sh, TrainerClock() as clock:
+        row = run_experiment("mnist", topo, "degree", seed=0, scale=FULL,
+                             device=dev, mix_impl="pallas")
+    cell_s = time.perf_counter() - t0
+    (hist,) = sh.histories
+    launches = gm.gossip_plane.launches - before
+    at_shape = gm.gossip_plane.shapes.get(plane_key, 0) - shapes0.get(
+        plane_key, 0)
+    ref_auc = (accuracy_auc(full_reference, "iid"),
+               accuracy_auc(full_reference, "ood"))
+    full = {"rounds": FULL.rounds, "launches": launches,
+            "launches_at_33x118282_f32": at_shape,
+            "loop_s": clock.seconds[0],
+            "s_per_round": clock.seconds[0] / FULL.rounds,
+            "cell_s": cell_s, "iid_auc": row["iid_auc"],
+            "ood_auc": row["ood_auc"],
+            "final_ood_acc_mean": row["final_ood_acc_mean"],
+            "grid_iid_auc": ref_auc[0], "grid_ood_auc": ref_auc[1],
+            "drift_eval_samples": held_drift(hist, full_reference)}
+    res["full_cell"] = full
+    log("legacy_loop full_cell " + json.dumps(full))
+    assert launches == at_shape == FULL.rounds, full
+    assert full["drift_eval_samples"] <= LEGACY_FULL_DRIFT_SAMPLES + 1e-3, \
+        full
+
+    reduced_line(22, "legacy_linkfail", "rounds", FULL.rounds,
+                 SWEEP_CUT_ROUNDS)
+    reduced_line(22, "legacy_linkfail", "p_fails", [0.0, 0.3, 0.6],
+                 list(LEGACY_LINKFAIL_P_FAILS))
+    scale = dataclasses.replace(FULL, rounds=SWEEP_CUT_ROUNDS)
+    kw = dict(scale=scale, n_nodes=N_NODES, mix_impl="pallas", device=dev,
+              p_fails=LEGACY_LINKFAIL_P_FAILS, log=lambda *a: None)
+    before = gm.gossip_plane.launches
+    with SummaryHistories() as sh, TrainerClock() as clock:
+        legacy = ablations.run_link_failure(in_scan=False, **kw)
+    legacy_launches = gm.gossip_plane.launches - before
+    results = []
+    before = gm.gossip_plane.launches
+    with EngineClock() as eclock:
+        in_scan = ablations.run_link_failure(in_scan=True, results=results,
+                                             **kw)
+    scan_launches = gm.gossip_plane.launches - before
+    (_, result), = results
+    cells = []
+    for e, (a, b) in enumerate(zip(in_scan, legacy)):
+        assert (a["strategy"], a["p_fail"]) == (b["strategy"], b["p_fail"])
+        cells.append({
+            "strategy": a["strategy"], "p_fail": a["p_fail"],
+            "in_scan_auc": (a["iid_auc"], a["ood_auc"]),
+            "legacy_auc": (b["iid_auc"], b["ood_auc"]),
+            "aucs_equal": (a["iid_auc"], a["ood_auc"]) == (b["iid_auc"],
+                                                           b["ood_auc"]),
+            "drift_eval_samples": held_drift(result.history(e),
+                                             sh.histories[e])})
+    link = {"cells": cells, "rounds": scale.rounds,
+            "legacy_launches": legacy_launches,
+            "in_scan_launches": scan_launches,
+            "legacy_s_per_round": [s / scale.rounds for s in clock.seconds],
+            "in_scan_s_per_round": eclock.seconds[0] / scale.rounds}
+    res["linkfail"] = link
+    log("legacy_loop linkfail " + json.dumps(link))
+    assert len(legacy) == len(in_scan) == 2 * len(LEGACY_LINKFAIL_P_FAILS)
+    assert legacy_launches == len(legacy) * scale.rounds, link
+    assert scan_launches == scale.rounds, link
+    assert all(c["aucs_equal"] for c in cells), link
+    assert max(c["drift_eval_samples"] for c in cells) <= \
+        LEGACY_LINKFAIL_DRIFT_SAMPLES + 1e-3, link
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 12: the mix-cost study
 # ----------------------------------------------------------------------
 STUDY_PARAMS = 8_000_000    # the schedule study's floats a node
@@ -6310,6 +6520,12 @@ def main() -> int:
         f"{t21:.1f} s (budget {EXAMPLES_BUDGET_S} s)")
     assert t21 <= EXAMPLES_BUDGET_S, f"phase 21 took {t21:.1f} s"
     cases += examples["cases"]
+    t22 = time.perf_counter()
+    main_path("legacy_loop", run_legacy_phase, dev)
+    t22 = time.perf_counter() - t22
+    log(f"phase 22 (the legacy per-round loop): {t22:.1f} s (budget "
+        f"{LEGACY_BUDGET_S} s)")
+    assert t22 <= LEGACY_BUDGET_S, f"phase 22 took {t22:.1f} s"
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     log(f"main path launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), launches

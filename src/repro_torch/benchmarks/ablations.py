@@ -9,10 +9,11 @@
    source's own knowledge; τ → ∞: unweighted).
 3. **Link-failure robustness** — strategies under i.i.d. per-round edge
    dropout, the unstable-network regime the paper motivates but does not
-   measure.  Each cell's coefficient program draws the round's edge mask
-   and — reactive — rebuilds the centralities on the surviving graph
-   inside the sweep engine's round loop, so no ``(E, R, n, n)`` stack is
-   made.
+   measure.  By default each cell's coefficient program draws the
+   round's edge mask and — reactive — rebuilds the centralities on the
+   surviving graph inside the sweep engine's round loop, so no
+   ``(E, R, n, n)`` stack is made; ``in_scan=False`` runs the legacy host
+   loop on the same programs' matrices, the equivalence baseline.
 4. **Label heterogeneity** — the α_l axis of the paper's Fig. 8: does
    topology-aware aggregation survive when every node is skewed?
 
@@ -21,20 +22,40 @@ per-cell loop) at a time; here each is a grid through the sweep engine
 (``run_sweep_cells``), under the reference's cell names and CSV rows: the
 zoo and the τ sweep one grid each (per-experiment coefficient stacks),
 the heterogeneity ablation one grid per ``alpha_l`` (an argument of the
-data split, so of the grid).  The legacy loop itself is not ported.
+data split, so of the grid).  ``common.run_experiment`` runs any of
+their cells alone through the legacy loop.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
+import torch
+
 from repro_torch.benchmarks.common import (
     QUICK,
     SweepCell,
+    cell_data,
     csv_row,
     linkfail_cells,
     run_sweep_cells,
 )
+from repro_torch.core.coeffs import program_for
+from repro_torch.core.decentralized import (
+    DecentralizedConfig,
+    DecentralizedTrainer,
+    stack_params,
+)
+from repro_torch.core.propagation import propagation_summary
+from repro_torch.core.strategies import AggregationStrategy
 from repro_torch.core.topology import barabasi_albert
+from repro_torch.models.paper_models import (
+    classifier_accuracy,
+    classifier_loss,
+    ffn_apply,
+    ffn_init,
+)
+from repro_torch.training.optimizer import sgd
 
 __all__ = ["CENTRALITIES", "TAUS", "ALPHAS", "centrality_cells", "tau_cells",
            "heterogeneity_cells", "run_centrality_zoo", "run_tau_sweep",
@@ -109,23 +130,69 @@ def run_link_failure(dataset="mnist", p_fails=(0.0, 0.3, 0.6),
                      strategies=("unweighted", "degree"), seeds=(0,),
                      scale=QUICK, log=print, n_nodes=16, reactive=True,
                      in_scan=True, device=None, **sweep_kwargs):
-    """Per-round i.i.d. edge dropout, in the engine's loop
-    (``coeff_mode="program"``)."""
-    if not in_scan:
-        raise NotImplementedError(
-            "run_link_failure(in_scan=False) is the reference's legacy "
-            "per-cell loop (benchmarks/common.py run_experiment), which the "
-            "port replaces by the engine's unrolled mode")
-    cells = linkfail_cells(datasets=(dataset,), seeds=seeds,
-                           n_nodes=n_nodes, strategies=strategies,
-                           p_fails=p_fails, reactive=reactive,
-                           prefix="ablation/linkfail")
-    rows = run_sweep_cells(cells, scale=scale, coeff_mode="program",
-                           device=device, **sweep_kwargs)
-    for row, cell in zip(rows, cells):
-        row.update(p_fail=cell.p_fail, reactive=cell.reactive)
-        log(csv_row(cell.name, 0, f"iid_auc={row['iid_auc']:.3f};"
-                                  f"ood_auc={row['ood_auc']:.3f}"))
+    """Per-round i.i.d. edge dropout on per-seed BA(n_nodes, 2) graphs, the
+    OOD data on the hub.
+
+    ``in_scan=True``: the grid through the engine, each round's matrices
+    made in its round loop (``coeff_mode="program"``); ``sweep_kwargs``
+    pass to ``run_sweep_cells``.  ``in_scan=False``: the legacy host loop,
+    a ``DecentralizedTrainer`` a cell (the FFN, SGD 1e-2) whose
+    ``coeffs_fn`` hands it round r's matrix of the same program; of the
+    grid's keywords it takes ``mix_impl`` (the trainer's backend) and
+    ``init_fn(dataset, seed)`` (one node's params), and raises on any
+    other."""
+    if in_scan:
+        cells = linkfail_cells(datasets=(dataset,), seeds=seeds,
+                               n_nodes=n_nodes, strategies=strategies,
+                               p_fails=p_fails, reactive=reactive,
+                               prefix="ablation/linkfail")
+        rows = run_sweep_cells(cells, scale=scale, coeff_mode="program",
+                               device=device, **sweep_kwargs)
+        for row, cell in zip(rows, cells):
+            row.update(p_fail=cell.p_fail, reactive=cell.reactive)
+            log(csv_row(cell.name, 0, f"iid_auc={row['iid_auc']:.3f};"
+                                      f"ood_auc={row['ood_auc']:.3f}"))
+        return rows
+
+    mix_impl = sweep_kwargs.pop("mix_impl", "einsum")
+    init_fn = sweep_kwargs.pop("init_fn", None)
+    if sweep_kwargs:
+        raise TypeError(f"run_link_failure(in_scan=False) takes no "
+                        f"{sorted(sweep_kwargs)}")
+    rows = []
+    for seed in seeds:
+        topo = barabasi_albert(n_nodes, 2, seed=seed)
+        ood_node = topo.kth_highest_degree_node(1)
+        nb, tb, ob = cell_data(dataset, n_nodes, seed, (ood_node,), scale,
+                               scale.steps_per_epoch)
+        for strat in strategies:
+            for pf in p_fails:
+                sobj = AggregationStrategy(strat, tau=0.1, seed=seed)
+                program, state = program_for(
+                    topo, sobj, data_counts=nb.data_counts(), p_fail=pf,
+                    reactive=reactive)
+                coeffs_fn = lambda r, p=program, s=state: p.materialize(
+                    s, round_indices=np.array([r]))[0]
+                trainer = DecentralizedTrainer(
+                    topo, sobj, sgd(1e-2), classifier_loss(ffn_apply),
+                    classifier_accuracy(ffn_apply),
+                    DecentralizedConfig(rounds=scale.rounds,
+                                        local_epochs=scale.local_epochs,
+                                        eval_every=scale.eval_every,
+                                        mix_impl=mix_impl),
+                    data_counts=nb.data_counts(), coeffs_fn=coeffs_fn,
+                    device=device)
+                one = (init_fn(dataset, seed) if init_fn is not None
+                       else ffn_init(torch.Generator().manual_seed(seed)))
+                _, hist = trainer.run(stack_params([one] * n_nodes),
+                                      nb.round_batches, tb, ob)
+                s = propagation_summary(hist, topo.adjacency, ood_node)
+                s.update(strategy=strat, p_fail=pf, seed=seed,
+                         reactive=reactive)
+                log(csv_row(f"ablation/linkfail/{strat}/p{pf}", 0,
+                            f"iid_auc={s['iid_auc']:.3f};"
+                            f"ood_auc={s['ood_auc']:.3f}"))
+                rows.append(s)
     return rows
 
 

@@ -1,24 +1,29 @@
-"""Shared harness of the paper-figure drivers (port of the batched half of
+"""Shared harness of the paper-figure drivers (port of
 ``benchmarks/common.py``).
 
-A figure is a grid of declarative :class:`SweepCell`s;
-:func:`run_sweep_cells` groups the cells by program shape
-(:func:`group_cells`: dataset, node count, robust rule) and runs each group
-as ONE ``core.sweep.SweepEngine`` program, the experiments on its batch
-axis: cells that share a data configuration (seed × OOD placement) share a
-row of the sample bank, each cell's coefficients come from its coefficient
-program (materialized to a stack, or generated round by round with
-``coeff_mode="program"``), and each row gets the host summary
-(``propagation_summary``), the streaming analytics digest with its
-deviation from the host oracle (``stream_vs_host_max_dev``), and the
-participation and fault digests.
+Two paths over the same grid:
+
+* :func:`run_experiment` — the legacy path: ONE cell (dataset, topology,
+  strategy, OOD placement) a call, Algorithm 1 as a host loop over
+  ``DecentralizedTrainer`` (a round's batches copied to the device, its
+  mix, an evaluation every ``eval_every`` rounds); the wall-clock
+  baseline the sweep engine is compared against.
+* :func:`run_sweep_cells` — the batched path.  A figure is a grid of
+  declarative :class:`SweepCell` objects, grouped by program shape
+  (:func:`group_cells`: dataset, node count, robust rule); each group runs
+  as ONE ``core.sweep.SweepEngine`` program, the experiments on its batch
+  axis: cells that share a data configuration (seed × OOD placement)
+  share a row of the sample bank, each cell's coefficients come from its
+  coefficient program (materialized to a stack, or generated round by
+  round with ``coeff_mode="program"``), and each row gets the host
+  summary (``propagation_summary``), the streaming analytics digest with
+  its deviation from the host oracle (``stream_vs_host_max_dev``), and
+  the participation and fault digests.
 
 Scales: :data:`QUICK` and :data:`FULL` (the paper's n = 33, R = 40,
 E_local = 5).  Models: the three rows of Table 1 — the FFN (MNIST,
 FMNIST), VGG-16 (CIFAR-10/100) and GPT-2 cut to one layer (TinyMem).
-The legacy per-cell loop ``run_experiment`` is not ported (the engine's
-``unroll_eval`` mode replaces it).  Everything runs on the card unless
-``device="cpu"`` is asked for.
+Everything runs on the card unless ``device="cpu"`` is asked for.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from repro_torch.core.coeffs import (
 )
 from repro_torch.core.decentralized import (
     DecentralizedConfig,
+    DecentralizedTrainer,
     coeffs_stack,
     stack_params,
 )
@@ -75,7 +81,7 @@ __all__ = ["DATASET_SETUP", "BenchScale", "QUICK", "FULL",
            "DEFAULT_ARRIVAL_THRESHOLD", "SweepCell", "linkfail_cells",
            "multisource_cells", "edges_cells", "participation_cells",
            "byzantine_cells", "group_cells", "run_sweep_cells", "csv_row",
-           "cell_data"]
+           "cell_data", "run_experiment"]
 
 # Table 1 of the paper: model and optimizer per dataset (VGG at a quarter
 # of its width, as the reference's drivers run it)
@@ -135,6 +141,48 @@ def _data(dataset: str, n_train: int, n_test: int, seed: int):
     train = make_dataset(dataset, n_train, seed=seed)
     test = make_dataset(dataset, n_test, seed=seed + 9999)
     return train, test
+
+
+def run_experiment(dataset: str, topo: Topology, strategy: str,
+                   ood_k: int = 1, tau: float = 0.1, seed: int = 0,
+                   scale: BenchScale = QUICK, alpha_l: float = 1000.0,
+                   alpha_s: float = 1000.0,
+                   ood_ks: Optional[Tuple[int, ...]] = None, *,
+                   device=None, mix_impl: str = "einsum") -> Dict:
+    """One cell through the per-round loop → its summary row.
+
+    ``ood_k`` puts the OOD data on the k-th highest-degree node;
+    ``ood_ks`` overrides it with several degree ranks at once (the
+    placement of ``SweepCell.ood_ks``, so the loop stays a baseline for
+    multi-source grids).  ``alpha_l``/``alpha_s`` are the label and size
+    Dirichlet skews of the split (paper B.2.1).  ``device`` (None: the
+    card, raising without one) and ``mix_impl`` (the trainer's backend:
+    ``"pallas"`` one fused-plane launch a round, ``"edges"`` the edge-list
+    kernel) are the port's."""
+    t0 = time.time()
+    ood_nodes = tuple(topo.kth_highest_degree_node(k)
+                      for k in (ood_ks or (ood_k,)))
+    nb, tb, ob = cell_data(dataset, topo.n_nodes, seed, ood_nodes, scale,
+                           scale.steps_per_epoch, alpha_l, alpha_s)
+    init, loss_fn, acc_fn, opt = _model_fns(dataset)
+    params = stack_params([init(seed)] * topo.n_nodes)
+    trainer = DecentralizedTrainer(
+        topo, AggregationStrategy(strategy, tau=tau, seed=seed), opt,
+        loss_fn, acc_fn,
+        DecentralizedConfig(rounds=scale.rounds,
+                            local_epochs=scale.local_epochs,
+                            eval_every=scale.eval_every, unroll_eval=True,
+                            mix_impl=mix_impl),
+        data_counts=nb.data_counts(), device=device)
+    _, hist = trainer.run(params, nb.round_batches, tb, ob)
+    summary = propagation_summary(hist, topo.adjacency, ood_nodes)
+    summary.update(
+        dataset=dataset, topology=topo.name, strategy=strategy, ood_k=ood_k,
+        ood_node=(ood_nodes[0] if len(ood_nodes) == 1 else list(ood_nodes)),
+        seed=seed, secs=round(time.time() - t0, 1))
+    if ood_ks:
+        summary["ood_ks"] = list(ood_ks)
+    return summary
 
 
 def cell_data(dataset: str, n_nodes: int, seed: int,

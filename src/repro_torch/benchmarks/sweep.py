@@ -1,6 +1,6 @@
 """Batched experiment-sweep runner (port of ``benchmarks/sweep.py``):
 declarative figure grids over the sweep engine (``repro_torch.core.sweep``),
-with a wall-clock comparison against each cell run alone.
+with a wall-clock comparison against the legacy per-cell loop.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.sweep --list
   PYTHONPATH=src python -m repro_torch.benchmarks.sweep --preset fig4 --dry-run
@@ -17,10 +17,10 @@ on its experiment axis.  ``--dry-run`` prints the plan (groups,
 experiment counts, the sample bank's estimated size) and touches no
 device.  Runs take the CUDA card unless ``--device cpu`` is given.
 
-The legacy baseline is the reference's one ``run_experiment`` (a per-cell
-Python loop) per cell; the port has no such loop, so its baseline runs
-each cell alone (E = 1) through the engine's unrolled mode with the
-grid's backend, fault spec and coefficient mode.  Records go to
+The legacy baseline is one ``run_experiment`` (Algorithm 1 as a per-round
+host loop over ``DecentralizedTrainer``) a cell, with the grid's backend
+and device; ``programs`` presets skip it, as the reference's CLI does.
+Records go to
 ``<out>/BENCH_sweep.json`` (``artifacts_torch/`` by default) under the
 reference's section keys, and the rows to ``<out>/sweep_<preset>.json``.
 
@@ -70,6 +70,7 @@ from repro_torch.benchmarks.common import (
     linkfail_cells,
     multisource_cells,
     participation_cells,
+    run_experiment,
     run_sweep_cells,
 )
 from repro_torch.core.coeffs import program_for, state_nbytes
@@ -360,19 +361,20 @@ def plan(cells, scale) -> str:
     return "\n".join(lines)
 
 
-def run_legacy_baseline(cells, scale, log=print, **sweep_kwargs
-                        ) -> List[dict]:
-    """The baseline the engine's grid is timed against: each cell alone
-    (E = 1) through the engine's unrolled mode, the port's replacement
-    for the reference's per-cell ``run_experiment`` loop.
-    ``sweep_kwargs`` pass to ``run_sweep_cells`` (``device``,
-    ``mix_impl``, ``fault``, ...)."""
+def run_legacy_baseline(cells, scale, log=print, device=None,
+                        mix_impl: str = "einsum") -> List[dict]:
+    """The pre-engine path the grid is timed against: one
+    ``run_experiment`` (Algorithm 1 as a per-round host loop) a cell, on
+    its dataset, graph, strategy, OOD ranks, τ and seed, with the grid's
+    ``mix_impl`` and ``device``.  As the reference's loop, it ignores the
+    cell's fault rate, participation rate, robust rule, ``p_fail`` and
+    ``reactive``."""
     rows = []
     for cell in cells:
-        t0 = time.time()
-        r = run_sweep_cells([cell], scale=scale, unroll_eval=True,
-                            **sweep_kwargs)[0]
-        r["secs"] = round(time.time() - t0, 1)
+        r = run_experiment(cell.dataset, cell.topo, cell.strategy,
+                           ood_k=cell.ood_k, ood_ks=cell.ood_ks,
+                           tau=cell.tau, seed=cell.seed, scale=scale,
+                           device=device, mix_impl=mix_impl)
         log(f"  legacy {cell.label}: {r['secs']}s "
             f"ood_auc={r['ood_auc']:.3f}")
         rows.append(r)
@@ -683,7 +685,8 @@ def _run(args, preset, cells, scale, n_nodes, datasets, seeds, mesh,
               "compare against the materialized-stack engine run instead)")
     elif not args.no_legacy and lead:
         t0 = time.time()
-        run_legacy_baseline(cells, **common)
+        run_legacy_baseline(cells, scale, device=device,
+                            mix_impl=preset.mix_impl)
         legacy_secs = time.time() - t0
         print(f"legacy per-config loop: {len(cells)} experiments in "
               f"{legacy_secs:.1f}s wall-clock "

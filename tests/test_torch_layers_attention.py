@@ -102,3 +102,64 @@ def test_attention_decode_matches_reference(arch, kind):
             REL_TOL * float(np.abs(ref).max()), pos
         assert float(np.abs(new_k - np.asarray(want[1])).max()) <= K_ATOL
         np.testing.assert_array_equal(new_v, np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("arch,kind", [c for c in CASES if c[1] == "global"])
+def test_attention_decode_past_a_full_global_cache(arch, kind):
+    """A global layer at positions ≥ T (a full cache).  The port writes at
+    ``min(position, T − 1)``, as the reference's transformer decode does
+    (``transformer._attn_decode_traced``): equal to it.  The reference's
+    standalone ``layers.attention_decode`` one-hots ``position`` and so
+    writes nowhere: its caches come back unchanged.  The two differ only
+    in the last slot, which holds the new token's key and value in the
+    port and the old ones in the reference; with that slot given the
+    port's contents, the reference's output is the port's.  Measured: the
+    outputs within 4.4e-7·max|ref| of the transformer decode and of the
+    standalone function given the port's last slot, the key cache within
+    4.8e-7 (pinned at ``REL_TOL``, ``K_ATOL``); against the standalone
+    function on the unchanged cache the outputs part by 0.16–0.55·max|ref|
+    (held above 1e-2)."""
+    from repro.models.transformer import _attn_decode_traced
+
+    jcfg, tcfg, attn, port = _layer0_attn(arch)
+    kv, hd = jcfg.n_kv_heads, jcfg.head_dim_
+    rng = np.random.default_rng(3)
+    cache_k, cache_v = (rng.standard_normal((B, T, kv, hd)).astype(np.float32)
+                        for _ in range(2))
+    x = _x(jcfg.d_model, (B, 1), 4)
+    jattn = jax.tree.map(jnp.asarray, attn)
+    for pos in (np.array([T, T + 5], np.int32),
+                np.array([T + 3, 2 * T + 1], np.int32)):
+        got = tl.attention_decode(
+            port, tcfg, torch.as_tensor(x)[None],
+            torch.as_tensor(cache_k)[None], torch.as_tensor(cache_v)[None],
+            torch.as_tensor(pos)[None], kind)
+        out, new_k, new_v = (g[0].numpy() for g in got)
+        tf = [np.asarray(w) for w in _attn_decode_traced(
+            jattn, jcfg, jnp.asarray(x), jnp.asarray(cache_k),
+            jnp.asarray(cache_v), jnp.asarray(pos), 0)]
+        assert float(np.abs(out - tf[0]).max()) <= \
+            REL_TOL * float(np.abs(tf[0]).max()), pos
+        assert float(np.abs(new_k - tf[1]).max()) <= K_ATOL
+        np.testing.assert_array_equal(new_v, tf[2])
+        # the standalone reference function: caches unchanged
+        ly = [np.asarray(w) for w in jl.attention_decode(
+            jattn, jcfg, jnp.asarray(x), jnp.asarray(cache_k),
+            jnp.asarray(cache_v), jnp.asarray(pos), kind)]
+        np.testing.assert_array_equal(ly[1], cache_k)
+        np.testing.assert_array_equal(ly[2], cache_v)
+        assert float(np.abs(out - ly[0]).max()) > \
+            1e-2 * float(np.abs(ly[0]).max()), pos
+        # ... so the port's caches differ from it in the last slot alone
+        np.testing.assert_array_equal(new_k[:, :T - 1], cache_k[:, :T - 1])
+        np.testing.assert_array_equal(new_v[:, :T - 1], cache_v[:, :T - 1])
+        assert not np.array_equal(new_v[:, T - 1], cache_v[:, T - 1])
+        # and with the port's last slot, the reference's output is the
+        # port's
+        k_last, v_last = cache_k.copy(), cache_v.copy()
+        k_last[:, T - 1], v_last[:, T - 1] = new_k[:, T - 1], new_v[:, T - 1]
+        ly = np.asarray(jl.attention_decode(
+            jattn, jcfg, jnp.asarray(x), jnp.asarray(k_last),
+            jnp.asarray(v_last), jnp.asarray(pos), kind)[0])
+        assert float(np.abs(out - ly).max()) <= \
+            REL_TOL * float(np.abs(ly).max()), pos

@@ -548,14 +548,37 @@ def test_fig4_tiny_run_matches_the_reference_rows(monkeypatch):
 
 def test_tinymem_and_the_legacy_loop_raise():
     """TinyMem trains GPT-2 cut to one layer with Adam 1e-3 (Table 1;
-    its parity is ``tests/test_torch_lm.py``'s); the legacy per-cell loop
-    still raises."""
+    its parity is ``tests/test_torch_lm.py``'s).  The legacy link-failure
+    loop (``run_link_failure(in_scan=False)``) no longer raises: it
+    returns the reference's rows (keys, labels and AUCs; measured 0.0
+    apart, pinned at 1e-6; ``tests/test_torch_legacy_loop.py`` holds its
+    histories)."""
+    import benchmarks.ablations as jab
+    import benchmarks.common as jc
+
     from repro_torch.benchmarks import ablations, common
 
     init, loss, acc, opt = common._model_fns("tinymem")
     assert callable(loss) and callable(acc.working_bytes)
     assert common.DATASET_SETUP["tinymem"] == dict(model="gpt2",
                                                    opt=("adam", 1e-3))
-    with pytest.raises(NotImplementedError, match="run_experiment"):
-        ablations.run_link_failure(in_scan=False)
     assert dataclasses.asdict(common.FULL)["rounds"] == 40
+    sizes = dict(n_train=200, n_test=50, rounds=2, local_epochs=1, batch=8,
+                 steps_per_epoch=2, eval_every=1, eval_n=32)
+    kw = dict(p_fails=(0.5,), strategies=("degree",), n_nodes=4,
+              log=lambda *a: None)
+    init = jax.jit(jm.ffn_init)
+    want = jab.run_link_failure(in_scan=False,
+                                scale=jc.BenchScale(**sizes), **kw)
+    got = ablations.run_link_failure(
+        in_scan=False, scale=common.BenchScale(**sizes), device="cpu",
+        init_fn=lambda ds, seed: params_from_jax(
+            jax.tree.map(np.asarray, init(jax.random.key(seed))), "cpu"),
+        **kw)
+    assert len(got) == len(want) == 1
+    for a, b in zip(got, want):
+        assert set(a) == set(b)
+        for k in ("strategy", "p_fail", "seed", "reactive", "ood_sources"):
+            assert a[k] == b[k], k
+        for k in ("iid_auc", "ood_auc", "final_ood_acc_mean"):
+            assert abs(a[k] - b[k]) <= 1e-6, k

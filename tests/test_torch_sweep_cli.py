@@ -6,8 +6,8 @@ QUICK and FULL scales, ``--list``, ``--dry-run`` and the verdict lines on
 fixed rows equal the reference's exactly.  One end-to-end run:
 ``--preset fig4 --smoke`` on the CPU gives the rows of
 ``run_sweep_cells`` on the same cells and the reference's record keys,
-and the legacy baseline (each cell alone through the engine's unrolled
-mode) holds to the grid.  ``--shard`` under gloo at worlds 2 and 4
+and the legacy baseline (one ``run_experiment`` a cell, the trainer's
+per-round loop) holds to the grid.  ``--shard`` under gloo at worlds 2 and 4
 (ranks spawned): rows equal to the unsharded run's, the reference's
 ``sharded/<preset>`` record keys, ``--shard-scale``'s crossover record;
 its refusals, and the default device without a GPU, raise.  The
@@ -133,9 +133,10 @@ ROW_KEYS = {"analytics", "dataset", "final_ood_acc_by_hop",
             "ood_arrival_by_hop", "ood_arrival_mean", "ood_auc", "ood_k",
             "ood_node", "ood_sources", "secs", "seed", "strategy",
             "sweep_group_size", "sweep_secs", "topology"}
-# Measured: the legacy baseline (each cell alone, E = 1, unrolled) and
-# the E = 6 grid give the same AUCs bit for bit on the CPU (0.0 apart).
-# Pinned at 1e-6, the engine tests' accuracy pin.
+# Measured: the legacy baseline (one run_experiment a cell: the trainer's
+# per-round loop) and the E = 6 grid give the same AUCs and final OOD
+# accuracies bit for bit on the CPU (0.0 apart).  Pinned at 1e-6, the
+# engine tests' accuracy pin.
 LEGACY_DRIFT = 1e-6
 
 
@@ -153,7 +154,9 @@ def test_fig4_smoke_run_end_to_end(tmp_path, capsys):
     its rows equal ``run_sweep_cells`` on the preset's cells; the records
     (``BENCH_sweep.json``, the analytics mirror, ``sweep_fig4.json``)
     carry the reference's keys; its legacy-baseline lines are logged, and
-    the baseline's rows hold to the grid's within ``LEGACY_DRIFT``."""
+    the baseline's rows (``run_experiment``'s keys: the grid's without its
+    analytics and group fields) hold to the grid's within
+    ``LEGACY_DRIFT``."""
     argv = ["--preset", "fig4", "--smoke", "--seeds", "0", "--datasets",
             "mnist", "--device", "cpu", "--out", str(tmp_path)]
     rows = tsweep.main(argv)
@@ -176,6 +179,8 @@ def test_fig4_smoke_run_end_to_end(tmp_path, capsys):
     legacy = tsweep.run_legacy_baseline(cells, tsweep.SMOKE,
                                         log=lambda *a: None, device="cpu")
     for a, b in zip(legacy, direct):
+        assert set(a) == ROW_KEYS - {"analytics", "sweep_group_size",
+                                     "sweep_secs"}
         for k in ("iid_auc", "ood_auc", "final_ood_acc_mean"):
             assert abs(a[k] - b[k]) <= LEGACY_DRIFT, (a["strategy"], k)
 
